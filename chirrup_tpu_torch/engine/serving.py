@@ -1,0 +1,308 @@
+"""ServingModel — the device-side half of the continuous-batching engine (the
+decode slice).
+
+The whole batch lives in one `BatchCarry` of device tensors that the step
+functions update IN PLACE (the JAX package threads a functional carry through
+jitted programs with donated buffers; here the buffers are simply written):
+
+  decode_step:  one token for every active slot (decode + token-by-token
+                prefill), penalties, rwkv-pip-compatible sampling;
+  decode_block: K decode steps with the sampled tokens fed back on the device
+                (carry.last_sampled) and one host read of the result per block;
+  insert_slot / insert_slots_batched / reset_slot / extract_slot: per-request
+                state entry and exit.
+
+Shapes never depend on occupancy: slots are masked, never moved.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Dict, Optional, Sequence
+
+import numpy as np
+import torch
+
+from chirrup_tpu_torch import resolve_device
+from chirrup_tpu_torch.engine.structures import NO_PENALTY_TOKEN_IDS, RequestState
+from chirrup_tpu_torch.models import rwkv7 as model
+from chirrup_tpu_torch.models.config import RWKV7Config, RuntimeConfig
+from chirrup_tpu_torch.models.rwkv7 import RWKVState
+from chirrup_tpu_torch.ops import mm8
+from chirrup_tpu_torch.ops.sampling_cuda import penalty_tail, sample_from_chunks
+
+
+@dataclasses.dataclass
+class BatchCarry:
+    """All per-slot device state of one worker batch."""
+
+    state: RWKVState               # shift (L,2,B,C), wkv (L,B,N,HN), elapsed (B,)
+    occurrence: torch.Tensor       # (B, V) f32
+    presence_vec: torch.Tensor     # (B, V) f32 — presence-penalty bias PLUS 1e10 at
+                                   # forbidden ids (folded in at slot insert, so a
+                                   # step reads one bias buffer; forbidden ids are
+                                   # never sampled, so no record overwrites them)
+    temperature: torch.Tensor      # (B,) f32
+    top_p: torch.Tensor            # (B,) f32
+    top_k: torch.Tensor            # (B,) i32
+    frequency_penalty: torch.Tensor  # (B,) f32
+    presence_penalty: torch.Tensor   # (B,) f32
+    penalty_decay: torch.Tensor      # (B,) f32
+    last_sampled: torch.Tensor     # (B,) i32 — device-resident decode feedback
+    rng: torch.Generator
+
+
+def forbidden_bias_row(forbidden_ids, V) -> np.ndarray:
+    """Forbidden set -> (V,) f32 host bias with 1e10 at the forbidden ids;
+    out-of-range ids are ignored."""
+    bias = np.zeros((V,), np.float32)
+    ids = np.asarray(list(forbidden_ids), np.int64)
+    if ids.size:
+        bias[ids[(ids >= 0) & (ids < V)]] = 1e10
+    return bias
+
+
+def _is_quantized(tree) -> bool:
+    if isinstance(tree, dict):
+        return any(_is_quantized(v) for v in tree.values())
+    return isinstance(tree, (mm8.Mm8Weight, mm8.Mm8MultiWeight))
+
+
+def _quantize_params(params):
+    """INT8-quantize the big matmul weights (att R/K/V/O, ffn K/V, head); the
+    embedding, norms and LoRA projections stay dense."""
+    blocks = dict(params["blocks"])
+    att = dict(blocks["att"])
+    ffn = dict(blocks["ffn"])
+    for k in ("Wr", "Wk", "Wv", "Wo"):
+        att[k] = mm8.quantize_stacked(att[k])
+    for k in ("Wk", "Wv"):
+        ffn[k] = mm8.quantize_stacked(ffn[k])
+    blocks["att"], blocks["ffn"] = att, ffn
+    return {**params, "blocks": blocks, "head": mm8.quantize(params["head"])}
+
+
+def _merge_att_rkv(params):
+    """Merge the stacked att R/K/V Mm8Weights into one Mm8MultiWeight (with the
+    (L, 3, C) stack of their token-shift mixes), so a layer computes all three
+    in one quantize + one GEMM launch. No-op unless all three are quantized."""
+    att = params["blocks"]["att"]
+    ws = [att.get(k) for k in ("Wr", "Wk", "Wv")]
+    if not all(isinstance(w, mm8.Mm8Weight) for w in ws):
+        return params
+    att = {k: v for k, v in att.items() if k not in ("Wr", "Wk", "Wv")}
+    att["Wrkv"] = mm8.merge_stacked(ws)
+    att["mu_rkv"] = torch.stack([att["x_r"], att["x_k"], att["x_v"]], dim=1)
+    return {**params, "blocks": {**params["blocks"], "att": att}}
+
+
+def _pack_att_lora(params):
+    """Pack the four TMix LoRA chains (decay w, iclr a, v-gate v, gate g) into
+    (L, 4, C, D) / (L, 4, D, C) tensors plus the (L, 4, C) stack of their
+    token-shift mixes: two batched matmuls per layer instead of eight narrow
+    ones. Zero-padding to the common D is exact (padded stage-1 columns meet
+    zero stage-2 rows)."""
+    att = dict(params["blocks"]["att"])
+    names1, names2 = ("w1", "a1", "v1", "g1"), ("w2", "a2", "v2", "g2")
+    if not all(n in att for n in names1 + names2):
+        return params
+    D = max(att[n].shape[2] for n in names1)
+    att["lora1"] = torch.stack(
+        [torch.nn.functional.pad(att[n], (0, D - att[n].shape[2])) for n in names1], dim=1)
+    att["lora2"] = torch.stack(
+        [torch.nn.functional.pad(att[n], (0, 0, 0, D - att[n].shape[1])) for n in names2],
+        dim=1)
+    att["mu_lora"] = torch.stack([att["x_w"], att["x_a"], att["x_v"], att["x_g"]], dim=1)
+    for n in names1 + names2:
+        del att[n]
+    return {**params, "blocks": {**params["blocks"], "att": att}}
+
+
+class ServingModel:
+    """Owns prepared parameters and the step functions for one worker."""
+
+    def __init__(self, config: RWKV7Config, params: Dict[str, Any],
+                 runtime: RuntimeConfig, batch_size: int, *, device=None, seed: int = 0):
+        self.config = config
+        self.runtime = runtime
+        self.batch_size = batch_size
+        self.device = resolve_device(device)
+        params = model.cast_dense(params, device=self.device)
+        if runtime.quantization == "int8" and not _is_quantized(params):
+            params = _quantize_params(params)
+        params = _pack_att_lora(_merge_att_rkv(params))
+        self.params = model.cast_dense(params, runtime.activation_dtype)
+        self._no_penalty_ids = torch.tensor(sorted(NO_PENALTY_TOKEN_IDS),
+                                            dtype=torch.int32, device=self.device)
+        self._seed = seed
+
+    # ------------------------------------------------------------------ carry
+
+    def init_carry(self) -> BatchCarry:
+        cfg, rt, B, dev = self.config, self.runtime, self.batch_size, self.device
+        V = cfg.vocab_size
+        f32 = torch.float32
+        return BatchCarry(
+            state=model.init_state(cfg, B, shift_dtype=rt.activation_dtype,
+                                   wkv_dtype=rt.wkv_state_dtype, device=dev),
+            occurrence=torch.zeros((B, V), dtype=f32, device=dev),
+            presence_vec=torch.zeros((B, V), dtype=f32, device=dev),
+            temperature=torch.ones((B,), dtype=f32, device=dev),
+            top_p=torch.full((B,), 0.3, dtype=f32, device=dev),
+            top_k=torch.zeros((B,), dtype=torch.int32, device=dev),
+            frequency_penalty=torch.zeros((B,), dtype=f32, device=dev),
+            presence_penalty=torch.zeros((B,), dtype=f32, device=dev),
+            penalty_decay=torch.ones((B,), dtype=f32, device=dev),
+            last_sampled=torch.full((B,), -1, dtype=torch.int32, device=dev),
+            rng=torch.Generator(device=dev).manual_seed(self._seed))
+
+    def _upload(self, arr, dtype) -> torch.Tensor:
+        """Host array -> device tensor without a host synchronisation (pinned
+        staging buffer, asynchronous copy on the current stream)."""
+        t = torch.from_numpy(np.ascontiguousarray(arr)).to(dtype)
+        if self.device.type == "cuda":
+            t = t.pin_memory()
+        return t.to(self.device, non_blocking=True)
+
+    # ------------------------------------------------------------ step bodies
+
+    def _decode_step_impl(self, carry: BatchCarry, host_tokens, feedback_mask,
+                          active_mask, decode_mask):
+        """One token step over the whole batch (device tensors in, device out).
+
+        host_tokens: (B,) int32 input token per slot (ignored where inactive).
+        feedback_mask: slots whose input is the previous step's on-device sample.
+        active_mask: slots whose state advances (decode + token-by-token prefill).
+        decode_mask: the subset that gets penalties and sampling.
+
+        Returns (carry, sampled (B,) int32 [-1 where not decoding], raw logits
+        (B, V) pre-penalty)."""
+        last = carry.last_sampled
+        tokens = torch.where(feedback_mask, last.clamp_min(0), host_tokens)
+        logits, _ = model.forward_step(
+            self.params, tokens, carry.state, active=active_mask,
+            compute_dtype=self.runtime.activation_dtype,
+            use_dither=self.runtime.use_dither)
+        # record the PREVIOUS sample (deferred through last_sampled), decay,
+        # penalties, logsumexp and per-chunk candidates in one pass
+        no_penalty = (last[:, None] == self._no_penalty_ids[None, :]).any(-1)
+        upd = decode_mask & (last >= 0) & ~no_penalty
+        _, _, cval, cidx, lse = penalty_tail(
+            logits, carry.occurrence, carry.presence_vec, carry.penalty_decay,
+            carry.frequency_penalty, carry.presence_penalty, last, upd, decode_mask)
+        sampled = sample_from_chunks(
+            cval, cidx, lse, carry.temperature, carry.top_p, carry.top_k, carry.rng,
+            (logits, carry.presence_vec, carry.occurrence, carry.frequency_penalty),
+            row_mask=decode_mask, k_max=self.runtime.sampler_k_max)
+        sampled = torch.where(decode_mask, sampled, -1)
+        last.copy_(torch.where(decode_mask, sampled, last))
+        return carry, sampled, logits
+
+    # ------------------------------------------------------------- public API
+
+    def decode_step(self, carry, tokens, active_mask, decode_mask, feedback_mask=None):
+        """One step; host (B,) arrays in. Returns (carry, sampled (B,) int32,
+        raw logits (B, V)) as device tensors."""
+        B = self.batch_size
+        if feedback_mask is None:
+            feedback_mask = np.zeros((B,), bool)
+        return self._decode_step_impl(
+            carry, self._upload(np.asarray(tokens), torch.int32),
+            self._upload(np.asarray(feedback_mask), torch.bool),
+            self._upload(np.asarray(active_mask), torch.bool),
+            self._upload(np.asarray(decode_mask), torch.bool))
+
+    def decode_block(self, carry, tokens, feedback_mask, active_mask, decode_mask,
+                     stop_votes=None, logit_rows=None):
+        """K steps in one call; (K, B) host arrays in. DECODE slots chain through
+        the on-device last_sampled, so the block needs no host read: the caller
+        reads the returned (K, B) tokens once.
+
+        stop_votes: optional (B,) or (B, 2) int votes, summed per column;
+        logit_rows: optional (M,) slot rows whose per-step raw logits are
+        gathered. Returns (carry, sampled (K, B) int32, vote sums (2,)
+        [, marked logits (K, M, V)]), all device tensors."""
+        B = self.batch_size
+        if stop_votes is None:
+            stop_votes = np.zeros((B, 2), np.int32)
+        stop_votes = np.asarray(stop_votes, np.int32)
+        if stop_votes.ndim == 1:
+            stop_votes = np.stack([stop_votes, np.zeros_like(stop_votes)], axis=1)
+        host = (np.asarray(tokens, np.int32), np.asarray(feedback_mask, bool),
+                np.asarray(active_mask, bool), np.asarray(decode_mask, bool), stop_votes)
+        if logit_rows is not None:
+            host += (np.asarray(logit_rows, np.int64),)
+        dtypes = (torch.int32, torch.bool, torch.bool, torch.bool, torch.int32, torch.int64)
+        dev = tuple(self._upload(a, d) for a, d in zip(host, dtypes))
+        toks, fb, act, dec, votes = dev[:5]
+        K = toks.shape[0]
+        sampled = torch.empty((K, B), dtype=torch.int32, device=self.device)
+        marked = None
+        for k in range(K):
+            carry, s, raw = self._decode_step_impl(carry, toks[k], fb[k], act[k], dec[k])
+            sampled[k].copy_(s)
+            if logit_rows is not None:
+                if marked is None:
+                    marked = torch.empty((K, dev[5].shape[0], raw.shape[1]),
+                                         dtype=torch.float32, device=self.device)
+                marked[k].copy_(raw.index_select(0, dev[5]))
+        vote_sums = votes.sum(0)
+        if logit_rows is None:
+            return carry, sampled, vote_sums
+        return carry, sampled, vote_sums, marked
+
+    def insert_slot(self, carry: BatchCarry, slot: int,
+                    request_state: Optional[RequestState], task) -> BatchCarry:
+        """Load one request into a slot: its recurrent state (zeros when
+        request_state is None), sampling parameters and forbidden-token bias."""
+        st = carry.state
+        if request_state is None:
+            st.shift[:, :, slot].zero_()
+            st.wkv[:, slot].zero_()
+            st.elapsed[slot] = 0
+        else:
+            st.shift[:, :, slot].copy_(torch.from_numpy(
+                np.asarray(request_state.shift, np.float32)).to(st.shift.dtype))
+            st.wkv[:, slot].copy_(torch.from_numpy(
+                np.asarray(request_state.wkv, np.float32)).to(st.wkv.dtype))
+            st.elapsed[slot] = int(request_state.elapsed)
+        carry.occurrence[slot].zero_()
+        carry.presence_vec[slot].copy_(torch.from_numpy(
+            forbidden_bias_row(task.forbidden_tokens, self.config.vocab_size)))
+        self._set_params(carry, slot, task)
+        return carry
+
+    def _set_params(self, carry: BatchCarry, slot: int, task) -> None:
+        carry.temperature[slot] = float(task.temperature)
+        carry.top_p[slot] = float(task.top_p)
+        carry.top_k[slot] = int(task.top_k)
+        carry.frequency_penalty[slot] = float(task.frequency_penalty)
+        carry.presence_penalty[slot] = float(task.presence_penalty)
+        carry.penalty_decay[slot] = float(task.penalty_decay)
+        carry.last_sampled[slot] = -1
+
+    def insert_slots_batched(self, carry: BatchCarry, mask, tasks: Sequence) -> BatchCarry:
+        """Admit fresh (zero-state) requests into every masked slot: tasks[i] is
+        the Task of masked slot i (None elsewhere)."""
+        for i in np.flatnonzero(np.asarray(mask, bool)):
+            self.insert_slot(carry, int(i), None, tasks[i])
+        return carry
+
+    def reset_slot(self, carry: BatchCarry, slot: int) -> BatchCarry:
+        """Zero a slot's state and restore default sampling parameters."""
+
+        class _Defaults:
+            temperature, top_p, top_k = 1.0, 1.0, 0
+            frequency_penalty, presence_penalty, penalty_decay = 0.0, 0.0, 1.0
+            forbidden_tokens = ()
+
+        return self.insert_slot(carry, slot, None, _Defaults)
+
+    def extract_slot(self, carry: BatchCarry, slot: int) -> RequestState:
+        """Snapshot a slot's recurrent state to host (float32 numpy; the
+        bf16 -> f32 -> bf16 round trip through insert_slot is exact)."""
+        st = carry.state
+        return RequestState(
+            shift=st.shift[:, :, slot].to(torch.float32).cpu().numpy(),
+            wkv=st.wkv[:, slot].to(torch.float32).cpu().numpy(),
+            elapsed=int(st.elapsed[slot]))

@@ -1,0 +1,378 @@
+"""Continuous-batching worker: one thread driving one device.
+
+Slots are never physically reordered: the step functions take boolean masks
+over a fixed-size batch, so a slot's position never changes and nothing is
+copied. This slice has no chunked prefill: every prompt is admitted as
+ONE_PREFILL and fed token by token through the decode block (or straight to
+DECODE for a one-token prompt). Each loop dispatches one decode block of K
+steps (K > 1 on the GPU, where a block amortises the host's per-step work) and
+then reads the previous block's sampled tokens, once per block.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import enum
+import queue
+import threading
+import time
+import traceback
+from collections import deque
+from typing import Any, Callable, Dict, List, Optional, Tuple
+
+import numpy as np
+import torch
+
+from chirrup_tpu_torch.engine.serving import ServingModel
+from chirrup_tpu_torch.engine.structures import RequestStatus, Task
+from chirrup_tpu_torch.utils.tokenizer import StreamingDecoder, WorldTokenizer
+
+# steps per dispatch on the GPU (the CPU runs single steps)
+GPU_DECODE_BLOCK = 16
+
+
+class SlotPhase(enum.IntEnum):
+    EMPTY = 0
+    ONE_PREFILL = 2   # token-by-token prompt ingestion through the decode block
+    DECODE = 3        # sampling
+
+
+@dataclasses.dataclass
+class SlotData:
+    task: Optional[Task] = None
+    phase: SlotPhase = SlotPhase.EMPTY
+    next_input: Optional[int] = None
+    decoder: Optional[StreamingDecoder] = None
+    # True once the slot's decode input comes from the device-side feedback
+    # (BatchCarry.last_sampled) instead of a host-provided token
+    use_feedback: bool = False
+
+
+@dataclasses.dataclass
+class _PendingStep:
+    """A dispatched decode step/block whose sampled tokens have not been read yet."""
+
+    sampled: Any         # (B,) for single steps, (K, B) for blocks — device tensors
+    raw_logits: Any      # (B, V) for single steps, None for blocks
+    decode_slots: List[Tuple[int, str]]  # (slot index, task_id at dispatch)
+
+
+class Worker:
+    """Runs the continuous-batching loop in its own thread."""
+
+    def __init__(self, worker_id: str,
+                 model_factory: Callable[[], Tuple[ServingModel, WorldTokenizer]],
+                 task_queue: "queue.Queue[Task]", master_event_queue: queue.Queue,
+                 worker_event_queue: Any, batch_size: int = 32,
+                 decode_block_size: Optional[int] = None, idle_sleep: float = 0.05):
+        self.worker_id = worker_id
+        self._model_factory = model_factory
+        self.task_queue = task_queue
+        self.master_event_queue = master_event_queue
+        self.worker_event_queue = worker_event_queue
+        self.batch_size = batch_size
+        self.decode_block_size = decode_block_size  # None = by device
+        self.idle_sleep = idle_sleep
+
+        self.slots: List[SlotData] = [SlotData() for _ in range(batch_size)]
+        self.model: Optional[ServingModel] = None
+        self.tokenizer: Optional[WorldTokenizer] = None
+        self.carry = None
+        self.shutdown_flag = False
+        self._loop_times: deque = deque(maxlen=10)
+        self.loop_count = 0
+        self._pending: Optional[_PendingStep] = None
+
+    # ------------------------------------------------------------------ setup
+
+    def _init_worker(self):
+        self.model, self.tokenizer = self._model_factory()
+        self.carry = self.model.init_carry()
+        if self.decode_block_size is None:
+            self.decode_block_size = (GPU_DECODE_BLOCK if self.model.device.type == "cuda"
+                                      else 1)
+
+    def _emit_worker_event(self, kind: str, payload: Dict):
+        if self.worker_event_queue is not None:
+            self.worker_event_queue.put_nowait((self.worker_id, kind, payload))
+
+    # ------------------------------------------------------------- lifecycle
+
+    def _process_master_events(self) -> bool:
+        while True:
+            try:
+                event = self.master_event_queue.get_nowait()
+            except queue.Empty:
+                return False
+            if isinstance(event, dict) and event.get("type") == "shutdown":
+                self.shutdown_flag = True
+                return True
+
+    @staticmethod
+    def _is_aborted(task: Task) -> bool:
+        try:
+            event_type, _ = task.task_event_queue.get_nowait()
+            return event_type == "abort"
+        except queue.Empty:
+            return False
+
+    def _finish_slot(self, idx: int):
+        """Free the slot. No device work: a freed slot is masked out of every
+        step, and the insert that reuses it reinitialises all its rows."""
+        task = self.slots[idx].task
+        task.output_queue.put_nowait(("task_completed", task))
+        self.slots[idx] = SlotData()
+
+    # ------------------------------------------------------------------ fill
+
+    def _fill_slots(self):
+        """Admit queued tasks into empty slots, all in one batched insert."""
+        batch_mask = np.zeros((self.batch_size,), bool)
+        batch_tasks: List[Optional[Task]] = [None] * self.batch_size
+        for idx in range(self.batch_size):
+            if self.slots[idx].phase != SlotPhase.EMPTY:
+                continue
+            try:
+                task = self.task_queue.get_nowait()
+            except queue.Empty:
+                break
+            if not task.prefill_tokens:
+                # an empty prompt fails itself, with a completion event
+                task.request_status = RequestStatus.FINISHED_ABORTED
+                task.output_queue.put_nowait(("task_completed", task))
+                continue
+            task.request_status = RequestStatus.RUNNING
+            next_input = task.prefill_tokens.pop(0)
+            batch_mask[idx] = True
+            batch_tasks[idx] = task
+            phase = SlotPhase.ONE_PREFILL if task.prefill_tokens else SlotPhase.DECODE
+            task.timing["admit"] = time.time()
+            self.slots[idx] = SlotData(task=task, phase=phase, next_input=next_input,
+                                       decoder=StreamingDecoder(self.tokenizer))
+        if batch_mask.any():
+            self.carry = self.model.insert_slots_batched(self.carry, batch_mask,
+                                                         batch_tasks)
+
+    # ---------------------------------------------------------------- forward
+
+    def _choose_block_size(self) -> int:
+        """K steps per dispatch; 1 while a slot wants per-step raw logits
+        (return_logits), which only single steps return."""
+        K = self.decode_block_size
+        if K <= 1:
+            return 1
+        for slot in self.slots:
+            if slot.phase != SlotPhase.EMPTY and slot.task.return_logits:
+                return 1
+        return K
+
+    def _dispatch_decode_block(self, K: int):
+        """Plan and dispatch K decode steps in one call. Prompt feeds and the
+        ONE_PREFILL -> DECODE transitions are known K steps ahead on the host;
+        DECODE inputs chain through the device-resident last_sampled."""
+        B = self.batch_size
+        tokens = np.zeros((K, B), np.int32)
+        feedback = np.zeros((K, B), bool)
+        active = np.zeros((K, B), bool)
+        decode = np.zeros((K, B), bool)
+        decode_slots: List[Tuple[int, str]] = []
+        n_active = n_decode = 0
+        for idx, slot in enumerate(self.slots):
+            if slot.phase == SlotPhase.EMPTY:
+                continue
+            task = slot.task
+            n_active += 1
+            phase = slot.phase
+            if phase == SlotPhase.DECODE:
+                n_decode += 1
+                decode_slots.append((idx, task.task_id))
+            for k in range(K):
+                active[k, idx] = True
+                if phase == SlotPhase.ONE_PREFILL:
+                    tokens[k, idx] = slot.next_input
+                    slot.next_input = task.prefill_tokens.pop(0)
+                    if not task.prefill_tokens:
+                        phase = SlotPhase.DECODE
+                else:
+                    decode[k, idx] = True
+                    if slot.use_feedback:
+                        feedback[k, idx] = True
+                    else:
+                        tokens[k, idx] = slot.next_input
+                        slot.use_feedback = True
+            if phase == SlotPhase.DECODE and slot.phase == SlotPhase.ONE_PREFILL:
+                slot.phase = SlotPhase.DECODE
+                decode_slots.append((idx, task.task_id))
+        self.carry, sampled, _ = self.model.decode_block(self.carry, tokens, feedback,
+                                                         active, decode)
+        self._pending = _PendingStep(sampled=sampled, raw_logits=None,
+                                     decode_slots=decode_slots)
+        return n_active, n_decode
+
+    def _dispatch_decode_step(self):
+        """One token step for every DECODE + ONE_PREFILL slot; DECODE slots read
+        their input from the previous step's on-device sample."""
+        B = self.batch_size
+        tokens = np.zeros((B,), np.int32)
+        feedback = np.zeros((B,), bool)
+        active = np.zeros((B,), bool)
+        decode = np.zeros((B,), bool)
+        decode_slots: List[Tuple[int, str]] = []
+        for idx, slot in enumerate(self.slots):
+            if slot.phase == SlotPhase.EMPTY:
+                continue
+            active[idx] = True
+            if slot.phase == SlotPhase.DECODE:
+                decode[idx] = True
+                decode_slots.append((idx, slot.task.task_id))
+                if slot.use_feedback:
+                    feedback[idx] = True
+                else:
+                    tokens[idx] = slot.next_input
+                    slot.use_feedback = True
+            else:
+                tokens[idx] = slot.next_input
+        self.carry, sampled, raw_logits = self.model.decode_step(
+            self.carry, tokens, active, decode, feedback)
+        for idx, slot in enumerate(self.slots):
+            if active[idx] and slot.phase == SlotPhase.ONE_PREFILL:
+                slot.next_input = slot.task.prefill_tokens.pop(0)
+                if not slot.task.prefill_tokens:
+                    slot.phase = SlotPhase.DECODE
+        self._pending = _PendingStep(sampled=sampled, raw_logits=raw_logits,
+                                     decode_slots=decode_slots)
+        return int(active.sum()), int(decode.sum())
+
+    def _process_pending(self):
+        """Read the previous dispatch's sampled tokens (the one host read of a
+        block) and stream them to their requests."""
+        pending, self._pending = self._pending, None
+        if pending is None:
+            return
+        sampled_np = pending.sampled.cpu().numpy()
+        if sampled_np.ndim == 1:
+            sampled_np = sampled_np[None, :]
+        for idx, task_id in pending.decode_slots:
+            slot = self.slots[idx]
+            task = slot.task
+            if task is None or task.task_id != task_id or task.is_finished():
+                continue  # slot was reset/aborted while the step was in flight
+            emitted: List[Tuple[int, str]] = []
+            t_first = time.time()
+            for k in range(sampled_np.shape[0]):
+                new_token = int(sampled_np[k, idx])
+                if new_token < 0:
+                    continue  # slot was still prefilling at step k of the block
+                if new_token in task.stop_tokens:
+                    task.request_status = RequestStatus.FINISHED_STOPPED
+                    break
+                new_text = slot.decoder.push(new_token)
+                task.timing.setdefault("first_token", t_first)
+                task.generated_tokens.append(new_token)
+                task.decoded_texts.append(new_text)
+                if task.return_logits and pending.raw_logits is not None:
+                    logits_row = pending.raw_logits[idx].to(torch.float32).cpu().numpy()
+                    task.output_queue.put_nowait(
+                        ("token_generated", (new_token, new_text, logits_row)))
+                else:
+                    emitted.append((new_token, new_text))
+                if task.max_tokens is not None \
+                        and len(task.generated_tokens) >= task.max_tokens:
+                    task.request_status = RequestStatus.FINISHED_LENGTH_CAPPED
+                    break
+            if emitted:
+                # one bridge event per slot per block (the interface fans it out)
+                task.output_queue.put_nowait(("tokens_generated", emitted))
+
+    # ------------------------------------------------------------------- loop
+
+    def run_once(self) -> bool:
+        """One scheduler iteration; returns True if any forward work was done."""
+        loop_start = time.perf_counter()
+        self.loop_count += 1
+        finished: List[int] = []
+        for idx, slot in enumerate(self.slots):
+            if slot.phase == SlotPhase.EMPTY:
+                continue
+            if self._is_aborted(slot.task):
+                slot.task.request_status = RequestStatus.FINISHED_ABORTED
+            if slot.task.is_finished():
+                finished.append(idx)
+        for idx in finished:
+            self._finish_slot(idx)
+
+        self._fill_slots()
+        n_active = sum(1 for s in self.slots if s.phase != SlotPhase.EMPTY)
+        if n_active == 0:
+            self._process_pending()  # drain the last in-flight step before idling
+            return False
+        K = self._choose_block_size()
+        if K > 1:
+            total, decode_count = self._dispatch_decode_block(K)
+        else:
+            total, decode_count = self._dispatch_decode_step()
+        # read the PREVIOUS dispatch's tokens while this one runs on the device
+        self._process_pending()
+        self._loop_times.append(time.perf_counter() - loop_start)
+        self._emit_worker_event("worker_performance", {
+            "avg_loop_time": sum(self._loop_times) / len(self._loop_times),
+            "state_size": self.batch_size,
+            "task_details": {"decode_count": decode_count,
+                             "one_prefill_count": total - decode_count,
+                             "seq_prefill_count": 0},
+            "loop_count": self.loop_count,
+            "max_allocated_memory_GB": self._device_memory_gb(),
+        })
+        return True
+
+    def _device_memory_gb(self) -> Optional[float]:
+        if self.model.device.type != "cuda":
+            return None
+        return round(torch.cuda.max_memory_allocated(self.model.device) / 2 ** 30, 3)
+
+    def start(self):
+        try:
+            if self.model is None:
+                self._init_worker()
+            self._emit_worker_event("worker_loaded", {
+                "status": "success", "worker_id": self.worker_id,
+                "batch_size": self.batch_size})
+        except Exception as exc:  # noqa: BLE001 — reported through the handshake
+            traceback.print_exc()
+            self._emit_worker_event("worker_loaded", {
+                "status": "error", "worker_id": self.worker_id, "error": str(exc)})
+            return
+        while True:
+            if self._process_master_events() or self.shutdown_flag:
+                break
+            try:
+                did_work = self.run_once()
+            except Exception as exc:  # noqa: BLE001
+                # a failing worker fails its tasks loudly instead of stranding them
+                traceback.print_exc()
+                self._emit_worker_event("worker_error", {"error": str(exc)})
+                self._abort_all_tasks()
+                time.sleep(0.5)
+                continue
+            if not did_work:
+                time.sleep(self.idle_sleep)
+        self._cleanup()
+
+    def _abort_all_tasks(self):
+        for idx, slot in enumerate(self.slots):
+            if slot.task is not None:
+                slot.task.request_status = RequestStatus.FINISHED_ABORTED
+                slot.task.output_queue.put_nowait(("task_completed", slot.task))
+                self.slots[idx] = SlotData()
+        self._pending = None
+
+    def _cleanup(self):
+        self.carry = None
+        self.model = None
+
+
+def start_worker_thread(worker: Worker) -> threading.Thread:
+    t = threading.Thread(target=worker.start, daemon=True,
+                         name=f"chirrup_tpu_torch:{worker.worker_id}")
+    t.start()
+    return t

@@ -1,0 +1,55 @@
+"""Model and runtime configuration for RWKV-7."""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional
+
+import torch
+
+HEAD_SIZE = 64
+
+
+@dataclasses.dataclass(frozen=True)
+class RWKV7Config:
+    """Static architecture description of an RWKV-7 "Goose" checkpoint.
+
+    Shapes follow the public RWKV-LM checkpoint format. Published g1 sizes: 0.1B
+    (L12 D768), 0.4B (L24 D1024), 1.5B (L24 D2048), 2.9B (L32 D2560), 7.2B (L32
+    D4096)."""
+
+    n_layer: int
+    n_embd: int
+    vocab_size: int = 65536
+    head_size: int = HEAD_SIZE
+    # low-rank projection widths (decay / iclr / value-residual / gate)
+    d_decay_lora: int = 64
+    d_iclr_lora: int = 64
+    d_v_lora: int = 32
+    d_gate_lora: int = 128
+
+    @property
+    def n_head(self) -> int:
+        return self.n_embd // self.head_size
+
+    @property
+    def d_ffn(self) -> int:
+        return self.n_embd * 4
+
+
+@dataclasses.dataclass(frozen=True)
+class RuntimeConfig:
+    """How the model is executed. Whether a kernel or its plain version runs is
+    decided by the device of the tensors, not here."""
+
+    # dtype of activations and dense matmuls
+    activation_dtype: torch.dtype = torch.bfloat16
+    # dtype the WKV matrix state is stored in between steps (the dither
+    # decorrelates its per-step rounding)
+    wkv_state_dtype: torch.dtype = torch.bfloat16
+    use_dither: bool = True
+    # weight quantization: None (keep activation_dtype) or "int8" (mm8, w8a8)
+    quantization: Optional[str] = None
+    # candidates the sampler draws from before its exact fallback (top-p
+    # coverage is checked either way; greedy rows are always exact)
+    sampler_k_max: int = 128

@@ -1,0 +1,251 @@
+"""RWKV-7 "Goose" forward in PyTorch over a parameter tree and an explicit
+recurrent state.
+
+Recurrent state of a batch of B requests:
+  shift:   (L, 2, B, C)   token-shift x_prev for TMix [0] and CMix [1]
+  wkv:     (L, B, N, H*N) per-head matrix state, layout [i, h*N+j] (see ops/wkv7.py)
+  elapsed: (B,) int32     total tokens processed (feeds the dither)
+
+The state is updated IN PLACE, layer by layer: a decode step writes each
+layer's slab where it lies instead of building a new stacked state.
+
+Parameters are a nested dict of tensors stacked over a leading layer axis, with
+linears stored (in, out) for `x @ W`; INT8 linears are Mm8Weight (or the merged
+Mm8MultiWeight) and are handed to the kernels as LayerIndexed views.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional
+
+import torch
+import torch.nn.functional as F
+
+from chirrup_tpu_torch.models.config import RWKV7Config
+from chirrup_tpu_torch.ops import mm8
+from chirrup_tpu_torch.ops.linear import matmul
+from chirrup_tpu_torch.ops.wkv7 import HEAD_SIZE, wkv7_reference_batch
+from chirrup_tpu_torch.ops.wkv7_cuda import wkv7_step_fused
+
+_MM8_TYPES = (mm8.Mm8Weight, mm8.Mm8MultiWeight)
+
+
+@dataclasses.dataclass
+class RWKVState:
+    """Recurrent state for a batch of B requests (mutated in place)."""
+
+    shift: torch.Tensor    # (L, 2, B, C)
+    wkv: torch.Tensor      # (L, B, N, H*N)
+    elapsed: torch.Tensor  # (B,) int32
+
+
+def init_state(config: RWKV7Config, batch_size: int, *, shift_dtype=torch.float32,
+               wkv_dtype=torch.float32, device=None) -> RWKVState:
+    L, C, N = config.n_layer, config.n_embd, config.head_size
+    return RWKVState(
+        shift=torch.zeros((L, 2, batch_size, C), dtype=shift_dtype, device=device),
+        wkv=torch.zeros((L, batch_size, N, C), dtype=wkv_dtype, device=device),
+        elapsed=torch.zeros((batch_size,), dtype=torch.int32, device=device))
+
+
+# --------------------------------------------------------------------- norms
+
+def layer_norm(x, w, b, eps=1e-5):
+    out = F.layer_norm(x.to(torch.float32), (x.shape[-1],), w.to(torch.float32),
+                       b.to(torch.float32), eps)
+    return out.to(x.dtype)
+
+
+def group_norm(x, num_groups, w, b, eps):
+    """Per-head GroupNorm over (..., C) with C = num_groups * head_size."""
+    shape = x.shape
+    xf = x.to(torch.float32).reshape(*shape[:-1], num_groups, shape[-1] // num_groups)
+    mu = xf.mean(-1, keepdim=True)
+    var = ((xf - mu) ** 2).mean(-1, keepdim=True)
+    xn = ((xf - mu) * torch.rsqrt(var + eps)).reshape(shape)
+    return (xn * w.to(torch.float32) + b.to(torch.float32)).to(x.dtype)
+
+
+def l2_normalize_heads(x, H, N):
+    """Per-head x / max(||x||, 1e-12) (torch.nn.functional.normalize)."""
+    shape = x.shape
+    xf = x.to(torch.float32).reshape(*shape[:-1], H, N)
+    out = xf / torch.sqrt((xf * xf).sum(-1, keepdim=True)).clamp_min(1e-12)
+    return out.reshape(shape).to(x.dtype)
+
+
+def _masked_last(x, lengths, prev):
+    """Last valid position of each row of x (B, T, C); rows with length 0 keep prev."""
+    B, T, _ = x.shape
+    if lengths is None:
+        return x[:, -1, :].to(prev.dtype)
+    if T == 1:
+        last = x[:, 0]
+    else:
+        idx = (lengths.long() - 1).clamp(0, T - 1)
+        last = torch.gather(x, 1, idx.reshape(B, 1, 1).expand(B, 1, x.shape[-1]))[:, 0]
+    return torch.where((lengths > 0)[:, None], last.to(prev.dtype), prev)
+
+
+def _token_shift_delta(x, shift_prev):
+    """xx = [shift_prev, x[:-1]] - x along T."""
+    prev = shift_prev[:, None, :].to(x.dtype)
+    if x.shape[1] == 1:
+        return prev - x
+    return torch.cat([prev, x[:, :-1]], dim=1) - x
+
+
+def layer_params(blocks, li: int):
+    """Layer li of the stacked block tree: dense leaves indexed (views),
+    INT8 weights wrapped as LayerIndexed (codes never sliced)."""
+    if isinstance(blocks, dict):
+        return {k: layer_params(v, li) for k, v in blocks.items()}
+    if isinstance(blocks, _MM8_TYPES):
+        return mm8.LayerIndexed(blocks, li)
+    return blocks[li]
+
+
+# -------------------------------------------------------------------- blocks
+
+def _tmix(att, li, layer_is_first, x, shift_prev, v_first, wkv_full, elapsed, lengths,
+          use_dither):
+    """Time-mix. Advances layer li of the stacked wkv state in place and returns
+    (out, new_shift, v_first)."""
+    B, T, C = x.shape
+    N = HEAD_SIZE
+    H = C // N
+    xx = _token_shift_delta(x, shift_prev)
+
+    if "Wrkv" in att:
+        # merged R/K/V: one quantize + one GEMM off the shared (x, xx) pair
+        rkv = mm8.mm8_multi_matmul(x, xx, att["mu_rkv"], att["Wrkv"])
+        r, k, v = rkv.split(C, dim=-1)
+    else:
+        r = matmul(x + xx * att["x_r"], att["Wr"])
+        k = matmul(x + xx * att["x_k"], att["Wk"])
+        v = matmul(x + xx * att["x_v"], att["Wv"])
+
+    if "lora1" in att:
+        # packed LoRA chains (w / a / v-gate / g): two batched matmuls
+        X4 = x.reshape(1, B * T, C) + xx.reshape(1, B * T, C) * att["mu_lora"][:, None, :]
+        s1 = torch.bmm(X4, att["lora1"])
+        s1 = torch.stack([torch.tanh(s1[0]), s1[1], s1[2], torch.sigmoid(s1[3])])
+        s2 = torch.bmm(s1, att["lora2"]).reshape(4, B, T, C)
+        w_raw = s2[0] + att["w0"]
+        a = torch.sigmoid(s2[1] + att["a0"])
+        v_gate_pre = s2[2] + att["v0"]
+        g = s2[3]
+    else:
+        w_raw = matmul(torch.tanh(matmul(x + xx * att["x_w"], att["w1"])), att["w2"]) \
+            + att["w0"]
+        a = torch.sigmoid(matmul(matmul(x + xx * att["x_a"], att["a1"]), att["a2"])
+                          + att["a0"])
+        g = matmul(torch.sigmoid(matmul(x + xx * att["x_g"], att["g1"])), att["g2"])
+        v_gate_pre = matmul(matmul(x + xx * att["x_v"], att["v1"]), att["v2"]) + att["v0"]
+
+    # layer 0 captures v_first; later layers blend toward it
+    if layer_is_first:
+        v_first = v
+    else:
+        v = v + (v_first - v) * torch.sigmoid(v_gate_pre)
+
+    if T == 1:
+        # decode: kk / k~ prologue and GroupNorm + bonus epilogue ride the WKV step
+        ln = torch.ones((B,), dtype=torch.int32, device=x.device) if lengths is None \
+            else lengths
+        y = wkv7_step_fused(
+            wkv_full, li, r[:, 0], w_raw[:, 0], k[:, 0], a[:, 0], v[:, 0],
+            att["k_k"], att["k_a"], att["r_k"].reshape(-1), att["ln_x_w"],
+            att["ln_x_b"], elapsed, ln, use_dither=use_dither)
+        y = y.reshape(B, 1, C)
+    else:
+        kk = l2_normalize_heads(k * att["k_k"], H, N)
+        k = k * (1 + (a - 1) * att["k_a"])
+        y, new_l = wkv7_reference_batch(wkv_full[li], r, w_raw, k, v, -kk, kk * a,
+                                        elapsed, use_dither=use_dither, lengths=lengths)
+        wkv_full[li].copy_(new_l)
+        y = group_norm(y.to(x.dtype), H, att["ln_x_w"], att["ln_x_b"], eps=64e-5)
+        bonus = (r * k * att["r_k"].reshape(-1)).reshape(B, T, H, N).sum(-1, keepdim=True)
+        y = y + (bonus * v.reshape(B, T, H, N)).reshape(B, T, C)
+    out = matmul(y.to(x.dtype), att["Wo"], mul_in=g)
+    return out, _masked_last(x, lengths, shift_prev), v_first
+
+
+def _cmix(ffn, x, shift_prev, lengths):
+    """Channel-mix FFN with relu^2."""
+    xx = _token_shift_delta(x, shift_prev)
+    kx = x + xx * ffn["x_k"]
+    if isinstance(ffn["Wk"], mm8.LayerIndexed) and isinstance(ffn["Wv"], mm8.LayerIndexed):
+        out = mm8.mm8_ffn_matmul(kx, ffn["Wk"], ffn["Wv"])
+    else:
+        out = matmul(matmul(kx, ffn["Wk"], activation="relu2"), ffn["Wv"])
+    return out, _masked_last(x, lengths, shift_prev)
+
+
+def _backbone(params, x, state: RWKVState, lengths, use_dither=True):
+    """All layers; the state's shift and wkv are written in place per layer."""
+    blocks = params["blocks"]
+    L = state.wkv.shape[0]
+    v_first = None
+    for li in range(L):
+        blk = layer_params(blocks, li)
+        shift_l = state.shift[li]
+        xn = layer_norm(x, blk["ln1_w"], blk["ln1_b"])
+        att_out, att_shift, v_first = _tmix(
+            blk["att"], li, li == 0, xn, shift_l[0], v_first, state.wkv,
+            state.elapsed, lengths, use_dither)
+        x = x + att_out
+        xn = layer_norm(x, blk["ln2_w"], blk["ln2_b"])
+        ffn_out, ffn_shift = _cmix(blk["ffn"], xn, shift_l[1], lengths)
+        x = x + ffn_out
+        shift_l[0].copy_(att_shift)
+        shift_l[1].copy_(ffn_shift)
+    return x
+
+
+def _embed(params, tokens, dtype):
+    emb = params["emb"]
+    return F.embedding(tokens.long().clamp(0, emb.shape[0] - 1), emb).to(dtype)
+
+
+def forward_step(params, tokens, state: RWKVState, active=None, *,
+                 compute_dtype=torch.float32, use_dither=True):
+    """One-token step for the whole batch: tokens (B,) -> logits (B, V) in the
+    head's output dtype; the state advances in place. active: optional (B,)
+    bool — inactive rows keep their state and yield unused logits."""
+    lengths = None if active is None else active.to(torch.int32)
+    x = _embed(params, tokens[:, None], compute_dtype)
+    x = _backbone(params, x, state, lengths, use_dither)
+    xh = layer_norm(x[:, 0], params["ln_out_w"], params["ln_out_b"])
+    logits = matmul(xh, params["head"])
+    state.elapsed += (torch.ones_like(state.elapsed) if lengths is None else lengths)
+    return logits, state
+
+
+def forward_seq(params, tokens, state: RWKVState, *, full_output=False,
+                compute_dtype=torch.float32, use_dither=True):
+    """Whole-sequence forward with logits on plain ops (the WKV recurrence is the
+    reference loop): tokens (B, T). Returns float32 logits (B, V), or (B, T, V)
+    with full_output; the state advances in place."""
+    x = _embed(params, tokens, compute_dtype)
+    x = _backbone(params, x, state, None, use_dither)
+    if not full_output:
+        x = x[:, -1:, :]
+    logits = matmul(layer_norm(x, params["ln_out_w"], params["ln_out_b"]),
+                    params["head"]).to(torch.float32)
+    state.elapsed += tokens.shape[1]
+    return (logits if full_output else logits[:, 0]), state
+
+
+def cast_dense(params, dtype: Optional[torch.dtype] = None,
+               device: Optional[torch.device] = None):
+    """Dense float leaves to `dtype` (when given) and every leaf to `device`
+    (when given); INT8 weights keep their int8 codes and float32 scales."""
+    if isinstance(params, dict):
+        return {k: cast_dense(v, dtype, device) for k, v in params.items()}
+    if isinstance(params, _MM8_TYPES):
+        return params if device is None else type(params)(
+            *(getattr(params, f.name).to(device) for f in dataclasses.fields(params)))
+    out = params.to(device) if device is not None else params
+    return out.to(dtype) if dtype is not None and out.is_floating_point() else out

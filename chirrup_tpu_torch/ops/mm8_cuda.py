@@ -1,0 +1,207 @@
+"""The w8a8 mm8 matmul: CUDA kernels (csrc/mm8_a8.cu) and their plain PyTorch
+versions.
+
+Two kernels carry every int8 matmul of the decode path:
+
+- ``quant_rows``: per-row int8 quantization of x*ry*16 (x optionally mixed as
+  x + xx*mu[m] for each of n variants, or gated as x*mul) plus the four row
+  statistics [s, sum xs, sum x, sum x*my] of the decomposed dequantization;
+- ``gemm``: int8 x int8 -> int32 on the tensor cores, then
+  y = rx*16/256 * (s*acc + 128.5*sum xs) + sum x*my + mx*sum x, with an optional
+  relu^2, written in bfloat16 or float32 (or acc itself, for exactness checks).
+
+The compositions below (single, merged multi-projection, relu^2 FFN pair) are
+the port of the JAX package's fused a8 Pallas kernels.
+"""
+
+from __future__ import annotations
+
+from typing import Optional, Tuple
+
+import torch
+
+from chirrup_tpu_torch.ops import _kernels
+
+_SOURCE = "mm8_a8"
+_P, _I = _kernels.P, _kernels.I
+_SIGNATURES = {
+    "mm8_a8_quant_rows": [_P] * 7 + [_I] * 5 + [_P],
+    "mm8_a8_gemm": [_P] * 6 + [_I] * 6 + [_P],
+}
+# the GEMM kernel's tiles: K in 256-deep slices, output in 32-column tiles
+GEMM_BK, GEMM_BN = 256, 32
+
+_OUT_MODES = {torch.float32: 0, torch.bfloat16: 1, torch.int32: 2}
+
+
+# ------------------------------------------------------------ plain versions
+
+def row_scale(xs: torch.Tensor) -> torch.Tensor:
+    """s = max(max|xs| / 127, 1e-20) per row, (..., 1) float32. The divisor is
+    a tensor on purpose: PyTorch's CUDA division by a Python scalar multiplies
+    by its rounded reciprocal, which is not the IEEE division that the JAX
+    package and the kernel use, and can move s by one ulp."""
+    amax = xs.abs().amax(-1, keepdim=True)
+    return torch.clamp_min(amax / torch.full_like(amax, 127.0), 1e-20)
+
+
+def quant_rows_reference(x, ry, my, *, xx=None, mu=None, mul=None):
+    """x: (B, K); ry, my: (n, K) float32; xx with mu (n, K) -> n mixed variants
+    x + xx*mu[m]; mul -> x*mul (n = 1). Returns (x8 (n, B, K) int8, stats
+    (n, B, 4) float32 [s, sum xs, sum x, sum x*my])."""
+    xf = x.to(torch.float32)
+    if xx is not None:
+        xm = xf[None] + xx.to(torch.float32)[None] * mu.to(torch.float32)[:, None, :]
+    elif mul is not None:
+        xm = (xf * mul.to(torch.float32))[None]
+    else:
+        xm = xf[None]
+    xs = xm * (ry * 16.0)[:, None, :]
+    s = row_scale(xs)
+    x8 = torch.round(xs / s).to(torch.int8)
+    stats = torch.cat([s, xs.sum(-1, keepdim=True), xm.sum(-1, keepdim=True),
+                       (xm * my[:, None, :]).sum(-1, keepdim=True)], dim=-1)
+    return x8, stats
+
+
+def gemm_acc_reference(x8, q):
+    """Exact int32 x8 @ q through float64 (integer sums far below 2^53)."""
+    return torch.matmul(x8.to(torch.float64), q.to(torch.float64)).to(torch.int32)
+
+
+def gemm_reference(x8, stats, q, mx, rx, *, relu2=False, out_dtype=torch.bfloat16):
+    """x8 (n, B, K), stats (n, B, 4), q (K, M) with M = n * C: variant m feeds
+    columns [m*C, (m+1)*C). Returns (B, M) in out_dtype (int32: raw acc)."""
+    n, B, K = x8.shape
+    M = q.shape[1]
+    C = M // n
+    outs = []
+    for m in range(n):
+        acc = gemm_acc_reference(x8[m], q[:, m * C:(m + 1) * C])
+        if out_dtype == torch.int32:
+            outs.append(acc)
+            continue
+        st = stats[m]
+        y = ((rx[m * C:(m + 1) * C] * 0.0625)
+             * (acc.to(torch.float32) * st[:, 0:1] + 128.5 * st[:, 1:2])
+             + st[:, 3:4] + mx[m * C:(m + 1) * C] * st[:, 2:3])
+        if relu2:
+            y = torch.clamp_min(y, 0.0)
+            y = y * y
+        outs.append(y.to(out_dtype))
+    return torch.cat(outs, dim=-1)
+
+
+# ------------------------------------------------------------------ wrappers
+
+def quant_rows(x, ry, my, *, xx=None, mu=None, mul=None):
+    """See quant_rows_reference. The kernel on CUDA tensors, the plain version
+    on CPU tensors."""
+    if x.device.type == "cpu":
+        return quant_rows_reference(x, ry, my, xx=xx, mu=mu, mul=mul)
+    if not x.is_cuda:
+        raise ValueError(f"quant_rows: no kernel for device {x.device}")
+    B, K = x.shape
+    n = ry.shape[0]
+    dev = x.device
+    _kernels.require(x, "x", device=dev)
+    code = _kernels.dtype_code(x, "x")
+    _kernels.require(ry, "ry", dtype=torch.float32, shape=(n, K), device=dev)
+    _kernels.require(my, "my", dtype=torch.float32, shape=(n, K), device=dev)
+    mode, aux, mu_ptr = 0, None, None
+    if xx is not None:
+        mode, aux = 1, xx
+        _kernels.require(mu, "mu", dtype=x.dtype, shape=(n, K), device=dev)
+        mu_ptr = mu.data_ptr()
+    elif mul is not None:
+        if n != 1:
+            raise ValueError("quant_rows: mul takes one variant")
+        mode, aux = 2, mul
+    if aux is not None:
+        _kernels.require(aux, "xx/mul", dtype=x.dtype, shape=(B, K), device=dev)
+    x8 = torch.empty((n, B, K), dtype=torch.int8, device=dev)
+    stats = torch.empty((n, B, 4), dtype=torch.float32, device=dev)
+    lib = _kernels.library(_SOURCE, _SIGNATURES)
+    err = lib.mm8_a8_quant_rows(
+        x.data_ptr(), None if aux is None else aux.data_ptr(), mu_ptr, ry.data_ptr(),
+        my.data_ptr(), x8.data_ptr(), stats.data_ptr(), B, K, n, mode, code,
+        _kernels.stream_of(x))
+    _kernels.LAUNCHES["mm8_a8_quant_rows"] += 1
+    _kernels.check(lib, _SOURCE, "mm8_a8_quant_rows", err)
+    return x8, stats
+
+
+def gemm(x8, stats, q, mx, rx, *, layer: Optional[int] = None, relu2=False,
+         out_dtype=torch.bfloat16):
+    """See gemm_reference. q is (K, M), or the stacked (L, K, M) codes with
+    `layer`: the kernel then reads that layer at a pointer offset (no copy).
+    mx, rx: (M,) float32 of the same layer. out_dtype torch.int32 returns the
+    raw accumulators."""
+    if layer is not None:
+        q_layer = q[layer]  # a view: no copy on either path
+    else:
+        q_layer = q
+    if x8.device.type == "cpu":
+        return gemm_reference(x8, stats, q_layer, mx, rx, relu2=relu2,
+                              out_dtype=out_dtype)
+    if not x8.is_cuda:
+        raise ValueError(f"gemm: no kernel for device {x8.device}")
+    n, B, K = x8.shape
+    K2, M = q_layer.shape
+    dev = x8.device
+    if K2 != K or M % n or (M // n) % GEMM_BN or K % GEMM_BK:
+        raise ValueError(f"gemm: unsupported shapes x8 {tuple(x8.shape)} q "
+                         f"{tuple(q_layer.shape)} (K % {GEMM_BK} == 0 and each "
+                         f"variant's width % {GEMM_BN} == 0 required)")
+    # the GEMM loads both int8 operands 16 bytes at a time
+    _kernels.require(x8, "x8", dtype=torch.int8, device=dev, align=16)
+    _kernels.require(stats, "stats", dtype=torch.float32, shape=(n, B, 4), device=dev)
+    _kernels.require(q_layer, "q", dtype=torch.int8, device=dev, align=16)
+    _kernels.require(mx, "mx", dtype=torch.float32, shape=(M,), device=dev)
+    _kernels.require(rx, "rx", dtype=torch.float32, shape=(M,), device=dev)
+    if out_dtype not in _OUT_MODES:
+        raise TypeError(f"gemm: out_dtype {out_dtype} not supported")
+    out = torch.empty((B, M), dtype=out_dtype, device=dev)
+    lib = _kernels.library(_SOURCE, _SIGNATURES)
+    err = lib.mm8_a8_gemm(
+        x8.data_ptr(), stats.data_ptr(), q_layer.data_ptr(), mx.data_ptr(),
+        rx.data_ptr(), out.data_ptr(), B, K, M, n, _OUT_MODES[out_dtype],
+        int(relu2), _kernels.stream_of(x8))
+    _kernels.LAUNCHES["mm8_a8_gemm"] += 1
+    _kernels.check(lib, _SOURCE, "mm8_a8_gemm", err)
+    return out
+
+
+# -------------------------------------------------------------- compositions
+
+def mm8_fused_a8(x, mx, rx, my, ry, q, *, layer: Optional[int] = None,
+                 activation=None, mul_in=None):
+    """One w8a8 mm8 matmul: (B, K) float x (K, M) int8 -> (B, M) in x.dtype.
+    Scale vectors are the Mm8Weight fields of the layer (rx, ry stored /16);
+    mul_in: optional (B, K) input multiplier (the TMix gate)."""
+    if activation not in (None, "relu2"):
+        raise ValueError(f"unknown mm8 activation {activation!r}")
+    x8, stats = quant_rows(x, ry[None], my[None], mul=mul_in)
+    return gemm(x8, stats, q, mx, rx, layer=layer, relu2=activation == "relu2",
+                out_dtype=x.dtype)
+
+
+def mm8_fused_a8_multi(x, xx, mu, mx, rx, my, ry, q, layer: int):
+    """n token-shift-mixed projections off one (x, xx) pair:
+    y[:, m*C:(m+1)*C] = (x + xx*mu[m]) @ W_m. mu, my, ry: (n, K); mx, rx: (n*C,);
+    q: stacked (L, K, n*C) codes. Returns (B, n*C) in x.dtype."""
+    x8, stats = quant_rows(x, ry, my, xx=xx, mu=mu)
+    return gemm(x8, stats, q, mx, rx, layer=layer, out_dtype=x.dtype)
+
+
+def mm8_fused_a8_ffn(x, k_scales: Tuple, qk, v_scales: Tuple, qv, layer: int):
+    """relu(mm8(x, Wk))^2 then mm8 with Wv, both w8a8. The (B, F) intermediate
+    is rounded to bfloat16 before its quantization, whatever x's dtype (the JAX
+    kernel keeps it in a bf16 scratch). *_scales = (mx, rx, my, ry) of the layer."""
+    kmx, krx, kmy, kry = k_scales
+    vmx, vrx, vmy, vry = v_scales
+    x8, stats = quant_rows(x, kry[None], kmy[None])
+    h = gemm(x8, stats, qk, kmx, krx, layer=layer, relu2=True,
+             out_dtype=torch.bfloat16)
+    h8, hstats = quant_rows(h, vry[None], vmy[None])
+    return gemm(h8, hstats, qv, vmx, vrx, layer=layer, out_dtype=x.dtype)

@@ -1,0 +1,164 @@
+"""The fused penalty tail: CUDA kernel (csrc/penalty_tail.cu), its plain
+PyTorch version, and the sampler that draws from its candidate set.
+
+One pass over (logits, occurrence, presence) per decode step does the record
+of the previous sample, the decay, the penalties, a logsumexp and the
+per-128-column maxima that form the candidate set of the sampler:
+
+  occ2  = (occ + onehot(last_tok) * upd) * decay      [decode rows only]
+  pres2 = set(last_tok -> presence_penalty)            [upd rows]
+  adj   = logits - pres2 - occ2 * freq
+
+The record of step t's sample is deferred to step t+1 through the carried
+last_sampled: recording at the end of step t and decaying at the start of t+1
+(the reference scheduler's order) gives the same sequence for every token.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from chirrup_tpu_torch.ops import _kernels
+from chirrup_tpu_torch.ops.sampling import gumbel_like, sample_logits_rwkv_pip_compatible
+
+CHUNK = 128  # candidate bucket width
+
+_SOURCE = "penalty_tail"
+_P, _I = _kernels.P, _kernels.I
+_SIGNATURES = {"penalty_tail": [_P] * 12 + [_I] * 3 + [_P]}
+
+
+def penalty_tail_reference(logits, occurrence, presence_vec, penalty_decay,
+                           frequency_penalty, presence_penalty, last_tok, upd_mask,
+                           decode_mask):
+    """Plain version, without side effects. logits (B, V); occurrence,
+    presence_vec (B, V) float32; penalty_decay, frequency_penalty,
+    presence_penalty (B,) float32; last_tok (B,) int32 (-1 = none); upd_mask,
+    decode_mask (B,) bool. Returns (occ2, pres2, chunk_val (B, NC) float32,
+    chunk_idx (B, NC) int32, lse (B, 1) float32), NC = ceil(V / 128)."""
+    B, V = logits.shape
+    f32 = torch.float32
+    lane = torch.arange(V, device=logits.device)[None, :]
+    hit = (lane == last_tok.reshape(B, 1)) & upd_mask.reshape(B, 1)
+    occ2 = torch.where(decode_mask.reshape(B, 1),
+                       (occurrence + hit.to(f32)) * penalty_decay.reshape(B, 1),
+                       occurrence)
+    pres2 = torch.where(hit, presence_penalty.reshape(B, 1), presence_vec)
+    adj = logits.to(f32) - pres2 - occ2 * frequency_penalty.reshape(B, 1)
+    n_chunks = -(-V // CHUNK)
+    pad = n_chunks * CHUNK - V
+    adj3 = torch.nn.functional.pad(adj, (0, pad), value=-float("inf"))
+    adj3 = adj3.reshape(B, n_chunks, CHUNK)
+    cval = adj3.amax(dim=-1)
+    arg = adj3.argmax(dim=-1)  # the first maximal column on ties
+    cidx = (arg + torch.arange(n_chunks, device=logits.device)[None, :] * CHUNK)
+    lse = torch.logsumexp(adj, dim=-1, keepdim=True)
+    return occ2, pres2, cval, cidx.to(torch.int32), lse
+
+
+def penalty_tail(logits, occurrence, presence_vec, penalty_decay, frequency_penalty,
+                 presence_penalty, last_tok, upd_mask, decode_mask):
+    """See penalty_tail_reference; occurrence and presence_vec are updated IN
+    PLACE and returned. The kernel on CUDA tensors, the plain version on CPU."""
+    if logits.device.type == "cpu":
+        occ2, pres2, cval, cidx, lse = penalty_tail_reference(
+            logits, occurrence, presence_vec, penalty_decay, frequency_penalty,
+            presence_penalty, last_tok, upd_mask, decode_mask)
+        occurrence.copy_(occ2)
+        presence_vec.copy_(pres2)
+        return occurrence, presence_vec, cval, cidx, lse
+    if not logits.is_cuda:
+        raise ValueError(f"penalty_tail: no kernel for device {logits.device}")
+    B, V = logits.shape
+    dev = logits.device
+    _kernels.require(logits, "logits", device=dev)
+    code = _kernels.dtype_code(logits, "logits")
+    for name, t in (("occurrence", occurrence), ("presence_vec", presence_vec)):
+        _kernels.require(t, name, dtype=torch.float32, shape=(B, V), device=dev)
+    for name, t in (("penalty_decay", penalty_decay),
+                    ("frequency_penalty", frequency_penalty),
+                    ("presence_penalty", presence_penalty)):
+        _kernels.require(t, name, dtype=torch.float32, shape=(B,), device=dev)
+    _kernels.require(last_tok, "last_tok", dtype=torch.int32, shape=(B,), device=dev)
+    for name, t in (("upd_mask", upd_mask), ("decode_mask", decode_mask)):
+        _kernels.require(t, name, dtype=torch.bool, shape=(B,), device=dev)
+    n_chunks = -(-V // CHUNK)
+    cval = torch.empty((B, n_chunks), dtype=torch.float32, device=dev)
+    cidx = torch.empty((B, n_chunks), dtype=torch.int32, device=dev)
+    lse = torch.empty((B, 1), dtype=torch.float32, device=dev)
+    lib = _kernels.library(_SOURCE, _SIGNATURES)
+    err = lib.penalty_tail(
+        logits.data_ptr(), occurrence.data_ptr(), presence_vec.data_ptr(),
+        penalty_decay.data_ptr(), frequency_penalty.data_ptr(),
+        presence_penalty.data_ptr(), last_tok.data_ptr(), upd_mask.data_ptr(),
+        decode_mask.data_ptr(), cval.data_ptr(), cidx.data_ptr(), lse.data_ptr(),
+        B, V, code, _kernels.stream_of(logits))
+    _kernels.LAUNCHES["penalty_tail"] += 1
+    _kernels.check(lib, _SOURCE, "penalty_tail", err)
+    return occurrence, presence_vec, cval, cidx, lse
+
+
+def sample_from_chunks(chunk_val, chunk_idx, lse, temperature, top_p, top_k,
+                       generator: Optional[torch.Generator], adj_args, row_mask=None,
+                       k_max: int = 128, gumbel=None, gumbel_exact=None):
+    """rwkv-pip-compatible draw from the penalty_tail candidate set.
+
+    Same algorithm and order as ops.sampling.sample_logits_rwkv_pip_fast, with
+    the candidates = the per-chunk maxima (already penalized). adj_args =
+    (logits, pres2, occ2, freq) rebuild the penalized rows for the exact
+    resample of rows whose candidates do not cover top_p (or top_k > k_max).
+
+    No host synchronisation: which rows need the exact path is never read on
+    the host. Instead every row runs it and torch.where keeps it only for the
+    flagged rows. That costs one (B, V) adjusted-logits pass, one (B, V) sort
+    and (B, V) noise per call; the JAX package instead loops over 8-row groups
+    of flagged rows only, which needs the flagged count on the host.
+
+    gumbel (B, k_max') / gumbel_exact (B, V): optional noise handed in (tests);
+    drawn from `generator` otherwise."""
+    logits_raw, pres2, occ2, freq = adj_args
+    B, NC = chunk_val.shape
+    k_max = min(k_max, NC)
+    temperature = temperature.reshape(B, 1).to(torch.float32)
+    top_p = top_p.reshape(B, 1).to(torch.float32)
+    top_k = top_k.reshape(B, 1).to(torch.int32)
+
+    zero_temp = temperature == 0.0
+    temperature_eff = torch.where(zero_temp, 1.0, temperature)
+    top_p_eff = torch.where(zero_temp, 0.0, top_p)
+
+    # stable descending sort keeps equal values in chunk order (lower token id first)
+    sorted_val, order = torch.sort(chunk_val, dim=-1, descending=True, stable=True)
+    top_lg = sorted_val[:, :k_max]
+    top_idx = torch.gather(chunk_idx, 1, order[:, :k_max])
+    top_vals = torch.exp(top_lg - lse)
+    cum = torch.cumsum(top_vals, dim=-1)
+
+    covered = cum[:, -1:] >= top_p_eff
+    k_ok = top_k <= k_max
+    need = ~covered | ~k_ok
+    if row_mask is not None:
+        need = need & row_mask.reshape(B, 1)
+
+    cutoff_pos = (cum < top_p_eff).sum(-1, keepdim=True).clamp(0, k_max - 1)
+    cutoff_val = torch.gather(top_vals, 1, cutoff_pos)
+    vals = torch.where(top_vals < cutoff_val, 0.0, top_vals)
+    ranks = torch.arange(k_max, device=chunk_val.device)[None, :]
+    eff_k = torch.where(top_k > 0, top_k, k_max)
+    vals = torch.where(ranks >= eff_k, 0.0, vals)
+    logp = torch.where(vals > 0, torch.log(vals) / temperature_eff, -float("inf"))
+    if gumbel is None:
+        gumbel = gumbel_like(logp, generator)
+    choice = torch.argmax(logp + gumbel[:, :k_max], dim=-1, keepdim=True)
+    picked = torch.gather(top_idx, 1, choice)[:, 0]
+    # temp=0 greedy: the global argmax is the max of the chunk maxima — exact
+    greedy = torch.gather(chunk_idx, 1, torch.argmax(chunk_val, dim=-1, keepdim=True))[:, 0]
+    fast = torch.where(zero_temp[:, 0], greedy, picked).to(torch.int32)
+
+    adj = (logits_raw.to(torch.float32) - pres2 - occ2 * freq.reshape(B, 1))
+    exact = sample_logits_rwkv_pip_compatible(
+        adj, temperature[:, 0], top_p[:, 0], top_k[:, 0], generator,
+        gumbel=gumbel_exact)
+    return torch.where(need[:, 0], exact, fast)

@@ -1,0 +1,161 @@
+"""chirrup_tpu_torch mm8 (ops/mm8.py, ops/mm8_cuda.py) against the JAX package.
+
+Codes, scales and int32 accumulators must be bit-equal. The fused w8a8 matmuls
+(the port's plain versions on CPU against the JAX Pallas kernels in interpret
+mode) get a tolerance: the activation codes are a round() of float products,
+and XLA may fuse a multiply-add that PyTorch rounds twice, which moves a value
+sitting on a .5 boundary by one code. One code moves its output by at most
+rx*16/256*s per row (s = max|x*ry*16|/127), so outputs are compared at 2e-4 of
+their own scale — a few codes' worth.
+"""
+
+import numpy as np
+import jax.numpy as jnp
+import pytest
+import torch
+
+from chirrup_tpu.ops import mm8 as jmm8
+from chirrup_tpu.ops import mm8_pallas
+from chirrup_tpu_torch.ops import mm8 as tmm8
+from chirrup_tpu_torch.ops import mm8_cuda
+
+
+def _t(a):
+    return torch.from_numpy(np.ascontiguousarray(a))
+
+
+@pytest.mark.parametrize("shape", [(96, 40), (40, 96), (64, 64)])
+def test_quantize_bit_equal(shape):
+    """Both min/max orders (K > M and K <= M) give bit-equal codes and scales."""
+    w = np.random.default_rng(1).standard_normal(shape).astype(np.float32)
+    wj = jmm8.quantize(jnp.asarray(w))
+    wt = tmm8.quantize(_t(w))
+    for f in ("q", "mx", "rx", "my", "ry"):
+        np.testing.assert_array_equal(getattr(wt, f).numpy(), np.asarray(getattr(wj, f)), f)
+    np.testing.assert_array_equal(tmm8.dequantize(wt).numpy(),
+                                  np.asarray(jmm8.dequantize(wj)))
+
+
+def test_quantize_activations_equal():
+    """Per-row int8 activation codes round half to even on both sides; rows
+    with exact .5 ties (s = 1 when max|x| = 127) pin the rounding rule."""
+    rng = np.random.default_rng(2)
+    xs = rng.standard_normal((6, 200)).astype(np.float32) * 3
+    xs[0, :8] = [127.0, 0.5, 1.5, 2.5, -0.5, -1.5, -2.5, 126.5]
+    x8_j, s_j = jmm8.quantize_activations(jnp.asarray(xs))
+    x8_t, s_t = tmm8.quantize_activations(_t(xs))
+    np.testing.assert_array_equal(x8_t.numpy(), np.asarray(x8_j))
+    np.testing.assert_array_equal(s_t.numpy(), np.asarray(s_j))
+    assert x8_t[0, :8].tolist() == [127, 0, 2, 2, 0, -2, -2, 126]
+
+
+def test_int32_acc_equal():
+    """The exact integer GEMM of the port (plain version) equals the JAX a8 core
+    (the Pallas int8 kernel in interpret mode) bit for bit."""
+    rng = np.random.default_rng(3)
+    x8 = rng.integers(-127, 128, (5, 512)).astype(np.int8)
+    q = rng.integers(-128, 128, (512, 256)).astype(np.int8)
+    acc_j = np.asarray(mm8_pallas.mm8_core_pallas_a8(jnp.asarray(x8), jnp.asarray(q),
+                                                     interpret=True))
+    acc_t = mm8_cuda.gemm(_t(x8)[None], torch.zeros(1, 5, 4), _t(q), torch.zeros(256),
+                          torch.zeros(256), out_dtype=torch.int32).numpy()
+    np.testing.assert_array_equal(acc_t, acc_j)
+
+
+def _stacked(rng, L, K, M):
+    ws = [jmm8.quantize(jnp.asarray(rng.standard_normal((K, M)).astype(np.float32)
+                                    / np.sqrt(K))) for _ in range(L)]
+    return {f: np.stack([np.asarray(getattr(w, f)) for w in ws])
+            for f in ("q", "mx", "rx", "my", "ry")}
+
+
+def _close(got, want):
+    scale = np.abs(want).max()
+    np.testing.assert_allclose(got, want, rtol=0, atol=2e-4 * scale)
+
+
+@pytest.mark.parametrize("activation", [None, "relu2"])
+def test_fused_a8_matches_pallas(activation):
+    """Unstacked codes (the head) — mm8_fused_a8."""
+    rng = np.random.default_rng(4)
+    B, K, M = 4, 256, 384
+    w = _stacked(rng, 1, K, M)
+    x = rng.standard_normal((B, K)).astype(np.float32)
+    y_j = mm8_pallas.mm8_fused_a8(jnp.asarray(x), *(jnp.asarray(w[f][0]) for f in
+                                  ("mx", "rx", "my", "ry", "q")),
+                                  activation=activation, interpret=True)
+    y_t = mm8_cuda.mm8_fused_a8(_t(x), *(_t(w[f][0]) for f in ("mx", "rx", "my", "ry", "q")),
+                                activation=activation)
+    _close(y_t.numpy(), np.asarray(y_j))
+
+
+def test_fused_a8_stacked_mul_in_matches_pallas():
+    """Layer li of stacked codes with the TMix gate as mul_in (Wo)."""
+    rng = np.random.default_rng(5)
+    L, B, K, M, li = 3, 4, 256, 256, 2
+    w = _stacked(rng, L, K, M)
+    x, g = (rng.standard_normal((B, K)).astype(np.float32) for _ in range(2))
+    y_j = mm8_pallas.mm8_fused_a8_stacked(
+        jnp.asarray(x), *(jnp.asarray(w[f][li]) for f in ("mx", "rx", "my", "ry")),
+        jnp.asarray(w["q"]), li, mul_in=jnp.asarray(g), interpret=True)
+    y_t = mm8_cuda.mm8_fused_a8(_t(x), *(_t(w[f][li]) for f in ("mx", "rx", "my", "ry")),
+                                _t(w["q"]), layer=li, mul_in=_t(g))
+    _close(y_t.numpy(), np.asarray(y_j))
+
+
+def test_fused_a8_multi_matches_pallas():
+    """Merged R/K/V: three token-shift mixes, one quantize, one GEMM; the port's
+    merge_stacked builds the same merged layout as the JAX one (tp=1)."""
+    rng = np.random.default_rng(6)
+    L, B, K, C, li = 2, 4, 256, 128, 1
+    parts = [_stacked(rng, L, K, C) for _ in range(3)]
+    mj = jmm8.merge_stacked([jmm8.Mm8Weight(**{f: jnp.asarray(p[f]) for f in p})
+                             for p in parts])
+    mt = tmm8.merge_stacked([tmm8.Mm8Weight(**{f: _t(p[f]) for f in p}) for p in parts])
+    for f in ("q", "mx", "rx", "my", "ry"):
+        np.testing.assert_array_equal(getattr(mt, f).numpy(), np.asarray(getattr(mj, f)))
+    x, xx = (rng.standard_normal((B, K)).astype(np.float32) for _ in range(2))
+    mu = rng.standard_normal((3, K)).astype(np.float32) * 0.5
+    y_j = mm8_pallas.mm8_fused_a8_multi_stacked(
+        jnp.asarray(x), jnp.asarray(xx), jnp.asarray(mu), mj.mx[li], mj.rx[li], mj.my[li],
+        mj.ry[li], mj.q, li, interpret=True)
+    y_t = tmm8.mm8_multi_matmul(_t(x), _t(xx), _t(mu), tmm8.LayerIndexed(mt, li))
+    _close(y_t.numpy(), np.asarray(y_j))
+
+
+def test_fused_a8_ffn_matches_pallas():
+    """relu^2 FFN pair with the bf16-rounded intermediate re-quantized."""
+    rng = np.random.default_rng(7)
+    L, B, K, F, li = 2, 4, 128, 512, 1
+    wk, wv = _stacked(rng, L, K, F), _stacked(rng, L, F, K)
+    x = rng.standard_normal((B, K)).astype(np.float32)
+    sc = ("mx", "rx", "my", "ry")
+    y_j = mm8_pallas.mm8_fused_a8_ffn_stacked(
+        jnp.asarray(x), *(jnp.asarray(wk[f][li]) for f in sc), jnp.asarray(wk["q"]),
+        *(jnp.asarray(wv[f][li]) for f in sc), jnp.asarray(wv["q"]), li, interpret=True)
+    y_t = tmm8.mm8_ffn_matmul(
+        _t(x), tmm8.LayerIndexed(tmm8.Mm8Weight(**{f: _t(wk[f]) for f in wk}), li),
+        tmm8.LayerIndexed(tmm8.Mm8Weight(**{f: _t(wv[f]) for f in wv}), li))
+    _close(y_t.numpy(), np.asarray(y_j))
+
+
+def test_quant_rows_stats_match_jax_quant_rows():
+    """The quantize kernel's plain version returns _quant_rows' codes and row
+    statistics. The scale s is one max and one division: bit-equal. The three
+    sums are float32 sums of K mixed-sign terms taken in different orders, so
+    they are held to the worst-case reordering bound K * eps32 * sum|terms|."""
+    rng = np.random.default_rng(8)
+    K = 300
+    x = rng.standard_normal((5, K)).astype(np.float32)
+    ry = rng.random((1, K)).astype(np.float32) * 0.01
+    my = rng.standard_normal((1, K)).astype(np.float32) * 0.01
+    x8_j, s, xs_sum, x_sum, xmy_sum = mm8_pallas._quant_rows(
+        jnp.asarray(x), jnp.asarray(ry), jnp.asarray(my))
+    x8_t, st = mm8_cuda.quant_rows(_t(x), _t(ry), _t(my))
+    np.testing.assert_array_equal(x8_t[0].numpy(), np.asarray(x8_j))
+    np.testing.assert_array_equal(st[0, :, 0].numpy(), np.asarray(s)[:, 0])
+    eps = np.finfo(np.float32).eps
+    for col, want, terms in ((1, xs_sum, x * ry * 16), (2, x_sum, x), (3, xmy_sum, x * my)):
+        bound = K * eps * np.abs(terms).sum(-1)
+        err = np.abs(st[0, :, col].numpy() - np.asarray(want)[:, 0])
+        assert np.all(err <= bound), (col, err, bound)
