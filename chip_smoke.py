@@ -6,23 +6,34 @@
 Phases, in order; any failure ends the run with a non-zero exit:
 
 1. the card's name and power limit (nvidia-smi);
-2. build every CUDA kernel of the decode path from chirrup_tpu_torch/csrc, all
-   nvcc processes at once;
-3. each kernel at the decode path's shapes (7.2B: C 4096, H 64, d_ffn 16384,
-   V 65536, batch 64) against its plain PyTorch version on the same inputs,
-   with its time, its bound, the plain version's time and, where one PyTorch
-   call computes the same function, that call's time;
-4. the whole decode path on a small model, kernels (GPU) against plain
-   versions (CPU);
-5. the port's AsyncEngineCore serving four concurrent requests at the full
-   width of the 7.2B model (32 layers, random INT8 weights from a seed), with
-   every kernel's launch counter read around that run; then one decode block
-   under torch.cuda.set_sync_debug_mode("error"), with the launches per step
-   counted over it; the steady decode rate at batch 64 over 8 blocks, with each
+2. build every CUDA kernel from chirrup_tpu_torch/csrc, all nvcc processes at
+   once;
+3. each kernel at the shapes of the serving path (7.2B: C 4096, H 64, d_ffn
+   16384, V 65536) against its plain PyTorch version on the same inputs, with
+   its time, its bound, the plain version's time and, where one PyTorch call
+   computes the same function, that call's time: the decode kernels at batch
+   64, the WKV chunk kernel at the prefill variants (P, T) = (8, 64), (8, 256)
+   and (32, 64) (and against a planted fault that ignores lengths), and the mm8
+   kernels at prefill row counts 512, 2048 and 1000;
+4. the decode path and the compact prefill on a small model, kernels (GPU)
+   against plain versions (CPU), and chunked prefill against token-by-token
+   feeding on the GPU;
+5. the port's AsyncEngineCore at the full width of the 7.2B model (32 layers,
+   random INT8 weights from a seed), batch 64, serving five short requests
+   (four through SEQ_PREFILL, one through ONE_PREFILL) and four ~1,024-token
+   prompts, with each request's time to first token and every kernel's launch
+   counter read around that run; then one decode block under
+   torch.cuda.set_sync_debug_mode("error"), with the launches per step counted
+   over it; the steady decode rate at batch 64 over 8 blocks, with each
    block's host dispatch, CPU and wall time; and the device busy time of one
    block from torch.profiler (its table goes to chiprun_out/chip_smoke_profile.txt;
    --profile prints it as well);
-6. one JSON line with every kernel's numbers, then the result line.
+6. chunked prefill at 7.2B width on a batch-256 ServingModel sharing the
+   engine's weights, both variants (8, 256) and (32, 64): launches per chunk
+   (one chunk under sync debug mode "error"), prompt tok/s, host dispatch per
+   chunk and the device busy time per chunk by kernel (torch.profiler; table in
+   chiprun_out/chip_smoke_prefill_profile.txt);
+7. one JSON line with every kernel's numbers, then the result line.
 
 Without a CUDA device, or without the chirrup_tpu_torch package beside it,
 the script exits non-zero and prints no result.
@@ -169,6 +180,82 @@ def check_wkv(dev, gen, B=64, C=4096, L=32, li=17):
                 tolerance="per element 2^-7 |ref| + 2^-8 rms(ref), y and state")
 
 
+def check_chunk(dev, gen, variants=((8, 64), (8, 256), (32, 64)), C=4096, L=32, li=9):
+    """The chunk kernel against its plain version at each prefill variant, with
+    bf16 rows and state, r/k/v as views of one merged (P, T, 3C) projection
+    output, and lengths that include 0, 1, one not a multiple of 8, and T. The
+    same per-element limit as the decode step, on y and on the state; the
+    comparison must reject a planted fault: a plain version that ignores
+    lengths. The first variant is the headline of the JSON line."""
+    from chirrup_tpu_torch.ops.wkv7_cuda import wkv7_chunk_fused, wkv7_chunk_fused_reference
+
+    bf = torch.bfloat16
+    rnd = lambda *s: torch.randn(s, generator=gen, device=dev)
+    k_k, k_a, r_k = ((rnd(C) * 0.5 + 1.0).to(bf) for _ in range(3))
+    ln_w, ln_b = (rnd(C) * 0.1 + 1.0).to(bf), (rnd(C) * 0.1).to(bf)
+    sites = []
+    for P, T in variants:
+        rkv = rnd(P, T, 3 * C).to(bf)
+        r, k, v = rkv.split(C, dim=-1)
+        w = rnd(P, T, C).to(bf)
+        a = torch.sigmoid(rnd(P, T, C)).to(bf)
+        state = (rnd(L, P, 64, C) * 0.3).to(bf)
+        elapsed = torch.randint(0, 2 ** 31 - 1, (P,), generator=gen, device=dev,
+                                dtype=torch.int64).to(torch.int32)
+        elapsed[0] = 2 ** 31 - 7                 # the counter crosses 2^31 mid-chunk
+        lengths = torch.randint(0, T + 1, (P,), generator=gen, device=dev,
+                                dtype=torch.int64).to(torch.int32)
+        lengths[:4] = torch.tensor([0, 1, T - 3, T], dtype=torch.int32)
+        args = (r, w, k, a, v, k_k, k_a, r_k, ln_w, ln_b, elapsed, lengths)
+        before, neighbour = state[li].clone(), state[li - 1].clone()
+        y_ref, s_ref = wkv7_chunk_fused_reference(before, *args)
+        y = wkv7_chunk_fused(state, li, *args)
+        torch.cuda.synchronize()
+        ex_y, ex_s = bf16_excess(y, y_ref), bf16_excess(state[li], s_ref)
+        err = max(max_abs(y, y_ref), max_abs(state[li], s_ref))
+        require(ex_y <= 1 and ex_s <= 1,
+                f"wkv7_chunk_fused P{P} T{T}: worst |err|/limit y {ex_y}, state {ex_s}")
+        require(torch.equal(state[li - 1], neighbour), "wkv7_chunk_fused touched another layer")
+        idle = lengths == 0
+        require(torch.equal(state[li][idle], before[idle]),
+                "wkv7_chunk_fused: length-0 rows changed")
+        past = torch.arange(T, device=dev)[None, :] >= lengths[:, None]
+        require(bool((y[past] == 0).all()), "wkv7_chunk_fused: output past a length")
+        y_fault, s_fault = wkv7_chunk_fused_reference(before, *args[:-1],
+                                                      torch.full_like(lengths, T))
+        ex_fault = max(bf16_excess(y_fault, y_ref), bf16_excess(s_fault, s_ref))
+        require(ex_fault > 1, f"wkv7_chunk_fused: the check passes a kernel that ignores "
+                              f"lengths (worst |err|/limit {ex_fault})")
+        ms = device_ms(lambda: wkv7_chunk_fused(state, li, *args))
+        plain = device_ms(lambda: wkv7_chunk_fused_reference(state[li], *args), iters=1,
+                          reps=3)
+        # this run's work: the valid tokens, the slabs of rows that have any
+        n_tok = int(lengths.sum())
+        live = int((lengths > 0).sum())
+        moved = (2 * live * 64 * C * state.element_size() + 5 * n_tok * C * 2
+                 + nbytes(y, k_k, k_a, r_k, ln_w, ln_b, elapsed, lengths))
+        b, by = bound_ms(moved, 9 * n_tok * 64 * C, "fp32")
+        log(f"wkv7_chunk_fused P{P} T{T} C{C} bf16, {n_tok} valid tokens (lengths "
+            f"{lengths[:4].tolist()}...): y/state err {err:.3e}; worst |err|/limit y "
+            f"{ex_y:.3f}, state {ex_s:.3f} (limit 2^-7|ref| + 2^-8 rms(ref)); planted fault "
+            f"(lengths ignored) {ex_fault:.2f}; {ms:.4f} ms, plain {plain:.4f} ms, bound "
+            f"{b:.4f} ms ({by})")
+        sites.append(dict(variant=[P, T], valid_tokens=n_tok, err=err, ms=ms, plain_ms=plain,
+                          bound_ms=b, bound_by=by, fault_excess=ex_fault))
+        del rkv, r, k, v, w, a, state, before, neighbour, y, y_ref, s_ref, y_fault, s_fault
+        torch.cuda.empty_cache()
+    head = sites[0]
+    return dict(name="wkv7_chunk_fused", route="cuda", source="chirrup_tpu_torch/csrc/wkv7_chunk.cu",
+                replaces="chirrup_tpu/ops/wkv7_pallas.py:714",
+                max_abs_err=max(x["err"] for x in sites), ms=head["ms"],
+                plain_ms=head["plain_ms"], bound_ms=head["bound_ms"], bound_by=head["bound_by"],
+                library_ms=None,
+                shape=f"P{variants[0][0]} T{variants[0][1]} C{C}, state ({L}, P, 64, {C}) bf16, "
+                      f"one layer",
+                tolerance="per element 2^-7 |ref| + 2^-8 rms(ref), y and state",
+                sites=sites)
+
+
 MM8_SHAPES = [  # (site, K, M, n variants, quant mode, relu2, stacked)
     ("att R/K/V", 4096, 3 * 4096, 3, "mix", False, True),
     ("att Wo", 4096, 4096, 1, "mul", False, True),
@@ -250,23 +337,21 @@ def check_mm8(dev, gen, B=64, shapes=MM8_SHAPES):
         g_plain = device_ms(lambda: mm8_cuda.gemm_reference(x8, st, q_layer, mx, rx,
                                                             relu2=relu2,
                                                             out_dtype=out_dtype), iters=3)
-        lib = None
-        if n == 1:
-            # the int8 GEMM alone, as cuBLASLt computes it (column-major B)
-            q_cm = q_layer.t().contiguous().t()
-            lib = device_ms(lambda: torch._int_mm(x8[0], q_cm))
+        # the int8 GEMM alone, as cuBLASLt computes it (column-major B); for the
+        # merged R/K/V, one (B, K) x (K, n*C) product: the same operations
+        q_cm = q_layer.t().contiguous().t()
+        lib = device_ms(lambda: torch._int_mm(x8[0], q_cm))
         g_b, g_by = bound_ms(nbytes(x8, st, q_layer, mx, rx, y), 2 * B * K * M, "int8")
         gemm_rows.append(dict(site=site, err=y_err, ms=g_ms, plain_ms=g_plain, bound_ms=g_b,
                               bound_by=g_by, library_ms=lib,
                               shape=f"({B}, {K}) x ({K}, {M}) int8 -> bf16"
                                     + (" relu2" if relu2 else "")))
-        lib_s = "n/a" if lib is None else f"{lib:.4f} ms"
         log(f"mm8_a8_gemm {site} B{B} K{K} M{M}{' relu2' if relu2 else ''}: acc exact "
             f"{acc_equal}, y err {y_err:.3e} (tol {y_tol:.3e}); {g_ms:.4f} ms, plain "
-            f"{g_plain:.4f} ms, torch._int_mm {lib_s}, bound {g_b:.4f} ms ({g_by})")
-        del q, q_layer, acc, acc_ref
+            f"{g_plain:.4f} ms, torch._int_mm {lib:.4f} ms, bound {g_b:.4f} ms ({g_by})")
+        del q, q_layer, q_cm, acc, acc_ref
     qr = quant_rows_out[0]    # the merged R/K/V quantization
-    gr = gemm_rows[-1]        # the head
+    gr = gemm_rows[-1]        # the last site: the head on the decode path
     return [
         dict(name="mm8_a8_quant_rows", route="cuda", source="chirrup_tpu_torch/csrc/mm8_a8.cu",
              replaces="chirrup_tpu/ops/mm8_pallas.py:639", max_abs_err=qr["err"],
@@ -369,6 +454,120 @@ def check_small_model(dev):
             f"(tol {tol}), greedy tokens differing on near-ties {flips}/{B * steps}")
 
 
+def check_small_prefill(dev, chunk=16):
+    """The compact prefill, then greedy decode, on a small INT8 model: the same
+    weights and prompts on the GPU (kernels) and the CPU (plain versions), at
+    float32 and bf16. At float32 on the GPU, chunked prefill must also agree
+    with feeding the same prompts token by token through the decode step. The
+    tolerances and the clear-margin rule for greedy tokens are the decode
+    check's."""
+    import numpy as np
+    from chirrup_tpu_torch.engine.serving import ServingModel
+    from chirrup_tpu_torch.models.config import RWKV7Config, RuntimeConfig
+    from chirrup_tpu_torch.models.loader import synthetic_params_int8
+
+    class Greedy:
+        temperature, top_p, top_k = 0.0, 0.3, 0
+        frequency_penalty, presence_penalty, penalty_decay = 0.5, 0.5, 0.996
+        forbidden_tokens = ()
+
+    cfg = RWKV7Config(n_layer=2, n_embd=256, vocab_size=16384)
+    B, steps = 8, 6
+    rng = np.random.default_rng(2)
+    lens = [33, 17, 2, 25, 16, 40, 11, 30]   # prompt lengths; the last token decodes
+    prompts = [rng.integers(1, cfg.vocab_size, n).astype(np.int32) for n in lens]
+    order = np.arange(B)[::-1].astype(np.int32)  # compact rows map to slots in reverse
+
+    def prefill(m, c):
+        done = [0] * B
+        while any(done[s] < lens[s] - 1 for s in range(B)):
+            tokens = np.zeros((B, chunk), np.int32)
+            lengths = np.zeros(B, np.int32)
+            for row, s in enumerate(order):
+                n = min(chunk, lens[s] - 1 - done[s])
+                tokens[row, :n] = prompts[s][done[s]:done[s] + n]
+                lengths[row] = n
+                done[s] += n
+            m.prefill_step_compact(c, tokens, lengths, order)
+
+    def feed(m, c):
+        """Token by token through the decode step, as ONE_PREFILL does."""
+        for t in range(max(lens) - 1):
+            act = np.array([t < n - 1 for n in lens])
+            toks = np.array([p[t] if a else 0 for p, a in zip(prompts, act)], np.int32)
+            m.decode_step(c, toks, act, np.zeros(B, bool))
+
+    def decode(m, c):
+        toks = np.array([p[-1] for p in prompts], np.int32)
+        on, out = np.ones(B, bool), []
+        for t in range(steps):
+            _, s_t, l_t = m.decode_step(c, toks, on, on, np.full(B, t > 0))
+            out.append((s_t.cpu(), l_t.float().cpu()))
+        return out
+
+    def compare(label, got, want, tol):
+        """Logits within tol of scale; greedy tokens equal where want's top-2
+        margin is clear. Returns (worst err / scale, near-tie flips)."""
+        worst, flips = 0.0, 0
+        for (s_g, l_g), (s_w, l_w) in zip(got, want):
+            require(bool(torch.isfinite(l_g).all()), f"{label}: non-finite logits")
+            scale = float(l_w.abs().max())
+            err = max_abs(l_g, l_w)
+            worst = max(worst, err / scale)
+            require(err <= tol * scale, f"{label}: logits err {err} > {tol}*{scale}")
+            top2 = torch.topk(l_w, 2, dim=-1).values
+            clear = (top2[:, 0] - top2[:, 1]) > 2 * tol * scale
+            diff = s_g != s_w
+            flips += int(diff.sum())
+            require(not bool((diff & clear).any()), f"{label}: greedy tokens differ")
+        return worst, flips
+
+    def state_err(c_got, c_want):
+        worst = 0.0
+        for name in ("shift", "wkv"):
+            g = getattr(c_got.state, name).float().cpu()
+            w = getattr(c_want.state, name).float().cpu()
+            worst = max(worst, max_abs(g, w) / float(w.abs().max()))
+        require(torch.equal(c_got.state.elapsed.cpu(), c_want.state.elapsed.cpu()),
+                "small prefill: elapsed differs")
+        return worst
+
+    for dtype, tol in ((torch.float32, 2e-3), (torch.bfloat16, 3e-2)):
+        rt = RuntimeConfig(activation_dtype=dtype, wkv_state_dtype=dtype, quantization="int8")
+        params = synthetic_params_int8(cfg, seed=5, dtype=dtype, device=dev)
+        models = [ServingModel(cfg, params, rt, B, prefill_chunk=chunk, device=d)
+                  for d in (dev, "cpu")]
+        carries = [m.init_carry() for m in models]
+        for m, c in zip(models, carries):
+            for s in range(B):
+                m.insert_slot(c, s, None, Greedy)
+            prefill(m, c)
+        s_err = state_err(*carries)
+        require(s_err <= tol, f"small prefill {dtype}: state err {s_err} of scale > {tol}")
+        gpu, cpu = (decode(m, c) for m, c in zip(models, carries))
+        worst, flips = compare(f"small prefill {dtype}", gpu, cpu, tol)
+        log(f"small model prefill (compact, chunk {chunk}) + decode, L2 C256 B{B} {dtype}, "
+            f"GPU vs CPU: state err {s_err:.3e} of scale, logits err <= {worst:.3e} of scale "
+            f"(tol {tol}), greedy tokens differing on near-ties {flips}/{B * steps}")
+        if dtype == torch.float32:
+            m = models[0]
+            c = m.init_carry()
+            for s in range(B):
+                m.insert_slot(c, s, None, Greedy)
+            feed(m, c)
+            prefill_carry = m.init_carry()
+            for s in range(B):
+                m.insert_slot(prefill_carry, s, None, Greedy)
+            prefill(m, prefill_carry)
+            s_err = state_err(prefill_carry, c)
+            require(s_err <= tol, f"chunked vs token-by-token: state err {s_err} > {tol}")
+            worst, flips = compare("chunked vs token-by-token", decode(m, prefill_carry),
+                                   decode(m, c), tol)
+            log(f"small model float32 on the GPU, chunked prefill vs token by token: state "
+                f"err {s_err:.3e} of scale, logits err <= {worst:.3e} of scale (tol {tol}), "
+                f"greedy tokens differing on near-ties {flips}/{B * steps}")
+
+
 # ------------------------------------------------------------- main path
 
 def write_vocab(path: str, size: int = 65536) -> None:
@@ -382,7 +581,8 @@ def write_vocab(path: str, size: int = 65536) -> None:
         f.write("\n".join(lines))
 
 
-def run_engine(dev, profile: bool, B=64, L=32, C=4096, V=65536, n_tok=32, blocks=8):
+def run_engine(dev, profile: bool, B=64, L=32, C=4096, V=65536, n_tok=32, blocks=8,
+               long_prompt=1024):
     from chirrup_tpu_torch.engine.engine import AsyncEngineCore
     from chirrup_tpu_torch.engine.structures import ModelLoadConfig
     from chirrup_tpu_torch.ops import _kernels
@@ -394,44 +594,73 @@ def run_engine(dev, profile: bool, B=64, L=32, C=4096, V=65536, n_tok=32, blocks
                           quantization="int8", synthetic_config=dict(n_layer=L, n_embd=C,
                                                                      vocab_size=V))
     torch.cuda.reset_peak_memory_stats(dev)
+    gen = torch.Generator().manual_seed(3)
+    # (prompt, prefill tokens, temperature, penalties): four short prompts that
+    # prefill in one chunk, one under min_forward_seq_len (ONE_PREFILL), and
+    # four long ones
+    requests = [(f"Request {i}: the port answers", None, temp, pen)
+                for i, (temp, pen) in enumerate([(0.0, 0.0), (0.0, 0.0), (1.0, 0.5),
+                                                 (1.0, 0.5)])]
+    requests.append(("Hi there", None, 0.0, 0.0))
+    requests += [("", torch.randint(1, V, (long_prompt,), generator=gen).tolist(), temp, 0.0)
+                 for temp in (0.0, 0.0, 1.0, 1.0)]
 
     async def serve():
         engine = AsyncEngineCore()
         t0 = time.perf_counter()
         await engine.init(worker_num=1, model_config=cfg, batch_size=B, load_timeout=600,
                           device=dev)
+        worker = engine.workers[0]
         log(f"engine: INT8 model (L{L} C{C} V{V}) loaded in "
             f"{time.perf_counter() - t0:.1f} s, batch {B}, decode block "
-            f"{engine.workers[0].decode_block_size}")
-        model = engine.workers[0].model
-        block = engine.workers[0].decode_block_size
+            f"{worker.decode_block_size}, prefill variants {worker.model.prefill_variants}, "
+            f"at most {worker.max_prefill_count} prompts prefilling")
+        model = worker.model
+        compact_calls = []
+        compact = model.prefill_step_compact
+
+        def counted(carry, tokens, lengths, slot_idx):
+            compact_calls.append(int((lengths > 0).sum()))
+            return compact(carry, tokens, lengths, slot_idx)
+
+        model.prefill_step_compact = counted
         try:
             _kernels.reset_launches()
             t0 = time.perf_counter()
-            comps = [engine.completion(f"Request {i}: the port answers", max_tokens=n_tok,
+            comps = [engine.completion(prompt, prefill_tokens=ids, max_tokens=n_tok,
                                        stop_tokens=(), temperature=temp,
                                        presence_penalty=pen, frequency_penalty=pen)
-                     for i, (temp, pen) in enumerate([(0.0, 0.0), (0.0, 0.0),
-                                                      (1.0, 0.5), (1.0, 0.5)])]
+                     for prompt, ids, temp, pen in requests]
+            n_prompt = [len(c.task.prefill_tokens) for c in comps]  # before admission
             texts = await asyncio.gather(*[c.get_full_completion() for c in comps])
             wall = time.perf_counter() - t0
             launches = dict(_kernels.LAUNCHES)
         finally:
             engine.shutdown()
             engine.join(timeout=30)
-        return model, block, comps, texts, wall, launches
+            del model.prefill_step_compact
+        return (model, worker.decode_block_size, comps, n_prompt, texts, wall, launches,
+                compact_calls)
 
-    model, engine_block, comps, texts, wall, launches = asyncio.run(serve())
+    model, engine_block, comps, n_prompt, texts, wall, launches, compact_calls = \
+        asyncio.run(serve())
     peak = torch.cuda.max_memory_allocated(dev)
     n_gen = sum(len(c.task.generated_tokens) for c in comps)
+    ttft = []
     for i, (c, text) in enumerate(zip(comps, texts)):
         require(c.task.is_finished() and len(c.task.generated_tokens) == n_tok and text,
                 f"request {i}: status {c.task.request_status}, "
                 f"{len(c.task.generated_tokens)} tokens, text {text!r}")
-        log(f"request {i}: {c.task.request_status}, {len(c.task.generated_tokens)} tokens, "
-            f"text {text[:48]!r}")
-    log(f"engine: 4 requests, {n_gen} tokens in {wall:.3f} s ({n_gen / wall:.1f} tok/s, "
-        f"4 of {B} slots busy); launches {launches}; peak memory {peak / 2 ** 30:.2f} GiB")
+        timing = c.task.timing
+        ttft.append(timing["first_token"] - timing["enqueue"])
+        log(f"request {i}: {c.task.request_status}, prompt {n_prompt[i]} tokens, "
+            f"{len(c.task.generated_tokens)} generated, time to first token {ttft[-1]:.3f} s, "
+            f"text {text[:40]!r}")
+    log(f"engine: {len(comps)} requests, {n_gen} tokens in {wall:.3f} s "
+        f"({n_gen / wall:.1f} tok/s, {len(comps)} of {B} slots busy); "
+        f"{len(compact_calls)} compact prefill chunks (rows fed {compact_calls}); "
+        f"launches {launches}; peak memory {peak / 2 ** 30:.2f} GiB")
+    require(len(compact_calls) > 0, "the engine never dispatched prefill_step_compact")
     for name, count in launches.items():
         require(count > 0, f"kernel {name} was not launched on the main path")
 
@@ -466,7 +695,7 @@ def run_engine(dev, profile: bool, B=64, L=32, C=4096, V=65536, n_tok=32, blocks
         f"launches per step {per_step}")
     # one WKV step per layer; quant + GEMM for R/K/V, Wo, FFN k and FFN v per
     # layer and for the head; one penalty tail
-    expected = {"wkv7_step_fused": L, "mm8_a8_quant_rows": 4 * L + 1,
+    expected = {"wkv7_step_fused": L, "wkv7_chunk_fused": 0, "mm8_a8_quant_rows": 4 * L + 1,
                 "mm8_a8_gemm": 4 * L + 1, "penalty_tail": 1}
     require(per_step == expected, f"launches per step {per_step}, expected {expected}")
     logits = model.decode_step(carry, tokens[0], ones[0], ones[0], ones[0])[2]
@@ -522,11 +751,97 @@ def run_engine(dev, profile: bool, B=64, L=32, C=4096, V=65536, n_tok=32, blocks
             f"{100 * (1 - busy / step_ms):.1f}% of the time")
     if profile:
         log(averages.table(sort_by="self_cuda_time_total", row_limit=30))
-    return launches, per_step, dict(
-        engine_tok_s=n_gen / wall, step_ms=step_ms, decode_tok_s=tok_s, blocks=blocks,
+    return model, launches, per_step, dict(
+        engine_tok_s=n_gen / wall, ttft_s=ttft, compact_chunks=len(compact_calls),
+        step_ms=step_ms, decode_tok_s=tok_s, blocks=blocks,
         block_steps=K, host_dispatch_ms=host_ms, host_cpu_ms=cpu_ms, block_wall_ms=wall_ms,
         device_busy_step_ms=busy, load_average=[load_before[0], load_after[0]],
         peak_gib=peak / 2 ** 30)
+
+
+def run_prefill(dev, engine_model, profile: bool, B=256, chunks=4):
+    """Compact prefill at 7.2B width on a batch-256 ServingModel that shares
+    the engine model's prepared weights, for each (P, T) variant: launches per
+    chunk (one chunk under sync debug mode "error"), then `chunks` chunks timed
+    on the host clock (dispatch, and wall through a synchronise), then one more
+    under the profiler for the device busy time by kernel."""
+    import numpy as np
+    from chirrup_tpu_torch.engine.serving import ServingModel
+    from chirrup_tpu_torch.ops import _kernels
+    from torch.profiler import ProfilerActivity, profile as torch_profile
+
+    m0 = engine_model
+    model = ServingModel(m0.config, m0.params, m0.runtime, B,
+                         prefill_chunk=m0.prefill_chunk, device=dev)
+    ptr = lambda w: getattr(w, "q", w).data_ptr()
+    require(all(ptr(a) == ptr(b) for a, b in zip(model.params["blocks"]["att"].values(),
+                                                 m0.params["blocks"]["att"].values())),
+            "the batch-256 model copied the weights")
+    L, V = m0.config.n_layer, m0.config.vocab_size
+    carry = model.init_carry()
+    rng = np.random.default_rng(4)
+    results, tables = [], []
+    for P, T in model.prefill_variants:
+        slot_idx = (np.arange(P) * (B // P)).astype(np.int32)
+        lengths = np.full(P, T, np.int32)
+
+        def chunk():
+            tokens = rng.integers(1, V, (P, T)).astype(np.int32)
+            return model.prefill_step_compact(carry, tokens, lengths, slot_idx)
+
+        chunk()
+        torch.cuda.synchronize()
+        _kernels.reset_launches()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            chunk()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        per_chunk = dict(_kernels.LAUNCHES)
+        torch.cuda.synchronize()
+        expected = {"wkv7_step_fused": 0, "wkv7_chunk_fused": L, "mm8_a8_quant_rows": 4 * L,
+                    "mm8_a8_gemm": 4 * L, "penalty_tail": 0}
+        require(per_chunk == expected,
+                f"prefill ({P}, {T}): launches per chunk {per_chunk}, expected {expected}")
+        host_ms, wall_ms = [], []
+        for _ in range(chunks):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            chunk()
+            t1 = time.perf_counter()
+            torch.cuda.synchronize()
+            host_ms.append((t1 - t0) * 1e3)
+            wall_ms.append((time.perf_counter() - t0) * 1e3)
+        tok_s = P * T * chunks / (sum(wall_ms) / 1e3)
+        with torch_profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            chunk()
+            torch.cuda.synchronize()
+        averages = prof.key_averages()
+        kernels = sorted(((e.key, e.self_device_time_total / 1e3) for e in averages
+                          if e.device_type.name == "CUDA" and e.self_device_time_total > 0),
+                         key=lambda kv: -kv[1])
+        busy = sum(ms for _, ms in kernels)
+        tables.append(f"prefill chunk ({P}, {T})\n"
+                      + averages.table(sort_by="self_cuda_time_total", row_limit=30))
+        wall = statistics.median(wall_ms)
+        top = "; ".join(f"{name[:48]} {ms:.2f}" for name, ms in kernels[:6])
+        log(f"prefill ({P}, {T}) at batch {B}, 7.2B width: launches per chunk {per_chunk} "
+            f"(no host synchronisation: sync debug mode 'error'); {tok_s:.1f} prompt tok/s "
+            f"over {chunks} chunks; per chunk host dispatch ms "
+            f"{statistics.median(host_ms):.1f} (min {min(host_ms):.1f}, max {max(host_ms):.1f}), "
+            f"wall ms {wall:.1f} (min {min(wall_ms):.1f}, max {max(wall_ms):.1f}); device busy "
+            f"{busy:.2f} ms a chunk (profiler), idle {100 * (1 - busy / wall):.1f}% of the "
+            f"median wall; by kernel (ms): {top}")
+        results.append(dict(variant=[P, T], launches_per_chunk=per_chunk, prompt_tok_s=tok_s,
+                            host_dispatch_ms=host_ms, chunk_wall_ms=wall_ms,
+                            device_busy_chunk_ms=busy, device_ms_by_kernel=kernels[:12]))
+    os.makedirs(OUT_DIR, exist_ok=True)
+    with open(os.path.join(OUT_DIR, "chip_smoke_prefill_profile.txt"), "w") as f:
+        f.write("\n\n".join(tables))
+    if profile:
+        log("\n\n".join(tables))
+    del carry, model
+    return results
 
 
 # ------------------------------------------------------------------- main
@@ -555,14 +870,27 @@ def main(argv=None) -> int:
     log(f"built {', '.join(p.name for p in libs.values())} in {time.perf_counter() - t0:.1f} s")
 
     gen = torch.Generator(device=dev).manual_seed(0)
-    kernels = [check_wkv(dev, gen), *check_mm8(dev, gen), check_penalty_tail(dev, gen)]
+    kernels = [check_wkv(dev, gen), check_chunk(dev, gen), *check_mm8(dev, gen),
+               check_penalty_tail(dev, gen)]
+    torch.cuda.empty_cache()
+    # the mm8 kernels at prefill row counts: 8 x 64 and 8 x 256 or 32 x 64
+    # rows, and a count that is not a multiple of the GEMM's 64-row tile
+    mm8_prefill = {rows: check_mm8(dev, gen, B=rows, shapes=MM8_SHAPES[:4])
+                   for rows in (512, 2048, 1000)}
     torch.cuda.empty_cache()
     check_small_model(dev)
+    check_small_prefill(dev)
     torch.cuda.empty_cache()
-    launches, per_step, path = run_engine(dev, args.profile)
+    model, launches, per_step, path = run_engine(dev, args.profile)
+    prefill = run_prefill(dev, model, args.profile)
+    del model
     for k in kernels:
         k["launches"] = launches[k["name"]]
         k["launches_per_step"] = per_step[k["name"]]
+        k["launches_per_chunk"] = prefill[0]["launches_per_chunk"][k["name"]]
+    path["prefill"] = prefill
+    path["mm8_prefill_rows"] = {rows: {k["name"]: k["sites"] for k in ks}
+                                for rows, ks in mm8_prefill.items()}
 
     summary = {"kernels": kernels}
     os.makedirs(OUT_DIR, exist_ok=True)

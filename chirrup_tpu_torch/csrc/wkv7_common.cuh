@@ -1,0 +1,93 @@
+// Helpers shared by the WKV7 kernels (wkv7_step.cu, wkv7_chunk.cu): dtype
+// conversion, 16-byte loads and stores of one 64-wide state row, and the
+// 64-thread block sum.
+
+#pragma once
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace wkv7 {
+
+constexpr int N = 64;  // head size
+
+__device__ __forceinline__ float to_f32(float x) { return x; }
+__device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
+
+template <typename T> __device__ __forceinline__ T from_f32(float x);
+template <> __device__ __forceinline__ float from_f32<float>(float x) { return x; }
+template <> __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
+  return __float2bfloat16_rn(x);
+}
+
+__device__ __forceinline__ void load_row(const float* p, float* s) {
+  const float4* q = reinterpret_cast<const float4*>(p);
+#pragma unroll
+  for (int v = 0; v < N / 4; ++v) {
+    const float4 f = q[v];
+    s[4 * v] = f.x; s[4 * v + 1] = f.y; s[4 * v + 2] = f.z; s[4 * v + 3] = f.w;
+  }
+}
+
+__device__ __forceinline__ void load_row(const __nv_bfloat16* p, float* s) {
+  const uint4* q = reinterpret_cast<const uint4*>(p);
+#pragma unroll
+  for (int v = 0; v < N / 8; ++v) {
+    uint4 u = q[v];
+    const __nv_bfloat162* h2 = reinterpret_cast<const __nv_bfloat162*>(&u);
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const float2 f = __bfloat1622float2(h2[e]);
+      s[8 * v + 2 * e] = f.x;
+      s[8 * v + 2 * e + 1] = f.y;
+    }
+  }
+}
+
+__device__ __forceinline__ void store_row(float* p, const float* s) {
+  float4* q = reinterpret_cast<float4*>(p);
+#pragma unroll
+  for (int v = 0; v < N / 4; ++v)
+    q[v] = make_float4(s[4 * v], s[4 * v + 1], s[4 * v + 2], s[4 * v + 3]);
+}
+
+__device__ __forceinline__ void store_row(__nv_bfloat16* p, const float* s) {
+  uint4* q = reinterpret_cast<uint4*>(p);
+#pragma unroll
+  for (int v = 0; v < N / 8; ++v) {
+    uint4 u;
+    __nv_bfloat162* h2 = reinterpret_cast<__nv_bfloat162*>(&u);
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+      h2[e] = __floats2bfloat162_rn(s[8 * v + 2 * e], s[8 * v + 2 * e + 1]);
+    q[v] = u;
+  }
+}
+
+// Sum over one warp; every lane gets the same value.
+__device__ __forceinline__ float warp_sum(float v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  return v;
+}
+
+// Sum over the block's 64 threads; every thread gets the same value.
+__device__ __forceinline__ float block_sum64(float v, float* red) {
+  v = warp_sum(v);
+  __syncthreads();  // red may still be read from the previous call
+  if ((threadIdx.x & 31) == 0) red[threadIdx.x >> 5] = v;
+  __syncthreads();
+  return red[0] + red[1];
+}
+
+// d = exp(-e^-1/2 * sigmoid(w)) - 1, plus rotator1's dither of the token
+// counter: 2^-41 * float(int32(2654435769 * step)), uint32 wrap-around.
+__device__ __forceinline__ float decay(float w, unsigned int step, int use_dither) {
+  const float sig = 1.0f / (1.0f + expf(-w));
+  float d = expf(-0.6065306597126334f * sig) - 1.0f;
+  if (use_dither) d += (float)(int)(2654435769u * step) * 0x1p-41f;
+  return d;
+}
+
+}  // namespace wkv7

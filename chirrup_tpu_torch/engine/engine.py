@@ -75,7 +75,9 @@ def build_model_factory(model_config: ModelLoadConfig, batch_size: int, device=N
                 cfg, seed=seed, dtype=runtime.activation_dtype, device=device)
         else:
             params = loader.synthetic_params(cfg, seed=seed, device=device)
-        model = ServingModel(cfg, params, runtime, batch_size, device=device, seed=seed)
+        model = ServingModel(cfg, params, runtime, batch_size,
+                             prefill_chunk=model_config.prefill_chunk, device=device,
+                             seed=seed)
         return model, WorldTokenizer(model_config.vocab_path)
 
     return factory

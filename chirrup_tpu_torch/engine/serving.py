@@ -1,5 +1,4 @@
-"""ServingModel — the device-side half of the continuous-batching engine (the
-decode slice).
+"""ServingModel — the device-side half of the continuous-batching engine.
 
 The whole batch lives in one `BatchCarry` of device tensors that the step
 functions update IN PLACE (the JAX package threads a functional carry through
@@ -9,16 +8,20 @@ jitted programs with donated buffers; here the buffers are simply written):
                 prefill), penalties, rwkv-pip-compatible sampling;
   decode_block: K decode steps with the sampled tokens fed back on the device
                 (carry.last_sampled) and one host read of the result per block;
-  insert_slot / insert_slots_batched / reset_slot / extract_slot: per-request
+  prefill_step / prefill_step_compact: one chunk of up to `prefill_chunk`
+                prompt tokens per prefilling slot, over the whole batch or over
+                the P gathered slots only;
+  insert_slot / reset_slot / extract_slot: per-request
                 state entry and exit.
 
-Shapes never depend on occupancy: slots are masked, never moved.
+Shapes never depend on occupancy: slots are masked, never moved (the compact
+prefill gathers its rows and writes them back).
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict, Optional, Sequence
+from typing import Any, Dict, Optional
 
 import numpy as np
 import torch
@@ -122,10 +125,23 @@ class ServingModel:
     """Owns prepared parameters and the step functions for one worker."""
 
     def __init__(self, config: RWKV7Config, params: Dict[str, Any],
-                 runtime: RuntimeConfig, batch_size: int, *, device=None, seed: int = 0):
+                 runtime: RuntimeConfig, batch_size: int, prefill_chunk: int = 64, *,
+                 device=None, seed: int = 0):
         self.config = config
         self.runtime = runtime
         self.batch_size = batch_size
+        self.prefill_chunk = prefill_chunk
+        # compact prefill: the worker admits at most ~B/8 bulk prefills, so a
+        # chunk runs on P = roundup8(B/8) gathered rows (at most 32) instead of
+        # all B. Two (P, T) variants carry about P*T rows each: (P, T) for a
+        # full prefill set, and a tall one (8, T*P/8) that advances up to 8
+        # prompts P/8 times as far per chunk.
+        cap = -(-batch_size // 8)
+        P = min(batch_size, max(8, -(-cap // 8) * 8), 32)
+        small = min(8, P)
+        self.prefill_slots = P
+        self.prefill_variants = sorted({(small, prefill_chunk * (P // small)),
+                                        (P, prefill_chunk)})
         self.device = resolve_device(device)
         params = model.cast_dense(params, device=self.device)
         if runtime.quantization == "int8" and not _is_quantized(params):
@@ -251,6 +267,38 @@ class ServingModel:
             return carry, sampled, vote_sums
         return carry, sampled, vote_sums, marked
 
+    def _forward_chunk(self, state: RWKVState, tokens, lengths) -> None:
+        model.forward_chunk(self.params, self._upload(np.asarray(tokens), torch.int32),
+                            state, self._upload(np.asarray(lengths), torch.int32),
+                            compute_dtype=self.runtime.activation_dtype,
+                            use_dither=self.runtime.use_dither)
+
+    def prefill_step(self, carry: BatchCarry, tokens, lengths) -> BatchCarry:
+        """One chunk over the whole batch: tokens (B, T) and lengths (B,) host
+        arrays, length 0 for slots that are not prefilling (their state is
+        left bit-unchanged). No logits: the last prompt token always goes
+        through the decode step."""
+        self._forward_chunk(carry.state, tokens, lengths)
+        return carry
+
+    def prefill_step_compact(self, carry: BatchCarry, tokens, lengths,
+                             slot_idx) -> BatchCarry:
+        """One chunk over P gathered slots: tokens (P, T), lengths (P,) and
+        slot_idx (P,) host arrays. slot_idx must be unique; rows of length 0
+        point at idle slots, which come back bit-unchanged. The rows' shift,
+        wkv and elapsed are gathered, advanced by forward_chunk and written
+        back, all on the device."""
+        st = carry.state
+        idx = self._upload(np.asarray(slot_idx), torch.int64)
+        rows = RWKVState(shift=st.shift.index_select(2, idx),
+                         wkv=st.wkv.index_select(1, idx),
+                         elapsed=st.elapsed.index_select(0, idx))
+        self._forward_chunk(rows, tokens, lengths)
+        st.shift.index_copy_(2, idx, rows.shift)
+        st.wkv.index_copy_(1, idx, rows.wkv)
+        st.elapsed.index_copy_(0, idx, rows.elapsed)
+        return carry
+
     def insert_slot(self, carry: BatchCarry, slot: int,
                     request_state: Optional[RequestState], task) -> BatchCarry:
         """Load one request into a slot: its recurrent state (zeros when
@@ -280,13 +328,6 @@ class ServingModel:
         carry.presence_penalty[slot] = float(task.presence_penalty)
         carry.penalty_decay[slot] = float(task.penalty_decay)
         carry.last_sampled[slot] = -1
-
-    def insert_slots_batched(self, carry: BatchCarry, mask, tasks: Sequence) -> BatchCarry:
-        """Admit fresh (zero-state) requests into every masked slot: tasks[i] is
-        the Task of masked slot i (None elsewhere)."""
-        for i in np.flatnonzero(np.asarray(mask, bool)):
-            self.insert_slot(carry, int(i), None, tasks[i])
-        return carry
 
     def reset_slot(self, carry: BatchCarry, slot: int) -> BatchCarry:
         """Zero a slot's state and restore default sampling parameters."""

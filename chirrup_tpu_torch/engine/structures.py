@@ -146,5 +146,7 @@ class ModelLoadConfig:
     quantization: Optional[str] = "int8"   # None | "int8"
     wkv_state_dtype: str = "bfloat16"      # "float32" | "bfloat16"
     activation_dtype: str = "bfloat16"
+    # tokens per row of a prefill chunk (ServingModel.prefill_chunk)
+    prefill_chunk: int = 64
     # test and benchmark hook: synthetic model instead of a checkpoint file
     synthetic_config: Optional[Dict[str, int]] = None

@@ -1,12 +1,16 @@
 """Continuous-batching worker: one thread driving one device.
 
 Slots are never physically reordered: the step functions take boolean masks
-over a fixed-size batch, so a slot's position never changes and nothing is
-copied. This slice has no chunked prefill: every prompt is admitted as
-ONE_PREFILL and fed token by token through the decode block (or straight to
-DECODE for a one-token prompt). Each loop dispatches one decode block of K
-steps (K > 1 on the GPU, where a block amortises the host's per-step work) and
-then reads the previous block's sampled tokens, once per block.
+over a fixed-size batch, so a slot's position never changes. A prompt with at
+least `min_forward_seq_len` tokens after its first is admitted as SEQ_PREFILL
+and advanced in chunks of up to `prefill_chunk` tokens per row
+(ServingModel.prefill_step_compact), at most `max_prefill_count` prompts at a
+time; its last tokens, and shorter prompts, are fed token by token through the
+decode block as ONE_PREFILL before the slot turns to DECODE. Each loop
+dispatches one decode block of K steps (K > 1 on the GPU, where a block
+amortises the host's per-step work), then prefill chunks at one chunk per
+`decode_prefill_ratio` decode steps, then reads the previous block's sampled
+tokens, once per block.
 """
 
 from __future__ import annotations
@@ -33,8 +37,12 @@ GPU_DECODE_BLOCK = 16
 
 class SlotPhase(enum.IntEnum):
     EMPTY = 0
+    SEQ_PREFILL = 1   # chunked prompt prefill (prefill_step_compact)
     ONE_PREFILL = 2   # token-by-token prompt ingestion through the decode block
     DECODE = 3        # sampling
+
+
+_STEPPED = (SlotPhase.ONE_PREFILL, SlotPhase.DECODE)  # phases the decode block runs
 
 
 @dataclasses.dataclass
@@ -60,6 +68,11 @@ class _PendingStep:
 class Worker:
     """Runs the continuous-batching loop in its own thread."""
 
+    # a prompt with at least this many tokens after its first prefills in chunks
+    min_forward_seq_len = 10
+    # decode steps per prefill chunk while both run
+    decode_prefill_ratio = 5
+
     def __init__(self, worker_id: str,
                  model_factory: Callable[[], Tuple[ServingModel, WorldTokenizer]],
                  task_queue: "queue.Queue[Task]", master_event_queue: queue.Queue,
@@ -71,6 +84,8 @@ class Worker:
         self.master_event_queue = master_event_queue
         self.worker_event_queue = worker_event_queue
         self.batch_size = batch_size
+        # concurrent chunked prefills; capped by the model's prefill_slots
+        self.max_prefill_count = max(int(batch_size * 0.125), 1)
         self.decode_block_size = decode_block_size  # None = by device
         self.idle_sleep = idle_sleep
 
@@ -82,12 +97,17 @@ class Worker:
         self._loop_times: deque = deque(maxlen=10)
         self.loop_count = 0
         self._pending: Optional[_PendingStep] = None
+        # decode steps owed before the next prefill chunk
+        self._seq_countdown = 0
+        # long prompts over the prefill cap, retried first at the next fill
+        self._deferred_tasks: List[Task] = []
 
     # ------------------------------------------------------------------ setup
 
     def _init_worker(self):
         self.model, self.tokenizer = self._model_factory()
         self.carry = self.model.init_carry()
+        self.max_prefill_count = min(self.max_prefill_count, self.model.prefill_slots)
         if self.decode_block_size is None:
             self.decode_block_size = (GPU_DECODE_BLOCK if self.model.device.type == "cuda"
                                       else 1)
@@ -125,33 +145,74 @@ class Worker:
 
     # ------------------------------------------------------------------ fill
 
+    def _one_prefill_burst_max(self) -> int:
+        """Longest remaining prompt admitted as ONE_PREFILL while the chunked
+        prefills are at their cap: about four decode blocks of token-by-token
+        ingestion. Longer prompts wait for a prefill row."""
+        return 4 * max(self.decode_block_size or 1, 1)
+
     def _fill_slots(self):
-        """Admit queued tasks into empty slots, all in one batched insert."""
-        batch_mask = np.zeros((self.batch_size,), bool)
-        batch_tasks: List[Optional[Task]] = [None] * self.batch_size
+        """Admit queued tasks into empty slots. Only prompts bound for
+        SEQ_PREFILL count against max_prefill_count. With the cap full, a
+        prompt within _one_prefill_burst_max rides the decode block as
+        ONE_PREFILL; a longer one goes back to the front of the line, and
+        shorter prompts behind it are still admitted."""
+        prefill_count = sum(1 for s in self.slots if s.phase == SlotPhase.SEQ_PREFILL)
+        deferred_now: List[Task] = []
         for idx in range(self.batch_size):
             if self.slots[idx].phase != SlotPhase.EMPTY:
                 continue
-            try:
-                task = self.task_queue.get_nowait()
-            except queue.Empty:
-                break
+            if self._deferred_tasks:
+                task = self._deferred_tasks.pop(0)
+            else:
+                try:
+                    task = self.task_queue.get_nowait()
+                except queue.Empty:
+                    break
             if not task.prefill_tokens:
                 # an empty prompt fails itself, with a completion event
                 task.request_status = RequestStatus.FINISHED_ABORTED
                 task.output_queue.put_nowait(("task_completed", task))
                 continue
+            remaining = len(task.prefill_tokens) - 1  # after the first token
+            seq_bound = remaining >= self.min_forward_seq_len
+            if seq_bound and prefill_count >= self.max_prefill_count:
+                if remaining > self._one_prefill_burst_max():
+                    deferred_now.append(task)
+                    continue
+                seq_bound = False
+            try:
+                self.carry = self.model.insert_slot(self.carry, idx, None, task)
+            except Exception:  # noqa: BLE001 — a malformed task fails itself,
+                # with a completion event, and takes no prefill row
+                traceback.print_exc()
+                task.request_status = RequestStatus.FINISHED_ABORTED
+                task.output_queue.put_nowait(("task_completed", task))
+                continue
             task.request_status = RequestStatus.RUNNING
             next_input = task.prefill_tokens.pop(0)
-            batch_mask[idx] = True
-            batch_tasks[idx] = task
-            phase = SlotPhase.ONE_PREFILL if task.prefill_tokens else SlotPhase.DECODE
+            if not task.prefill_tokens:
+                phase = SlotPhase.DECODE
+            elif seq_bound:
+                phase = SlotPhase.SEQ_PREFILL
+                prefill_count += 1
+            else:
+                phase = SlotPhase.ONE_PREFILL
             task.timing["admit"] = time.time()
             self.slots[idx] = SlotData(task=task, phase=phase, next_input=next_input,
                                        decoder=StreamingDecoder(self.tokenizer))
-        if batch_mask.any():
-            self.carry = self.model.insert_slots_batched(self.carry, batch_mask,
-                                                         batch_tasks)
+        self._deferred_tasks = deferred_now + self._deferred_tasks
+
+    def _check_seq_transitions(self):
+        """A SEQ_PREFILL slot with fewer than min_forward_seq_len prompt tokens
+        left finishes them as ONE_PREFILL (DECODE when none is left)."""
+        for slot in self.slots:
+            if slot.phase != SlotPhase.SEQ_PREFILL:
+                continue
+            if not slot.task.prefill_tokens:
+                slot.phase = SlotPhase.DECODE
+            elif len(slot.task.prefill_tokens) < self.min_forward_seq_len:
+                slot.phase = SlotPhase.ONE_PREFILL
 
     # ---------------------------------------------------------------- forward
 
@@ -162,7 +223,7 @@ class Worker:
         if K <= 1:
             return 1
         for slot in self.slots:
-            if slot.phase != SlotPhase.EMPTY and slot.task.return_logits:
+            if slot.phase in _STEPPED and slot.task.return_logits:
                 return 1
         return K
 
@@ -178,7 +239,7 @@ class Worker:
         decode_slots: List[Tuple[int, str]] = []
         n_active = n_decode = 0
         for idx, slot in enumerate(self.slots):
-            if slot.phase == SlotPhase.EMPTY:
+            if slot.phase not in _STEPPED:
                 continue
             task = slot.task
             n_active += 1
@@ -219,7 +280,7 @@ class Worker:
         decode = np.zeros((B,), bool)
         decode_slots: List[Tuple[int, str]] = []
         for idx, slot in enumerate(self.slots):
-            if slot.phase == SlotPhase.EMPTY:
+            if slot.phase not in _STEPPED:
                 continue
             active[idx] = True
             if slot.phase == SlotPhase.DECODE:
@@ -242,6 +303,36 @@ class Worker:
         self._pending = _PendingStep(sampled=sampled, raw_logits=raw_logits,
                                      decode_slots=decode_slots)
         return int(active.sum()), int(decode.sum())
+
+    def _run_prefill_step(self) -> int:
+        """One chunk for every SEQ_PREFILL slot, on the smallest compact (P, T)
+        variant that holds them (max_prefill_count <= the largest P); returns
+        the slots fed. Each slot keeps at least one prompt token for the
+        ONE_PREFILL/DECODE tail."""
+        seq_ids = [idx for idx, slot in enumerate(self.slots)
+                   if slot.phase == SlotPhase.SEQ_PREFILL and slot.task.prefill_tokens]
+        if not seq_ids:
+            return 0
+        P, T = next((P, T) for P, T in self.model.prefill_variants if len(seq_ids) <= P)
+        fed: Dict[int, List[int]] = {}
+        for idx in seq_ids:
+            slot = self.slots[idx]
+            task = slot.task
+            n = min(T, len(task.prefill_tokens))
+            fed[idx] = [slot.next_input] + task.prefill_tokens[:n - 1]
+            task.prefill_tokens = task.prefill_tokens[n - 1:]
+            slot.next_input = task.prefill_tokens.pop(0)
+        # pad rows point at distinct idle slots: slot_idx must be unique, and a
+        # row of length 0 leaves its slot bit-unchanged
+        spare = (i for i in range(self.batch_size) if i not in fed)
+        slot_idx = np.array(list(fed) + [next(spare) for _ in range(P - len(fed))], np.int32)
+        tokens = np.zeros((P, T), np.int32)
+        lengths = np.zeros((P,), np.int32)
+        for row, chunk in enumerate(fed.values()):
+            tokens[row, :len(chunk)] = chunk
+            lengths[row] = len(chunk)
+        self.carry = self.model.prefill_step_compact(self.carry, tokens, lengths, slot_idx)
+        return len(fed)
 
     def _process_pending(self):
         """Read the previous dispatch's sampled tokens (the one host read of a
@@ -302,15 +393,42 @@ class Worker:
             self._finish_slot(idx)
 
         self._fill_slots()
-        n_active = sum(1 for s in self.slots if s.phase != SlotPhase.EMPTY)
-        if n_active == 0:
+        self._check_seq_transitions()
+        n_active = sum(1 for s in self.slots if s.phase in _STEPPED)
+        n_seq = sum(1 for s in self.slots if s.phase == SlotPhase.SEQ_PREFILL)
+        if n_active == 0 and n_seq == 0:
             self._process_pending()  # drain the last in-flight step before idling
             return False
-        K = self._choose_block_size()
-        if K > 1:
-            total, decode_count = self._dispatch_decode_block(K)
+        decode_count = one_prefill_count = seq_count = 0
+        if n_active > 0:
+            K = self._choose_block_size()
+            if K > 1:
+                total, decode_count = self._dispatch_decode_block(K)
+            else:
+                total, decode_count = self._dispatch_decode_step()
+            one_prefill_count = total - decode_count
+            self._seq_countdown -= K
         else:
-            total, decode_count = self._dispatch_decode_step()
+            self._seq_countdown = 0
+        # one prefill chunk per `ratio` decode steps: a block of K steps owes
+        # K / ratio chunks. While prompts waiting for prefill (in flight,
+        # deferred or queued) outnumber the decoding slots and half the batch
+        # is empty, the ratio halves, so a cold burst of prompts is ingested
+        # faster.
+        ratio = self.decode_prefill_ratio
+        backlog = n_seq + len(self._deferred_tasks) + self.task_queue.qsize()
+        idle = sum(1 for s in self.slots if s.phase == SlotPhase.EMPTY)
+        if decode_count < backlog and idle >= self.batch_size // 2:
+            ratio = max(1, ratio // 2)
+        if n_seq == 0:
+            # no debt while nothing prefills: it would fire a burst of chunks later
+            self._seq_countdown = max(self._seq_countdown, 0)
+        while self._seq_countdown < 1 and n_seq > 0:
+            fed = self._run_prefill_step()
+            seq_count += fed
+            self._seq_countdown += max(1, ratio)
+            if fed == 0:
+                break
         # read the PREVIOUS dispatch's tokens while this one runs on the device
         self._process_pending()
         self._loop_times.append(time.perf_counter() - loop_start)
@@ -318,8 +436,8 @@ class Worker:
             "avg_loop_time": sum(self._loop_times) / len(self._loop_times),
             "state_size": self.batch_size,
             "task_details": {"decode_count": decode_count,
-                             "one_prefill_count": total - decode_count,
-                             "seq_prefill_count": 0},
+                             "one_prefill_count": one_prefill_count,
+                             "seq_prefill_count": seq_count},
             "loop_count": self.loop_count,
             "max_allocated_memory_GB": self._device_memory_gb(),
         })
@@ -364,6 +482,10 @@ class Worker:
                 slot.task.request_status = RequestStatus.FINISHED_ABORTED
                 slot.task.output_queue.put_nowait(("task_completed", slot.task))
                 self.slots[idx] = SlotData()
+        for task in self._deferred_tasks:
+            task.request_status = RequestStatus.FINISHED_ABORTED
+            task.output_queue.put_nowait(("task_completed", task))
+        self._deferred_tasks = []
         self._pending = None
 
     def _cleanup(self):

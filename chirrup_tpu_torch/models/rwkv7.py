@@ -25,8 +25,7 @@ import torch.nn.functional as F
 from chirrup_tpu_torch.models.config import RWKV7Config
 from chirrup_tpu_torch.ops import mm8
 from chirrup_tpu_torch.ops.linear import matmul
-from chirrup_tpu_torch.ops.wkv7 import HEAD_SIZE, wkv7_reference_batch
-from chirrup_tpu_torch.ops.wkv7_cuda import wkv7_step_fused
+from chirrup_tpu_torch.ops.wkv7_cuda import wkv7_chunk_fused, wkv7_step_fused
 
 _MM8_TYPES = (mm8.Mm8Weight, mm8.Mm8MultiWeight)
 
@@ -55,24 +54,6 @@ def layer_norm(x, w, b, eps=1e-5):
     out = F.layer_norm(x.to(torch.float32), (x.shape[-1],), w.to(torch.float32),
                        b.to(torch.float32), eps)
     return out.to(x.dtype)
-
-
-def group_norm(x, num_groups, w, b, eps):
-    """Per-head GroupNorm over (..., C) with C = num_groups * head_size."""
-    shape = x.shape
-    xf = x.to(torch.float32).reshape(*shape[:-1], num_groups, shape[-1] // num_groups)
-    mu = xf.mean(-1, keepdim=True)
-    var = ((xf - mu) ** 2).mean(-1, keepdim=True)
-    xn = ((xf - mu) * torch.rsqrt(var + eps)).reshape(shape)
-    return (xn * w.to(torch.float32) + b.to(torch.float32)).to(x.dtype)
-
-
-def l2_normalize_heads(x, H, N):
-    """Per-head x / max(||x||, 1e-12) (torch.nn.functional.normalize)."""
-    shape = x.shape
-    xf = x.to(torch.float32).reshape(*shape[:-1], H, N)
-    out = xf / torch.sqrt((xf * xf).sum(-1, keepdim=True)).clamp_min(1e-12)
-    return out.reshape(shape).to(x.dtype)
 
 
 def _masked_last(x, lengths, prev):
@@ -113,8 +94,6 @@ def _tmix(att, li, layer_is_first, x, shift_prev, v_first, wkv_full, elapsed, le
     """Time-mix. Advances layer li of the stacked wkv state in place and returns
     (out, new_shift, v_first)."""
     B, T, C = x.shape
-    N = HEAD_SIZE
-    H = C // N
     xx = _token_shift_delta(x, shift_prev)
 
     if "Wrkv" in att:
@@ -150,24 +129,19 @@ def _tmix(att, li, layer_is_first, x, shift_prev, v_first, wkv_full, elapsed, le
     else:
         v = v + (v_first - v) * torch.sigmoid(v_gate_pre)
 
+    # kk / k~ prologue and GroupNorm + bonus epilogue ride the WKV kernel: one
+    # token (decode) or a chunk of T (prefill); y is zero past each row's length
+    ln = lengths
+    if ln is None:
+        ln = torch.full((B,), T, dtype=torch.int32, device=x.device)
+    wkv_args = (att["k_k"], att["k_a"], att["r_k"].reshape(-1), att["ln_x_w"],
+                att["ln_x_b"], elapsed, ln)
     if T == 1:
-        # decode: kk / k~ prologue and GroupNorm + bonus epilogue ride the WKV step
-        ln = torch.ones((B,), dtype=torch.int32, device=x.device) if lengths is None \
-            else lengths
-        y = wkv7_step_fused(
-            wkv_full, li, r[:, 0], w_raw[:, 0], k[:, 0], a[:, 0], v[:, 0],
-            att["k_k"], att["k_a"], att["r_k"].reshape(-1), att["ln_x_w"],
-            att["ln_x_b"], elapsed, ln, use_dither=use_dither)
-        y = y.reshape(B, 1, C)
+        y = wkv7_step_fused(wkv_full, li, r[:, 0], w_raw[:, 0], k[:, 0], a[:, 0], v[:, 0],
+                            *wkv_args, use_dither=use_dither).reshape(B, 1, C)
     else:
-        kk = l2_normalize_heads(k * att["k_k"], H, N)
-        k = k * (1 + (a - 1) * att["k_a"])
-        y, new_l = wkv7_reference_batch(wkv_full[li], r, w_raw, k, v, -kk, kk * a,
-                                        elapsed, use_dither=use_dither, lengths=lengths)
-        wkv_full[li].copy_(new_l)
-        y = group_norm(y.to(x.dtype), H, att["ln_x_w"], att["ln_x_b"], eps=64e-5)
-        bonus = (r * k * att["r_k"].reshape(-1)).reshape(B, T, H, N).sum(-1, keepdim=True)
-        y = y + (bonus * v.reshape(B, T, H, N)).reshape(B, T, C)
+        y = wkv7_chunk_fused(wkv_full, li, r, w_raw, k, a, v, *wkv_args,
+                             use_dither=use_dither)
     out = matmul(y.to(x.dtype), att["Wo"], mul_in=g)
     return out, _masked_last(x, lengths, shift_prev), v_first
 
@@ -223,11 +197,23 @@ def forward_step(params, tokens, state: RWKVState, active=None, *,
     return logits, state
 
 
+def forward_chunk(params, tokens, state: RWKVState, lengths=None, *,
+                  compute_dtype=torch.float32, use_dither=True) -> RWKVState:
+    """Prefill a chunk: advance the state in place over tokens (B, T); no head
+    (the last prompt token always goes through forward_step). lengths: optional
+    (B,) int32 valid tokens per row; rows may be ragged or empty (length 0
+    keeps the row's state), and each row's shift comes from its last valid
+    token."""
+    x = _embed(params, tokens, compute_dtype)
+    _backbone(params, x, state, lengths, use_dither)
+    state.elapsed += tokens.shape[1] if lengths is None else lengths
+    return state
+
+
 def forward_seq(params, tokens, state: RWKVState, *, full_output=False,
                 compute_dtype=torch.float32, use_dither=True):
-    """Whole-sequence forward with logits on plain ops (the WKV recurrence is the
-    reference loop): tokens (B, T). Returns float32 logits (B, V), or (B, T, V)
-    with full_output; the state advances in place."""
+    """Whole-sequence forward with logits: tokens (B, T). Returns float32 logits
+    (B, V), or (B, T, V) with full_output; the state advances in place."""
     x = _embed(params, tokens, compute_dtype)
     x = _backbone(params, x, state, None, use_dither)
     if not full_output:

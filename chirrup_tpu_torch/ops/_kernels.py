@@ -5,8 +5,9 @@ Each ``csrc/<source>.cu`` has a plain C interface and compiles on its own::
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \\
          -Xcompiler -fPIC -o csrc/build/<source>-<hash>.so csrc/<source>.cu
 
-The library is named after a hash of its source, so an edited source builds
-anew and a stale library is never loaded. Nothing is built at import time: a
+The library is named after a hash of its source and of the shared headers
+(``csrc/*.cuh``), so an edited source builds anew and a stale library is never
+loaded. Nothing is built at import time: a
 wrapper builds its library the first time it runs on a CUDA tensor, and
 ``build()`` starts several nvcc processes at once. The libraries are loaded
 with ctypes; every entry returns ``cudaGetLastError()`` and the wrappers raise
@@ -31,13 +32,13 @@ import torch
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = CSRC / "build"
-SOURCES = ("wkv7_step", "mm8_a8", "penalty_tail")
+SOURCES = ("wkv7_step", "wkv7_chunk", "mm8_a8", "penalty_tail")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC")
 
 # launch counts by kernel name; plain integers, reset with reset_launches()
-LAUNCHES: Dict[str, int] = {"wkv7_step_fused": 0, "mm8_a8_quant_rows": 0,
-                            "mm8_a8_gemm": 0, "penalty_tail": 0}
+LAUNCHES: Dict[str, int] = {"wkv7_step_fused": 0, "wkv7_chunk_fused": 0,
+                            "mm8_a8_quant_rows": 0, "mm8_a8_gemm": 0, "penalty_tail": 0}
 
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
@@ -64,8 +65,9 @@ def _nvcc() -> str:
 
 
 def library_path(source: str) -> Path:
-    digest = hashlib.sha1((CSRC / f"{source}.cu").read_bytes()
-                          + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
+    text = (CSRC / f"{source}.cu").read_bytes() + b"".join(
+        h.read_bytes() for h in sorted(CSRC.glob("*.cuh")))
+    digest = hashlib.sha1(text + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
     return BUILD_DIR / f"{source}-{digest}.so"
 
 

@@ -1,10 +1,11 @@
-"""The fused WKV7 decode step: CUDA kernel (csrc/wkv7_step.cu) and its plain
-PyTorch version.
+"""The fused WKV7 kernels: the decode step (csrc/wkv7_step.cu) and the
+prefill chunk (csrc/wkv7_chunk.cu), with their plain PyTorch versions.
 
-One decode token of the recurrence on layer `layer` of the stacked state, with
-the TMix prologue (per-head L2 norm of k*k_k; k~ = k*(1+(a-1)*k_a)) and epilogue
-(per-head GroupNorm, eps 64e-5, *ln_w+ln_b; plus (sum_head r*k~*r_k)*v) fused in.
-Rows with length 0 keep their state and output zeros.
+Tokens of the recurrence on layer `layer` of the stacked state, with the TMix
+prologue (per-head L2 norm of k*k_k; k~ = k*(1+(a-1)*k_a)) and epilogue
+(per-head GroupNorm, eps 64e-5, *ln_w+ln_b; plus (sum_head r*k~*r_k)*v) fused
+in. Positions at or past a row's length output zeros and leave its state
+alone; a row with length 0 keeps its state bit for bit.
 """
 
 from __future__ import annotations
@@ -14,18 +15,18 @@ import torch
 from chirrup_tpu_torch.ops import _kernels
 from chirrup_tpu_torch.ops.wkv7 import HEAD_SIZE, decay_from_raw
 
-_SOURCE = "wkv7_step"
 _P, _I = _kernels.P, _kernels.I
-_SIGNATURES = {"wkv7_step_fused": [_P] * 14 + [_I] * 11 + [_P]}
+_SIGNATURES = {
+    "wkv7_step": {"wkv7_step_fused": [_P] * 14 + [_I] * 11 + [_P]},
+    "wkv7_chunk": {"wkv7_chunk_fused": [_P] * 14 + [_I] * 17 + [_P]},
+}
 
 
-def wkv7_step_fused_reference(state_l, r, w_raw, k_raw, a_iclr, v, k_k, k_a, r_k,
-                              ln_w, ln_b, elapsed, lengths, *, use_dither=True):
-    """Plain version of the kernel on one layer's slab, without side effects.
-
-    state_l: (B, N, C) layer slab; r, w_raw, k_raw, a_iclr, v: (B, C); k_k, k_a,
-    r_k, ln_w, ln_b: (C,); elapsed, lengths: (B,) int32. Returns y (B, C) in
-    r.dtype and the new slab in state_l.dtype (inactive rows bit-unchanged)."""
+def _fused_token(S, r, w_raw, k_raw, a_iclr, v, k_k, k_a, r_k, ln_w, ln_b, step,
+                 active, use_dither):
+    """One token on a float32 state S (B, H, i, j): r..v (B, C) rows, k_k..ln_b
+    (C,), step (B,) int64 dither counters, active (B,) bool. Returns y (B, C)
+    float32, zero where inactive, and the new S (inactive rows exactly S)."""
     B, C = r.shape
     N = HEAD_SIZE
     H = C // N
@@ -41,14 +42,12 @@ def wkv7_step_fused_reference(state_l, r, w_raw, k_raw, a_iclr, v, k_k, k_a, r_k
     kk_pre = kr * param(k_k)
     kk = kk_pre / torch.sqrt((kk_pre * kk_pre).sum(-1, keepdim=True)).clamp_min(1e-12)
     kt = kr * (1.0 + (ai - 1.0) * param(k_a))
-    d1 = 1.0 + decay_from_raw(heads(w_raw), elapsed.reshape(B, 1, 1),
-                              use_dither=use_dither)
-    active = (lengths > 0).reshape(B, 1, 1)
-    d1 = torch.where(active, d1, 1.0)
-    k_row = torch.where(active, kt, 0.0)
-    b_row = torch.where(active, kk * ai, 0.0)
+    d1 = 1.0 + decay_from_raw(heads(w_raw), step.reshape(B, 1, 1), use_dither=use_dither)
+    act = active.reshape(B, 1, 1)
+    d1 = torch.where(act, d1, 1.0)
+    k_row = torch.where(act, kt, 0.0)
+    b_row = torch.where(act, kk * ai, 0.0)
 
-    S = state_l.to(f32).reshape(B, N, H, N).permute(0, 2, 1, 3)  # (B, H, i, j)
     sa = torch.einsum("bhij,bhj->bhi", S, -kk)
     S_new = (S * d1[:, :, None, :] + vv[..., :, None] * k_row[..., None, :]
              + sa[..., None] * b_row[..., None, :])
@@ -57,10 +56,70 @@ def wkv7_step_fused_reference(state_l, r, w_raw, k_raw, a_iclr, v, k_k, k_a, r_k
     var = ((y - mu) ** 2).mean(-1, keepdim=True)
     y = (y - mu) * torch.rsqrt(var + 64e-5) * param(ln_w) + param(ln_b)
     y = y + (rr * kt * param(r_k)).sum(-1, keepdim=True) * vv
-    y = torch.where(active, y, 0.0).reshape(B, C).to(r.dtype)
-    new = S_new.permute(0, 2, 1, 3).reshape(B, N, C).to(state_l.dtype)
-    new = torch.where(active, new, state_l)
-    return y, new
+    return torch.where(act, y, 0.0).reshape(B, C), S_new
+
+
+def _heads_of(state_l):
+    """(B, N, H*N) slab -> float32 (B, H, i, j)."""
+    B, N, C = state_l.shape
+    return state_l.to(torch.float32).reshape(B, N, C // N, N).permute(0, 2, 1, 3)
+
+
+def _slab_of(S, like):
+    """float32 (B, H, i, j) -> a (B, N, H*N) slab in like's dtype."""
+    B, H, N, _ = S.shape
+    return S.permute(0, 2, 1, 3).reshape(B, N, H * N).to(like.dtype)
+
+
+def wkv7_step_fused_reference(state_l, r, w_raw, k_raw, a_iclr, v, k_k, k_a, r_k,
+                              ln_w, ln_b, elapsed, lengths, *, use_dither=True):
+    """Plain version of the decode kernel on one layer's slab, without side
+    effects.
+
+    state_l: (B, N, C) layer slab; r, w_raw, k_raw, a_iclr, v: (B, C); k_k, k_a,
+    r_k, ln_w, ln_b: (C,); elapsed, lengths: (B,) int32. Returns y (B, C) in
+    r.dtype and the new slab in state_l.dtype (inactive rows bit-unchanged)."""
+    active = lengths > 0
+    y, S = _fused_token(_heads_of(state_l), r, w_raw, k_raw, a_iclr, v, k_k, k_a, r_k,
+                        ln_w, ln_b, elapsed.to(torch.int64), active, use_dither)
+    new = torch.where(active[:, None, None], _slab_of(S, state_l), state_l)
+    return y.to(r.dtype), new
+
+
+def wkv7_chunk_fused_reference(state_l, r, w_raw, k_raw, a_iclr, v, k_k, k_a, r_k,
+                               ln_w, ln_b, elapsed, lengths, *, use_dither=True):
+    """Plain version of the chunk kernel on one layer's slab, without side
+    effects: tokens t < lengths[b] of each row in order, the state carried in
+    float32 across the chunk and rounded to its dtype once at the end.
+
+    state_l: (B, N, C); r, w_raw, k_raw, a_iclr, v: (B, T, C); k_k, k_a, r_k,
+    ln_w, ln_b: (C,); elapsed, lengths: (B,) int32 (token t's dither counter is
+    elapsed + t). Returns y (B, T, C) in r.dtype, zero at t >= lengths, and the
+    new slab in state_l.dtype (rows of length 0 bit-unchanged)."""
+    T = r.shape[1]
+    S = _heads_of(state_l)
+    ys = []
+    for t in range(T):
+        y, S = _fused_token(S, r[:, t], w_raw[:, t], k_raw[:, t], a_iclr[:, t], v[:, t],
+                            k_k, k_a, r_k, ln_w, ln_b, elapsed.to(torch.int64) + t,
+                            t < lengths, use_dither)
+        ys.append(y)
+    new = torch.where((lengths > 0)[:, None, None], _slab_of(S, state_l), state_l)
+    return torch.stack(ys, dim=1).to(r.dtype), new
+
+
+def _check_common(fn, state, layer, act, dev, params, B, elapsed, lengths):
+    L, _, N, C = state.shape
+    if N != HEAD_SIZE or C % HEAD_SIZE:
+        raise ValueError(f"{fn}: state {tuple(state.shape)} is not "
+                         f"(L, B, {HEAD_SIZE}, H*{HEAD_SIZE})")
+    if not 0 <= layer < L:
+        raise IndexError(f"{fn}: layer {layer} out of range [0, {L})")
+    _kernels.require(state, "state", device=dev, align=16)  # 16-byte row loads
+    for name, t in zip(("k_k", "k_a", "r_k", "ln_w", "ln_b"), params):
+        _kernels.require(t, name, dtype=act, shape=(C,), device=dev)
+    for name, t in (("elapsed", elapsed), ("lengths", lengths)):
+        _kernels.require(t, name, dtype=torch.int32, shape=(B,), device=dev)
 
 
 def wkv7_step_fused(state, layer: int, r, w_raw, k_raw, a_iclr, v, k_k, k_a, r_k,
@@ -77,15 +136,10 @@ def wkv7_step_fused(state, layer: int, r, w_raw, k_raw, a_iclr, v, k_k, k_a, r_k
         return y
     if not state.is_cuda:
         raise ValueError(f"wkv7_step_fused: no kernel for device {state.device}")
-    L, B, N, C = state.shape
-    dev = state.device
-    if N != HEAD_SIZE or C % HEAD_SIZE:
-        raise ValueError(f"wkv7_step_fused: state {tuple(state.shape)} is not "
-                         f"(L, B, {HEAD_SIZE}, H*{HEAD_SIZE})")
-    if not 0 <= layer < L:
-        raise IndexError(f"wkv7_step_fused: layer {layer} out of range [0, {L})")
-    _kernels.require(state, "state", device=dev, align=16)  # 16-byte row loads
-    act = r.dtype
+    B, C = state.shape[1], state.shape[3]
+    dev, act = state.device, r.dtype
+    _check_common("wkv7_step_fused", state, layer, act, dev, (k_k, k_a, r_k, ln_w, ln_b),
+                  B, elapsed, lengths)
     rows = (r, w_raw, k_raw, a_iclr, v)
     for name, t in zip(("r", "w_raw", "k_raw", "a_iclr", "v"), rows):
         if t.dtype != act or t.device != dev or tuple(t.shape) != (B, C) \
@@ -93,13 +147,8 @@ def wkv7_step_fused(state, layer: int, r, w_raw, k_raw, a_iclr, v, k_k, k_a, r_k
             raise ValueError(f"wkv7_step_fused: {name} must be ({B}, {C}) {act} on "
                              f"{dev} with unit column stride, got "
                              f"{tuple(t.shape)} {t.dtype} {t.device} {t.stride()}")
-    for name, t in zip(("k_k", "k_a", "r_k", "ln_w", "ln_b"),
-                       (k_k, k_a, r_k, ln_w, ln_b)):
-        _kernels.require(t, name, dtype=act, shape=(C,), device=dev)
-    for name, t in (("elapsed", elapsed), ("lengths", lengths)):
-        _kernels.require(t, name, dtype=torch.int32, shape=(B,), device=dev)
     y = torch.empty((B, C), dtype=act, device=dev)
-    lib = _kernels.library(_SOURCE, _SIGNATURES)
+    lib = _kernels.library("wkv7_step", _SIGNATURES["wkv7_step"])
     code = lib.wkv7_step_fused(
         state.data_ptr(), *(t.data_ptr() for t in rows), k_k.data_ptr(),
         k_a.data_ptr(), r_k.data_ptr(), ln_w.data_ptr(), ln_b.data_ptr(),
@@ -107,5 +156,49 @@ def wkv7_step_fused(state, layer: int, r, w_raw, k_raw, a_iclr, v, k_k, k_a, r_k
         int(use_dither), *(t.stride(0) for t in rows), _kernels.dtype_code(r, "r"),
         _kernels.dtype_code(state, "state"), _kernels.stream_of(state))
     _kernels.LAUNCHES["wkv7_step_fused"] += 1
-    _kernels.check(lib, _SOURCE, "wkv7_step_fused", code)
+    _kernels.check(lib, "wkv7_step", "wkv7_step_fused", code)
+    return y
+
+
+def wkv7_chunk_fused(state, layer: int, r, w_raw, k_raw, a_iclr, v, k_k, k_a, r_k,
+                     ln_w, ln_b, elapsed, lengths, *, use_dither: bool = True):
+    """Advance layer `layer` of the stacked state (L, B, N, C) by up to T tokens
+    per row, in place; returns y (B, T, C) in r.dtype, zero at t >= lengths.
+    r/w_raw/k_raw/a_iclr/v: (B, T, C) with unit column stride (request and token
+    strides may differ: r, k, v are views of the merged R/K/V output); k_k, k_a,
+    r_k, ln_w, ln_b: (C,) in r.dtype; elapsed, lengths: (B,) int32."""
+    if state.device.type == "cpu":
+        y, new = wkv7_chunk_fused_reference(
+            state[layer], r, w_raw, k_raw, a_iclr, v, k_k, k_a, r_k, ln_w, ln_b,
+            elapsed, lengths, use_dither=use_dither)
+        state[layer].copy_(new)
+        return y
+    if not state.is_cuda:
+        raise ValueError(f"wkv7_chunk_fused: no kernel for device {state.device}")
+    B, T, C = r.shape
+    dev, act = state.device, r.dtype
+    if state.shape[1] != B or state.shape[3] != C:
+        raise ValueError(f"wkv7_chunk_fused: state {tuple(state.shape)} does not hold "
+                         f"{B} rows of width {C}")
+    _check_common("wkv7_chunk_fused", state, layer, act, dev, (k_k, k_a, r_k, ln_w, ln_b),
+                  B, elapsed, lengths)
+    rows = (r, w_raw, k_raw, a_iclr, v)
+    strides = []
+    for name, t in zip(("r", "w_raw", "k_raw", "a_iclr", "v"), rows):
+        if t.dtype != act or t.device != dev or tuple(t.shape) != (B, T, C) \
+                or t.stride(2) != 1 or max(t.stride(0), t.stride(1)) >= 2 ** 31:
+            raise ValueError(f"wkv7_chunk_fused: {name} must be ({B}, {T}, {C}) {act} on "
+                             f"{dev} with unit column stride, got "
+                             f"{tuple(t.shape)} {t.dtype} {t.device} {t.stride()}")
+        strides += [t.stride(0), t.stride(1)]
+    y = torch.empty((B, T, C), dtype=act, device=dev)
+    lib = _kernels.library("wkv7_chunk", _SIGNATURES["wkv7_chunk"])
+    code = lib.wkv7_chunk_fused(
+        state.data_ptr(), *(t.data_ptr() for t in rows), k_k.data_ptr(),
+        k_a.data_ptr(), r_k.data_ptr(), ln_w.data_ptr(), ln_b.data_ptr(),
+        elapsed.data_ptr(), lengths.data_ptr(), y.data_ptr(), B, T, C, layer,
+        int(use_dither), *strides, _kernels.dtype_code(r, "r"),
+        _kernels.dtype_code(state, "state"), _kernels.stream_of(state))
+    _kernels.LAUNCHES["wkv7_chunk_fused"] += 1
+    _kernels.check(lib, "wkv7_chunk", "wkv7_chunk_fused", code)
     return y

@@ -12,6 +12,7 @@ import torch
 from chirrup_tpu.engine.engine import AsyncEngineCore as JEngine
 from chirrup_tpu_torch.engine.engine import AsyncEngineCore, build_model_factory
 from chirrup_tpu_torch.engine.structures import ModelLoadConfig, RequestStatus
+from chirrup_tpu_torch.engine.worker import Worker
 
 from tests.engine_fixtures import VOCAB_SIZE, synthetic_model_config, write_tiny_vocab
 
@@ -42,9 +43,9 @@ async def _greedy(engine, prompt, n):
 
 def test_engine_greedy_matches_jax_engine(vocab_path):
     """The same synthetic model (the JAX engine's worker 0 weights, seed 0)
-    behind both engines. The prompt is shorter than the JAX worker's
-    min_forward_seq_len, so both feed it token by token through the decode
-    step and the greedy tokens must be equal. The port's engine gets the JAX
+    behind both engines. The prompt is shorter than min_forward_seq_len in
+    both workers, so both feed it token by token through the decode step and
+    the greedy tokens must be equal. The port's engine gets the JAX
     weights through a model factory; the fp32 model keeps both within float32
     rounding, far inside this fixture's greedy margins."""
     import jax
@@ -65,6 +66,7 @@ def test_engine_greedy_matches_jax_engine(vocab_path):
                        batch_size=2, load_timeout=120)
         try:
             assert len(eng.tokenizer.encode(PROMPT)) < eng.workers[0].min_forward_seq_len
+            assert eng.workers[0].min_forward_seq_len == Worker.min_forward_seq_len
             return await _greedy(eng, PROMPT, n)
         finally:
             eng.shutdown()
@@ -188,7 +190,8 @@ def _meta(*shape, dtype=torch.float32):
     return torch.empty(shape, dtype=dtype, device="meta")
 
 
-@pytest.mark.parametrize("wrapper", ["wkv7_step_fused", "quant_rows", "gemm", "penalty_tail"])
+@pytest.mark.parametrize("wrapper", ["wkv7_step_fused", "wkv7_chunk_fused", "quant_rows", "gemm",
+                                     "penalty_tail"])
 def test_wrappers_raise_off_cpu_and_cuda(wrapper):
     """A wrapper takes its plain version only for CPU tensors; any other device
     that is not CUDA raises instead of falling back."""
@@ -199,6 +202,9 @@ def test_wrappers_raise_off_cpu_and_cuda(wrapper):
     calls = {
         "wkv7_step_fused": lambda: wkv7_cuda.wkv7_step_fused(
             _meta(1, B, 64, C), 0, *(_meta(B, C) for _ in range(5)),
+            *(_meta(C) for _ in range(5)), _meta(B, dtype=i32), _meta(B, dtype=i32)),
+        "wkv7_chunk_fused": lambda: wkv7_cuda.wkv7_chunk_fused(
+            _meta(1, B, 64, C), 0, *(_meta(B, 3, C) for _ in range(5)),
             *(_meta(C) for _ in range(5)), _meta(B, dtype=i32), _meta(B, dtype=i32)),
         "quant_rows": lambda: mm8_cuda.quant_rows(_meta(B, C), _meta(1, C), _meta(1, C)),
         "gemm": lambda: mm8_cuda.gemm(_meta(1, B, C, dtype=torch.int8), _meta(1, B, 4),

@@ -167,9 +167,9 @@ def test_decode_block_equals_decode_steps(int8_models):
 
 
 def test_forward_seq_matches_jax():
-    """The port's whole-sequence forward (plain WKV loop) against the JAX
-    forward_seq in float32: logits at every position and the advanced state
-    agree to float32 reduction order, 1e-4."""
+    """The port's whole-sequence forward (the fused chunk's plain version on
+    the CPU) against the JAX forward_seq in float32: logits at every position
+    and the advanced state agree to float32 reduction order, 1e-4."""
     from chirrup_tpu.models import rwkv7 as jm
     from chirrup_tpu_torch.models import rwkv7 as tm
 

@@ -32,6 +32,24 @@ def test_dither_bit_equal_past_2_31():
     np.testing.assert_array_equal(got_int64.view(np.uint32), expected.view(np.uint32))
 
 
+def group_norm(x, num_groups, w, b, eps):
+    """Per-head GroupNorm over (..., C) with C = num_groups * head_size."""
+    shape = x.shape
+    xf = x.to(torch.float32).reshape(*shape[:-1], num_groups, shape[-1] // num_groups)
+    mu = xf.mean(-1, keepdim=True)
+    var = ((xf - mu) ** 2).mean(-1, keepdim=True)
+    xn = ((xf - mu) * torch.rsqrt(var + eps)).reshape(shape)
+    return (xn * w.to(torch.float32) + b.to(torch.float32)).to(x.dtype)
+
+
+def l2_normalize_heads(x, H, N):
+    """Per-head x / max(||x||, 1e-12)."""
+    shape = x.shape
+    xf = x.to(torch.float32).reshape(*shape[:-1], H, N)
+    out = xf / torch.sqrt((xf * xf).sum(-1, keepdim=True)).clamp_min(1e-12)
+    return out.reshape(shape).to(x.dtype)
+
+
 def _rand_batch(rng, B, T, H):
     C = H * N
     f = lambda *s: (rng.standard_normal(s) * 0.5).astype(np.float32)
@@ -110,7 +128,6 @@ def test_fused_step_matches_unfused_composition():
     """The fused plain step equals the unfused composition the non-decode path
     uses: l2-normalise -> wkv7_reference_batch -> GroupNorm -> bonus (float32,
     reduction order only: 1e-5)."""
-    from chirrup_tpu_torch.models.rwkv7 import group_norm, l2_normalize_heads
     from chirrup_tpu_torch.ops.wkv7_cuda import wkv7_step_fused_reference
 
     rng = np.random.default_rng(11)
