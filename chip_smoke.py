@@ -13,11 +13,16 @@ Phases, in order; any failure ends the run with a non-zero exit:
    its time, its bound, the plain version's time and, where one PyTorch call
    computes the same function, that call's time: the decode kernels at batch
    64, the WKV chunk kernel at the prefill variants (P, T) = (8, 64), (8, 256)
-   and (32, 64) (and against a planted fault that ignores lengths), and the mm8
-   kernels at prefill row counts 512, 2048 and 1000;
+   and (32, 64) (and against a planted fault that ignores lengths), the bare
+   WKV kernel at T = 1 (batch 64) and at the same variants (with the same
+   planted fault), the w8a8 mm8 kernels (and the bare int8 core, int32 out)
+   and the w8a16 core, bf16 and float32 activations, at its seven decode
+   sites, all at prefill row counts 512, 2048 and 1000 as well;
 4. the decode path and the compact prefill on a small model, kernels (GPU)
    against plain versions (CPU), and chunked prefill against token-by-token
-   feeding on the GPU;
+   feeding on the GPU; the same for the w8a16 configuration (mm8_core
+   "pallas"); the unfused TMix (wkv_fn=wkv7_batch), GPU against CPU and
+   against the fused kernels;
 5. the port's AsyncEngineCore at the full width of the 7.2B model (32 layers,
    random INT8 weights from a seed), batch 64, serving five short requests
    (four through SEQ_PREFILL, one through ONE_PREFILL) and four ~1,024-token
@@ -33,7 +38,15 @@ Phases, in order; any failure ends the run with a non-zero exit:
    (one chunk under sync debug mode "error"), prompt tok/s, host dispatch per
    chunk and the device busy time per chunk by kernel (torch.profiler; table in
    chiprun_out/chip_smoke_prefill_profile.txt);
-7. one JSON line with every kernel's numbers, then the result line.
+7. path A, the exact w8a16 configuration: phases 5 and 6 again with
+   ModelLoadConfig(mm8_core="pallas") after the first engine is freed (4
+   steady blocks; prefill on the batch-64 variant (8, 64)), every int8 product
+   on mm8_w16_gemm and none on the w8a8 kernels;
+8. path B, the unfused TMix on that model: one forward_step at batch 64 and
+   one forward_chunk at (8, 256) with wkv_fn=wkv7_batch, every WKV on the bare
+   kernel, against the fused kernels from the same state; then both on layer 0
+   alone at float32, held per element to the WKV kernels' limit;
+9. one JSON line with every kernel's numbers, then the result line.
 
 Without a CUDA device, or without the chirrup_tpu_torch package beside it,
 the script exits non-zero and prints no result.
@@ -54,7 +67,7 @@ import time
 import torch
 
 HBM_BYTES_PER_S = 3.35e12    # H100 SXM device memory
-PEAK_OPS_PER_S = {"int8": 1979e12, "fp32": 67e12}   # dense, no sparsity
+PEAK_OPS_PER_S = {"int8": 1979e12, "bf16": 989e12, "fp32": 67e12}   # dense, no sparsity
 OUT_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "chiprun_out")
 
 
@@ -342,14 +355,26 @@ def check_mm8(dev, gen, B=64, shapes=MM8_SHAPES):
         q_cm = q_layer.t().contiguous().t()
         lib = device_ms(lambda: torch._int_mm(x8[0], q_cm))
         g_b, g_by = bound_ms(nbytes(x8, st, q_layer, mx, rx, y), 2 * B * K * M, "int8")
+        # the bare int8 core (mm8_core_a8: the same kernel, int32 out, one
+        # variant), stacked or not as the site is; int32 sums are exact
+        core = mm8_cuda.mm8_core_a8(x8[0], q, layer=layer)
+        core_equal = torch.equal(core, mm8_cuda.gemm_acc_reference(x8[0], q_layer))
+        require(core_equal, f"mm8_core_a8 {site}: int32 output differs from the plain version")
+        c_ms = device_ms(lambda: mm8_cuda.mm8_core_a8(x8[0], q, layer=layer))
+        c_plain = device_ms(lambda: mm8_cuda.gemm_acc_reference(x8[0], q_layer), iters=3)
+        c_b, c_by = bound_ms(nbytes(x8[0], q_layer, core), 2 * B * K * M, "int8")
         gemm_rows.append(dict(site=site, err=y_err, ms=g_ms, plain_ms=g_plain, bound_ms=g_b,
                               bound_by=g_by, library_ms=lib,
                               shape=f"({B}, {K}) x ({K}, {M}) int8 -> bf16"
-                                    + (" relu2" if relu2 else "")))
+                                    + (" relu2" if relu2 else ""),
+                              core_a8=dict(stacked=stacked, exact=core_equal, ms=c_ms,
+                                           plain_ms=c_plain, bound_ms=c_b, bound_by=c_by)))
         log(f"mm8_a8_gemm {site} B{B} K{K} M{M}{' relu2' if relu2 else ''}: acc exact "
             f"{acc_equal}, y err {y_err:.3e} (tol {y_tol:.3e}); {g_ms:.4f} ms, plain "
-            f"{g_plain:.4f} ms, torch._int_mm {lib:.4f} ms, bound {g_b:.4f} ms ({g_by})")
-        del q, q_layer, q_cm, acc, acc_ref
+            f"{g_plain:.4f} ms, torch._int_mm {lib:.4f} ms, bound {g_b:.4f} ms ({g_by}); "
+            f"mm8_core_a8 ({'stacked' if stacked else 'unstacked'}) int32 exact {core_equal}, "
+            f"{c_ms:.4f} ms, plain {c_plain:.4f} ms, bound {c_b:.4f} ms ({c_by})")
+        del q, q_layer, q_cm, acc, acc_ref, core
     qr = quant_rows_out[0]    # the merged R/K/V quantization
     gr = gemm_rows[-1]        # the last site: the head on the decode path
     return [
@@ -365,6 +390,170 @@ def check_mm8(dev, gen, B=64, shapes=MM8_SHAPES):
              shape=gr["shape"] + " (head)", tolerance="int32 acc exact; y one bf16 step",
              sites=gemm_rows),
     ]
+
+
+W16_SITES = [  # (site, K, M, stacked): the seven int8 products of a w8a16 decode step
+    ("att R", 4096, 4096, True), ("att K", 4096, 4096, True), ("att V", 4096, 4096, True),
+    ("att Wo", 4096, 4096, True), ("ffn Wk", 4096, 16384, True),
+    ("ffn Wv", 16384, 4096, True), ("head", 4096, 65536, False),
+]
+# at prefill row counts: one site per shape (R, K, V and Wo share theirs)
+W16_PREFILL_SITES = [("att R/K/V/Wo", 4096, 4096, True)] + W16_SITES[4:6]
+
+
+def sum_excess(got, ref, sq_terms, K, c):
+    """Largest |got - ref| / limit over the elements of a K-term float32 sum,
+    where limit = c * 2^-24 * sqrt(K) * ||terms||_2 and sq_terms holds each
+    element's sum of squared terms. A float32 sum of K random-signed terms
+    errs by ~0.4 * 2^-24 * sqrt(K) * ||terms||_2 (one standard deviation);
+    TF32 inputs would err by ~0.6 * 2^-11 * ||terms||_2, and a wrong tile by
+    ~||terms||_2."""
+    limit = c * 2.0 ** -24 * K ** 0.5 * sq_terms.double().sqrt() + 1e-30
+    return float(((got.double() - ref.double()).abs() / limit).max())
+
+
+def check_w16(dev, gen, B=64, sites=W16_SITES):
+    """The w8a16 core (mm8_core_w16: xs @ q, float32 out) against its plain
+    version (a float32 product of the widened operands; TF32 is off) at each
+    site, with bf16 xs (the serving dtype) and float32 xs. The limit is
+    sum_excess's with c = 8 for float32 xs (~20 standard deviations of the
+    two float32 sums) and c = 64 for bf16 xs (room for the tensor cores'
+    own accumulation order). The comparison must reject two planted faults:
+    the codes of the neighbouring 32-column tile, and (float32 xs) TF32-rounded
+    activations. The head site, bf16, is the JSON line's headline."""
+    from chirrup_tpu_torch.ops import mm8_cuda
+
+    rows = []
+    for site, K, M, stacked in sites:
+        q = torch.randint(-128, 128, ((2,) if stacked else ()) + (K, M), generator=gen,
+                          device=dev, dtype=torch.int8)
+        layer = 1 if stacked else None
+        q_layer = q[layer] if stacked else q
+        q_sq = q_layer.float().square()
+        for dtype, c in ((torch.bfloat16, 64), (torch.float32, 8)):
+            xs = torch.randn((B, K), generator=gen, device=dev).to(dtype)
+            got = mm8_cuda.mm8_core_w16(xs, q, layer=layer)
+            ref = mm8_cuda.core_w16_reference(xs, q_layer)
+            sq = torch.matmul(xs.float().square(), q_sq)
+            torch.cuda.synchronize()
+            require(tuple(got.shape) == (B, M) and got.dtype == torch.float32,
+                    f"mm8_w16_gemm {site}: output {tuple(got.shape)} {got.dtype}")
+            ex = sum_excess(got, ref, sq, K, c)
+            faults = {"neighbour tile": mm8_cuda.core_w16_reference(
+                xs, torch.roll(q_layer, 32, dims=1))}
+            if dtype == torch.float32:
+                tf32 = (xs.view(torch.int32) & ~0x1FFF).view(torch.float32)
+                faults["TF32 xs"] = mm8_cuda.core_w16_reference(tf32, q_layer)
+            fault_ex = {k: sum_excess(f, ref, sq, K, c) for k, f in faults.items()}
+            err = max_abs(got, ref)
+            name = "bf16" if dtype == torch.bfloat16 else "fp32"
+            require(ex <= 1, f"mm8_w16_gemm {site} {name} xs: worst |err|/limit {ex}")
+            require(min(fault_ex.values()) > 1,
+                    f"mm8_w16_gemm {site} {name}: the check passes a planted fault {fault_ex}")
+            ms = device_ms(lambda: mm8_cuda.mm8_core_w16(xs, q, layer=layer))
+            plain = device_ms(lambda: mm8_cuda.core_w16_reference(xs, q_layer), iters=3)
+            # the library call: one dense product of xs with codes converted
+            # to xs's dtype beforehand
+            q_conv = q_layer.to(dtype)
+            lib = device_ms(lambda: torch.matmul(xs, q_conv))
+            b, by = bound_ms(nbytes(xs, q_layer, got), 2 * B * K * M, name)
+            rows.append(dict(site=site, xs=name, err=err, excess=ex, fault_excess=fault_ex,
+                             ms=ms, plain_ms=plain, bound_ms=b, bound_by=by, library_ms=lib,
+                             shape=f"({B}, {K}) {name} x ({K}, {M}) int8 -> f32"
+                                   + (" (stacked)" if stacked else "")))
+            log(f"mm8_w16_gemm {site} B{B} K{K} M{M} {name} xs: err {err:.3e}, worst "
+                f"|err|/limit {ex:.3f} (c {c}); planted faults "
+                + ", ".join(f"{k} {v:.3g}" for k, v in fault_ex.items())
+                + f"; {ms:.4f} ms, plain {plain:.4f} ms, torch.matmul {name} {lib:.4f} ms, "
+                  f"bound {b:.4f} ms ({by})")
+            del xs, got, ref, sq, faults, q_conv
+        del q, q_layer, q_sq
+        torch.cuda.empty_cache()
+    head = [r for r in rows if r["xs"] == "bf16"][-1]
+    return dict(name="mm8_w16_gemm", route="cuda", source="chirrup_tpu_torch/csrc/mm8_w16.cu",
+                replaces="chirrup_tpu/ops/mm8_pallas.py:122", max_abs_err=head["err"],
+                ms=head["ms"], plain_ms=head["plain_ms"], bound_ms=head["bound_ms"],
+                bound_by=head["bound_by"], library_ms=head["library_ms"],
+                shape=head["shape"] + f" ({head['site']})",
+                tolerance="per element c * 2^-24 * sqrt(K) * ||terms||_2, c 64 bf16 / 8 fp32",
+                sites=rows)
+
+
+def check_wkv_batch(dev, gen, variants=((64, 1), (8, 64), (8, 256), (32, 64)), C=4096,
+                    L=32, li=5):
+    """The bare WKV kernel against its plain version at the decode step (T = 1,
+    batch 64) and at each prefill variant, bf16 rows and state, r/k/v as views
+    of one merged (P, T, 3C) projection output, a = -kk and b = kk*iclr from
+    a per-head unit kk, lengths that include 0, 1, T-3 and T, and a dither
+    counter that crosses 2^31 mid-chunk. The WKV chunk kernel's per-element
+    limit on y and state; the comparison must reject a planted fault (a plain
+    version that ignores lengths). The first variant is the JSON headline."""
+    from chirrup_tpu_torch.ops.wkv7_cuda import wkv7_batch, wkv7_batch_reference
+
+    bf = torch.bfloat16
+    rnd = lambda *s: torch.randn(s, generator=gen, device=dev)
+    sites = []
+    for P, T in variants:
+        rkv = rnd(P, T, 3 * C).to(bf)
+        r, k, v = rkv.split(C, dim=-1)
+        w = rnd(P, T, C).to(bf)
+        kk = torch.nn.functional.normalize(rnd(P, T, C // 64, 64), dim=-1).reshape(P, T, C)
+        a, b = (-kk).to(bf), (kk * torch.sigmoid(rnd(P, T, C))).to(bf)
+        state = (rnd(L, P, 64, C) * 0.3).to(bf)
+        elapsed = torch.randint(0, 2 ** 31 - 1, (P,), generator=gen, device=dev,
+                                dtype=torch.int64).to(torch.int32)
+        elapsed[0] = 2 ** 31 - 7
+        lengths = torch.randint(0, T + 1, (P,), generator=gen, device=dev,
+                                dtype=torch.int64).to(torch.int32)
+        lengths[:4] = torch.tensor([0, 1, max(T - 3, 0), T], dtype=torch.int32)
+        args = (r, w, k, v, a, b, elapsed)
+        before, neighbour = state[li].clone(), state[li - 1].clone()
+        y_ref, s_ref = wkv7_batch_reference(before, *args, lengths)
+        y = wkv7_batch(state, *args, lengths, li)
+        torch.cuda.synchronize()
+        require(y.dtype == bf and tuple(y.shape) == (P, T, C), f"wkv7_batch: y {y.dtype}")
+        ex_y, ex_s = bf16_excess(y, y_ref), bf16_excess(state[li], s_ref)
+        err = max(max_abs(y, y_ref), max_abs(state[li], s_ref))
+        require(ex_y <= 1 and ex_s <= 1,
+                f"wkv7_batch P{P} T{T}: worst |err|/limit y {ex_y}, state {ex_s}")
+        require(torch.equal(state[li - 1], neighbour), "wkv7_batch touched another layer")
+        idle = lengths == 0
+        require(torch.equal(state[li][idle], before[idle]), "wkv7_batch: length-0 rows changed")
+        past = torch.arange(T, device=dev)[None, :] >= lengths[:, None]
+        require(bool((y[past] == 0).all()), "wkv7_batch: output past a length")
+        y_fault, s_fault = wkv7_batch_reference(before, *args, torch.full_like(lengths, T))
+        ex_fault = max(bf16_excess(y_fault, y_ref), bf16_excess(s_fault, s_ref))
+        require(ex_fault > 1, f"wkv7_batch: the check passes a kernel that ignores lengths "
+                              f"(worst |err|/limit {ex_fault})")
+        full = torch.full_like(lengths, T)   # timed with every row full, as path B runs
+        ms = device_ms(lambda: wkv7_batch(state, *args, full, li))
+        plain = device_ms(lambda: wkv7_batch_reference(state[li], *args, full), iters=1,
+                          reps=3)
+        # the timed work: every token valid, every slab live; 9 operations per
+        # state element per token, as the fused kernels count: S*d is one
+        # multiply (d once per column), a.S, v*k, sa*b and S.r one FMA each
+        n_tok = P * T
+        moved = 2 * nbytes(state[li]) + 6 * n_tok * C * 2 + nbytes(y, elapsed, full)
+        bnd, by = bound_ms(moved, 9 * n_tok * 64 * C, "fp32")
+        log(f"wkv7_batch P{P} T{T} C{C} bf16 (lengths {lengths[:4].tolist()}...): y/state "
+            f"err {err:.3e}; worst |err|/limit y {ex_y:.3f}, state {ex_s:.3f} (limit "
+            f"2^-7|ref| + 2^-8 rms(ref)); planted fault (lengths ignored) {ex_fault:.2f}; "
+            f"full rows {ms:.4f} ms, plain {plain:.4f} ms, bound {bnd:.4f} ms ({by})")
+        sites.append(dict(variant=[P, T], err=err, ms=ms, plain_ms=plain, bound_ms=bnd,
+                          bound_by=by, fault_excess=ex_fault))
+        del rkv, r, k, v, w, a, b, kk, state, before, neighbour, y, y_ref, s_ref, y_fault
+        del s_fault
+        torch.cuda.empty_cache()
+    head = sites[0]
+    return dict(name="wkv7_batch", route="cuda", source="chirrup_tpu_torch/csrc/wkv7_batch.cu",
+                replaces="chirrup_tpu/ops/wkv7_pallas.py:863",
+                max_abs_err=max(x["err"] for x in sites), ms=head["ms"],
+                plain_ms=head["plain_ms"], bound_ms=head["bound_ms"], bound_by=head["bound_by"],
+                library_ms=None,
+                shape=f"P{variants[0][0]} T{variants[0][1]} C{C}, state ({L}, P, 64, {C}) bf16, "
+                      f"one layer",
+                tolerance="per element 2^-7 |ref| + 2^-8 rms(ref), y and state",
+                sites=sites)
 
 
 def check_penalty_tail(dev, gen, V=65536, batches=(64, 512)):
@@ -454,10 +643,10 @@ def check_small_model(dev):
             f"(tol {tol}), greedy tokens differing on near-ties {flips}/{B * steps}")
 
 
-def check_small_prefill(dev, chunk=16):
-    """The compact prefill, then greedy decode, on a small INT8 model: the same
-    weights and prompts on the GPU (kernels) and the CPU (plain versions), at
-    float32 and bf16. At float32 on the GPU, chunked prefill must also agree
+def check_small_prefill(dev, chunk=16, mm8_core="auto"):
+    """The compact prefill, then greedy decode, on a small INT8 model with the
+    given mm8 core: the same weights and prompts on the GPU (kernels) and the
+    CPU (plain versions), at float32 and bf16. At float32 on the GPU, chunked prefill must also agree
     with feeding the same prompts token by token through the decode step. The
     tolerances and the clear-margin rule for greedy tokens are the decode
     check's."""
@@ -533,7 +722,8 @@ def check_small_prefill(dev, chunk=16):
         return worst
 
     for dtype, tol in ((torch.float32, 2e-3), (torch.bfloat16, 3e-2)):
-        rt = RuntimeConfig(activation_dtype=dtype, wkv_state_dtype=dtype, quantization="int8")
+        rt = RuntimeConfig(activation_dtype=dtype, wkv_state_dtype=dtype, quantization="int8",
+                           mm8_core=mm8_core)
         params = synthetic_params_int8(cfg, seed=5, dtype=dtype, device=dev)
         models = [ServingModel(cfg, params, rt, B, prefill_chunk=chunk, device=d)
                   for d in (dev, "cpu")]
@@ -546,7 +736,8 @@ def check_small_prefill(dev, chunk=16):
         require(s_err <= tol, f"small prefill {dtype}: state err {s_err} of scale > {tol}")
         gpu, cpu = (decode(m, c) for m, c in zip(models, carries))
         worst, flips = compare(f"small prefill {dtype}", gpu, cpu, tol)
-        log(f"small model prefill (compact, chunk {chunk}) + decode, L2 C256 B{B} {dtype}, "
+        log(f"small model prefill (compact, chunk {chunk}) + decode, mm8_core {mm8_core!r}, "
+            f"L2 C256 B{B} {dtype}, "
             f"GPU vs CPU: state err {s_err:.3e} of scale, logits err <= {worst:.3e} of scale "
             f"(tol {tol}), greedy tokens differing on near-ties {flips}/{B * steps}")
         if dtype == torch.float32:
@@ -563,12 +754,90 @@ def check_small_prefill(dev, chunk=16):
             require(s_err <= tol, f"chunked vs token-by-token: state err {s_err} > {tol}")
             worst, flips = compare("chunked vs token-by-token", decode(m, prefill_carry),
                                    decode(m, c), tol)
-            log(f"small model float32 on the GPU, chunked prefill vs token by token: state "
+            log(f"small model float32 on the GPU, mm8_core {mm8_core!r}, chunked prefill vs "
+                f"token by token: state "
                 f"err {s_err:.3e} of scale, logits err <= {worst:.3e} of scale (tol {tol}), "
                 f"greedy tokens differing on near-ties {flips}/{B * steps}")
 
 
+def check_small_unfused(dev):
+    """Path B on a small INT8 w8a16 model: forward_chunk (ragged rows, one
+    empty) then forward_step (that row inactive) with wkv_fn=wkv7_batch, on
+    the GPU against the CPU at float32 and bf16, and on the GPU against the
+    fused kernels at float32; logits of the active rows and the state within
+    the decode check's tolerances of their scale."""
+    from chirrup_tpu_torch.engine.serving import ServingModel
+    from chirrup_tpu_torch.models import rwkv7 as tmodel
+    from chirrup_tpu_torch.models.config import RWKV7Config, RuntimeConfig
+    from chirrup_tpu_torch.models.loader import synthetic_params_int8
+    from chirrup_tpu_torch.ops.wkv7_cuda import wkv7_batch
+
+    cfg = RWKV7Config(n_layer=2, n_embd=256, vocab_size=16384)
+    B, T = 8, 16
+    gen = torch.Generator().manual_seed(7)
+    tokens = torch.randint(1, cfg.vocab_size, (B, T + 1), generator=gen, dtype=torch.int32)
+    lengths = torch.tensor([16, 0, 1, 5, 16, 9, 13, 16], dtype=torch.int32)
+    active = lengths > 0
+
+    def run(m, wkv_fn):
+        d, rt = m.device, m.runtime
+        st = tmodel.init_state(cfg, B, shift_dtype=rt.activation_dtype,
+                               wkv_dtype=rt.wkv_state_dtype, device=d)
+        kw = dict(compute_dtype=rt.activation_dtype, use_dither=rt.use_dither,
+                  mm8_core=m.mm8_core, wkv_fn=wkv_fn)
+        tmodel.forward_chunk(m.params, tokens[:, :T].to(d), st, lengths.to(d), **kw)
+        logits, _ = tmodel.forward_step(m.params, tokens[:, T].to(d), st, active.to(d), **kw)
+        return logits.float().cpu()[active], st
+
+    def rel_err(label, got, want, tol):
+        (l_g, s_g), (l_w, s_w) = got, want
+        require(bool(torch.isfinite(l_g).all()), f"{label}: non-finite logits")
+        errs = [max_abs(l_g, l_w) / float(l_w.abs().max())]
+        for name in ("shift", "wkv"):
+            g, w = getattr(s_g, name).float().cpu(), getattr(s_w, name).float().cpu()
+            errs.append(max_abs(g, w) / float(w.abs().max()))
+        require(max(errs) <= tol, f"{label}: logits / shift / wkv err of scale {errs} > {tol}")
+        require(torch.equal(s_g.elapsed.cpu(), s_w.elapsed.cpu()), f"{label}: elapsed differs")
+        return errs
+
+    for dtype, tol in ((torch.float32, 2e-3), (torch.bfloat16, 3e-2)):
+        rt = RuntimeConfig(activation_dtype=dtype, wkv_state_dtype=dtype, quantization="int8",
+                           mm8_core="pallas")
+        params = synthetic_params_int8(cfg, seed=5, dtype=dtype, device=dev)
+        gpu_m, cpu_m = (ServingModel(cfg, params, rt, B, device=d) for d in (dev, "cpu"))
+        gpu = run(gpu_m, wkv7_batch)
+        errs = rel_err(f"small unfused {dtype} GPU vs CPU", gpu, run(cpu_m, wkv7_batch), tol)
+        msg = (f"small model unfused TMix (wkv7_batch), w8a16, L2 C256 B{B} {dtype}, chunk "
+               f"then step: GPU vs CPU logits / shift / wkv err "
+               f"{', '.join(f'{e:.3e}' for e in errs)} of scale (tol {tol})")
+        if dtype == torch.float32:
+            errs = rel_err("small unfused vs fused", gpu, run(gpu_m, None), tol)
+            msg += (f"; against the fused kernels on the GPU "
+                    f"{', '.join(f'{e:.3e}' for e in errs)}")
+        log(msg)
+
+
 # ------------------------------------------------------------- main path
+
+def expected_launches(L, core, kind):
+    """Kernel launches per decode step (kind "step") or per prefill chunk
+    ("chunk") of the serving path under mm8 core `core`: one fused WKV kernel
+    per layer; per layer the w8a8 core ("auto") runs quantize + GEMM for the
+    merged R/K/V, Wo, FFN k and FFN v, and the w8a16 core ("pallas") one GEMM
+    for each of R, K, V, Wo, FFN k and FFN v; a step adds the head and one
+    penalty tail."""
+    from chirrup_tpu_torch.ops import _kernels
+
+    step = int(kind == "step")
+    out = dict.fromkeys(_kernels.LAUNCHES, 0)
+    out["wkv7_step_fused" if step else "wkv7_chunk_fused"] = L
+    if core == "pallas":
+        out["mm8_w16_gemm"] = 6 * L + step
+    else:
+        out["mm8_a8_quant_rows"] = out["mm8_a8_gemm"] = 4 * L + step
+    out["penalty_tail"] = step
+    return out
+
 
 def write_vocab(path: str, size: int = 65536) -> None:
     """A byte-complete vocab of `size` ids: id 0 is implicit, ids 1..256 the
@@ -582,7 +851,9 @@ def write_vocab(path: str, size: int = 65536) -> None:
 
 
 def run_engine(dev, profile: bool, B=64, L=32, C=4096, V=65536, n_tok=32, blocks=8,
-               long_prompt=1024):
+               long_prompt=1024, mm8_core="auto", tag=""):
+    """The engine phase under mm8 core `mm8_core` ("auto": w8a8; "pallas":
+    w8a16, path A); `tag` names its profile file."""
     from chirrup_tpu_torch.engine.engine import AsyncEngineCore
     from chirrup_tpu_torch.engine.structures import ModelLoadConfig
     from chirrup_tpu_torch.ops import _kernels
@@ -591,8 +862,8 @@ def run_engine(dev, profile: bool, B=64, L=32, C=4096, V=65536, n_tok=32, blocks
     vocab = os.path.join(tmp.name, "vocab.txt")
     write_vocab(vocab, V)
     cfg = ModelLoadConfig(model_path="<synthetic>", vocab_path=vocab, vocab_size=V,
-                          quantization="int8", synthetic_config=dict(n_layer=L, n_embd=C,
-                                                                     vocab_size=V))
+                          quantization="int8", mm8_core=mm8_core,
+                          synthetic_config=dict(n_layer=L, n_embd=C, vocab_size=V))
     torch.cuda.reset_peak_memory_stats(dev)
     gen = torch.Generator().manual_seed(3)
     # (prompt, prefill tokens, temperature, penalties): four short prompts that
@@ -611,7 +882,7 @@ def run_engine(dev, profile: bool, B=64, L=32, C=4096, V=65536, n_tok=32, blocks
         await engine.init(worker_num=1, model_config=cfg, batch_size=B, load_timeout=600,
                           device=dev)
         worker = engine.workers[0]
-        log(f"engine: INT8 model (L{L} C{C} V{V}) loaded in "
+        log(f"engine: INT8 model (L{L} C{C} V{V}, mm8_core {mm8_core!r}) loaded in "
             f"{time.perf_counter() - t0:.1f} s, batch {B}, decode block "
             f"{worker.decode_block_size}, prefill variants {worker.model.prefill_variants}, "
             f"at most {worker.max_prefill_count} prompts prefilling")
@@ -661,8 +932,13 @@ def run_engine(dev, profile: bool, B=64, L=32, C=4096, V=65536, n_tok=32, blocks
         f"{len(compact_calls)} compact prefill chunks (rows fed {compact_calls}); "
         f"launches {launches}; peak memory {peak / 2 ** 30:.2f} GiB")
     require(len(compact_calls) > 0, "the engine never dispatched prefill_step_compact")
+    # the path's kernels, each launched at least once; no other kernel
+    expected = expected_launches(L, mm8_core, "step")
+    on_path = {n for kind in ("step", "chunk")
+               for n, c in expected_launches(L, mm8_core, kind).items() if c > 0}
     for name, count in launches.items():
-        require(count > 0, f"kernel {name} was not launched on the main path")
+        require((count > 0) == (name in on_path),
+                f"kernel {name} launched {count} times on the {mm8_core!r} engine path")
 
     # steady decode: every slot decoding, K-step blocks on device feedback
     class Sampled:
@@ -693,10 +969,6 @@ def run_engine(dev, profile: bool, B=64, L=32, C=4096, V=65536, n_tok=32, blocks
     torch.cuda.synchronize()
     log(f"decode_block: no host synchronisation inside a block (sync debug mode 'error'); "
         f"launches per step {per_step}")
-    # one WKV step per layer; quant + GEMM for R/K/V, Wo, FFN k and FFN v per
-    # layer and for the head; one penalty tail
-    expected = {"wkv7_step_fused": L, "wkv7_chunk_fused": 0, "mm8_a8_quant_rows": 4 * L + 1,
-                "mm8_a8_gemm": 4 * L + 1, "penalty_tail": 1}
     require(per_step == expected, f"launches per step {per_step}, expected {expected}")
     logits = model.decode_step(carry, tokens[0], ones[0], ones[0], ones[0])[2]
     require(tuple(logits.shape) == (B, V) and bool(torch.isfinite(logits).all()),
@@ -741,7 +1013,7 @@ def run_engine(dev, profile: bool, B=64, L=32, C=4096, V=65536, n_tok=32, blocks
                   if e.device_type.name == "CUDA") / 1e3
     busy = busy_ms / K if busy_ms > 0 else None
     os.makedirs(OUT_DIR, exist_ok=True)
-    with open(os.path.join(OUT_DIR, "chip_smoke_profile.txt"), "w") as f:
+    with open(os.path.join(OUT_DIR, f"chip_smoke{tag}_profile.txt"), "w") as f:
         f.write(averages.table(sort_by="self_cuda_time_total", row_limit=40))
     if busy is None:
         log("device busy per step: not measured (the profiler recorded no device time)")
@@ -759,8 +1031,8 @@ def run_engine(dev, profile: bool, B=64, L=32, C=4096, V=65536, n_tok=32, blocks
         peak_gib=peak / 2 ** 30)
 
 
-def run_prefill(dev, engine_model, profile: bool, B=256, chunks=4):
-    """Compact prefill at 7.2B width on a batch-256 ServingModel that shares
+def run_prefill(dev, engine_model, profile: bool, B=256, chunks=4, tag=""):
+    """Compact prefill at 7.2B width on a batch-B ServingModel that shares
     the engine model's prepared weights, for each (P, T) variant: launches per
     chunk (one chunk under sync debug mode "error"), then `chunks` chunks timed
     on the host clock (dispatch, and wall through a synchronise), then one more
@@ -799,8 +1071,7 @@ def run_prefill(dev, engine_model, profile: bool, B=256, chunks=4):
             torch.cuda.set_sync_debug_mode("default")
         per_chunk = dict(_kernels.LAUNCHES)
         torch.cuda.synchronize()
-        expected = {"wkv7_step_fused": 0, "wkv7_chunk_fused": L, "mm8_a8_quant_rows": 4 * L,
-                    "mm8_a8_gemm": 4 * L, "penalty_tail": 0}
+        expected = expected_launches(L, m0.mm8_core, "chunk")
         require(per_chunk == expected,
                 f"prefill ({P}, {T}): launches per chunk {per_chunk}, expected {expected}")
         host_ms, wall_ms = [], []
@@ -825,7 +1096,8 @@ def run_prefill(dev, engine_model, profile: bool, B=256, chunks=4):
                       + averages.table(sort_by="self_cuda_time_total", row_limit=30))
         wall = statistics.median(wall_ms)
         top = "; ".join(f"{name[:48]} {ms:.2f}" for name, ms in kernels[:6])
-        log(f"prefill ({P}, {T}) at batch {B}, 7.2B width: launches per chunk {per_chunk} "
+        log(f"prefill ({P}, {T}) at batch {B}, 7.2B width, mm8_core {m0.mm8_core!r}: launches "
+            f"per chunk {per_chunk} "
             f"(no host synchronisation: sync debug mode 'error'); {tok_s:.1f} prompt tok/s "
             f"over {chunks} chunks; per chunk host dispatch ms "
             f"{statistics.median(host_ms):.1f} (min {min(host_ms):.1f}, max {max(host_ms):.1f}), "
@@ -836,12 +1108,165 @@ def run_prefill(dev, engine_model, profile: bool, B=256, chunks=4):
                             host_dispatch_ms=host_ms, chunk_wall_ms=wall_ms,
                             device_busy_chunk_ms=busy, device_ms_by_kernel=kernels[:12]))
     os.makedirs(OUT_DIR, exist_ok=True)
-    with open(os.path.join(OUT_DIR, "chip_smoke_prefill_profile.txt"), "w") as f:
+    with open(os.path.join(OUT_DIR, f"chip_smoke{tag}_prefill_profile.txt"), "w") as f:
         f.write("\n\n".join(tables))
     if profile:
         log("\n\n".join(tables))
     del carry, model
     return results
+
+
+def run_unfused(dev, m, B=64, P=8, T=256, tol=3e-2):
+    """Path B at 7.2B width on the engine model's prepared weights: one
+    forward_chunk at (P, T) from a zero state and one forward_step at batch B
+    from a random state, each with wkv_fn=wkv7_batch and, from a copy of the
+    same state, with the fused kernels (wkv_fn=None). Launches are counted
+    around each unfused call: L bare WKV kernels, no fused one, the mm8
+    kernels as on the serving path. Each call's wall time ends in a
+    synchronise. The two paths round differently in bf16 (the unfused glue
+    rounds kk, k~, y and the bonus; the fused kernels keep them in float32),
+    and 32 layers carry that on, so they are held to the bf16 end-to-end
+    tolerance of phase 4 (logits and every layer's state within `tol` of
+    their scale; greedy tokens equal where the fused top-2 margin is clear);
+    layer 0, whose WKV inputs are the same on both paths, is reported per
+    element against the WKV kernels' limit, and held to it at float32
+    (unfused_layer0_float32)."""
+    from chirrup_tpu_torch.models import rwkv7 as tmodel
+    from chirrup_tpu_torch.ops import _kernels
+    from chirrup_tpu_torch.ops.wkv7_cuda import wkv7_batch
+
+    cfg, rt = m.config, m.runtime
+    L, V = cfg.n_layer, cfg.vocab_size
+    gen = torch.Generator(device=dev).manual_seed(11)
+    kw = dict(compute_dtype=rt.activation_dtype, use_dither=rt.use_dither, mm8_core=m.mm8_core)
+
+    def state(n, random):
+        st = tmodel.init_state(cfg, n, shift_dtype=rt.activation_dtype,
+                               wkv_dtype=rt.wkv_state_dtype, device=dev)
+        if random:
+            st.wkv.copy_(torch.randn(st.wkv.shape, generator=gen, device=dev) * 0.3)
+            st.shift.copy_(torch.randn(st.shift.shape, generator=gen, device=dev))
+            st.elapsed.copy_(torch.randint(0, 2 ** 31 - 1, (n,), generator=gen, device=dev))
+        return st
+
+    results = {}
+    for kind, n in (("chunk", P), ("step", B)):
+        st0 = state(n, random=kind == "step")
+        shape = (n, T) if kind == "chunk" else (n,)
+        tokens = torch.randint(1, V, shape, generator=gen, device=dev, dtype=torch.int32)
+        runs = {}
+        for label, fn in (("fused", None), ("unfused", wkv7_batch)):
+            st = tmodel.RWKVState(st0.shift.clone(), st0.wkv.clone(), st0.elapsed.clone())
+            torch.cuda.synchronize()
+            _kernels.reset_launches()
+            t0 = time.perf_counter()
+            if kind == "chunk":
+                tmodel.forward_chunk(m.params, tokens, st, wkv_fn=fn, **kw)
+                logits = None
+            else:
+                logits = tmodel.forward_step(m.params, tokens, st, wkv_fn=fn, **kw)[0]
+            torch.cuda.synchronize()
+            runs[label] = (logits, st, (time.perf_counter() - t0) * 1e3, dict(_kernels.LAUNCHES))
+        (l_f, s_f, ms_f, _), (l_u, s_u, ms_u, launches) = runs["fused"], runs["unfused"]
+        expected = expected_launches(L, m.mm8_core, kind)
+        expected.update({"wkv7_step_fused": 0, "wkv7_chunk_fused": 0, "wkv7_batch": L,
+                         "penalty_tail": 0})
+        require(launches == expected,
+                f"path B {kind}: launches {launches}, expected {expected}")
+        errs, excess = {}, {}
+        pairs = [("shift", s_u.shift, s_f.shift), ("wkv", s_u.wkv, s_f.wkv),
+                 ("wkv layer 0", s_u.wkv[0], s_f.wkv[0])]
+        if logits is not None:
+            require(tuple(l_u.shape) == (B, V) and bool(torch.isfinite(l_u).all()),
+                    "path B: logits not finite or of the wrong shape")
+            pairs.insert(0, ("logits", l_u, l_f))
+            top2 = torch.topk(l_f.float(), 2, dim=-1).values
+            scale = float(l_f.float().abs().max())
+            clear = (top2[:, 0] - top2[:, 1]) > 2 * tol * scale
+            diff = l_u.float().argmax(-1) != l_f.float().argmax(-1)
+            require(not bool((diff & clear).any()), "path B: greedy tokens differ")
+        for name, got, want in pairs:
+            errs[name] = max_abs(got, want) / float(want.float().abs().max())
+            excess[name] = bf16_excess(got, want)
+        require(torch.equal(s_u.elapsed, s_f.elapsed), f"path B {kind}: elapsed differs")
+        require(max(v for k, v in errs.items() if k != "wkv layer 0") <= tol,
+                f"path B {kind}: unfused vs fused err of scale {errs} > {tol}")
+        label = f"forward_chunk ({P}, {T})" if kind == "chunk" else f"forward_step at batch {B}"
+        log(f"path B {label}, 7.2B width, mm8_core {m.mm8_core!r}: launches {launches}; "
+            f"unfused {ms_u:.1f} ms, fused {ms_f:.1f} ms (one call each, wall through a "
+            f"synchronise); unfused vs fused err of scale "
+            + ", ".join(f"{k} {v:.3e}" for k, v in errs.items())
+            + f" (tol {tol}); per-element |err|/limit (2^-7|ref| + 2^-8 rms(ref)) "
+            + ", ".join(f"{k} {v:.3f}" for k, v in excess.items()))
+        results[kind] = dict(launches=launches, unfused_ms=ms_u, fused_ms=ms_f,
+                             err_of_scale=errs, bf16_excess=excess)
+        del runs, st0, s_f, s_u, l_f, l_u
+        torch.cuda.empty_cache()
+    results["layer0_float32"] = unfused_layer0_float32(dev, m, B, P, T)
+    return results
+
+
+def unfused_layer0_float32(dev, m, B, P, T):
+    """Where the bf16 disagreement of the two TMix forms comes from, at full
+    width on layer 0 (a one-layer state runs the first layer, then the head):
+    with float32 activations and state, the unfused form must agree with the
+    fused kernels per element within the WKV kernels' limit on the layer's
+    state, its token shifts and the logits. A second unfused run rounds only
+    what the bf16 glue rounds around the bare kernel (k~, -kk, kk*a and y) to
+    bf16 and is reported beside it."""
+    import dataclasses
+
+    from chirrup_tpu_torch.models import rwkv7 as tmodel
+    from chirrup_tpu_torch.ops.wkv7_cuda import wkv7_batch
+
+    f32, bf = torch.float32, torch.bfloat16
+    cfg1 = dataclasses.replace(m.config, n_layer=1)
+    params = tmodel.cast_dense(m.params, f32)
+    gen = torch.Generator(device=dev).manual_seed(12)
+    kw = dict(compute_dtype=f32, use_dither=m.runtime.use_dither, mm8_core=m.mm8_core)
+
+    def glue_in_bf16(state, r, w, k, v, a, b, *rest, **kwargs):
+        rnd = lambda t: t.to(bf).to(t.dtype)
+        return rnd(wkv7_batch(state, r, w, rnd(k), v, rnd(a), rnd(b), *rest, **kwargs))
+
+    out = {}
+    for kind, n in (("chunk", P), ("step", B)):
+        st0 = tmodel.init_state(cfg1, n, shift_dtype=f32, wkv_dtype=f32, device=dev)
+        if kind == "step":
+            st0.wkv.copy_(torch.randn(st0.wkv.shape, generator=gen, device=dev) * 0.3)
+            st0.shift.copy_(torch.randn(st0.shift.shape, generator=gen, device=dev))
+            st0.elapsed.copy_(torch.randint(0, 2 ** 31 - 1, (n,), generator=gen, device=dev))
+        shape = (n, T) if kind == "chunk" else (n,)
+        tokens = torch.randint(1, cfg1.vocab_size, shape, generator=gen, device=dev,
+                               dtype=torch.int32)
+        runs = {}
+        for label, fn in (("fused", None), ("unfused", wkv7_batch),
+                          ("unfused, glue rounded to bf16", glue_in_bf16)):
+            st = tmodel.RWKVState(st0.shift.clone(), st0.wkv.clone(), st0.elapsed.clone())
+            if kind == "chunk":
+                tmodel.forward_chunk(params, tokens, st, wkv_fn=fn, **kw)
+                runs[label] = {}
+            else:
+                runs[label] = {"logits": tmodel.forward_step(params, tokens, st, wkv_fn=fn,
+                                                             **kw)[0]}
+            runs[label].update(shift=st.shift, wkv=st.wkv)
+        torch.cuda.synchronize()
+        ref = runs.pop("fused")
+        excess = {label: {k: bf16_excess(got[k], ref[k]) for k in ref}
+                  for label, got in runs.items()}
+        require(all(torch.isfinite(t).all() for t in ref.values()),
+                f"path B float32 layer 0 {kind}: fused results not finite")
+        require(max(excess["unfused"].values()) <= 1,
+                f"path B float32 layer 0 {kind}: per-element |err|/limit {excess['unfused']}")
+        log(f"path B {kind} at float32, layer 0 only, 7.2B width: per-element |err|/limit "
+            f"(2^-7|ref| + 2^-8 rms(ref)) against the fused kernels: "
+            + "; ".join(f"{label} " + ", ".join(f"{k} {v:.4f}" for k, v in e.items())
+                        for label, e in excess.items()))
+        out[kind] = excess
+        del runs, ref, st0, st
+    del params
+    torch.cuda.empty_cache()
+    return out
 
 
 # ------------------------------------------------------------------- main
@@ -870,27 +1295,48 @@ def main(argv=None) -> int:
     log(f"built {', '.join(p.name for p in libs.values())} in {time.perf_counter() - t0:.1f} s")
 
     gen = torch.Generator(device=dev).manual_seed(0)
-    kernels = [check_wkv(dev, gen), check_chunk(dev, gen), *check_mm8(dev, gen),
-               check_penalty_tail(dev, gen)]
+    kernels = [check_wkv(dev, gen), check_chunk(dev, gen), check_wkv_batch(dev, gen),
+               *check_mm8(dev, gen), check_w16(dev, gen), check_penalty_tail(dev, gen)]
     torch.cuda.empty_cache()
     # the mm8 kernels at prefill row counts: 8 x 64 and 8 x 256 or 32 x 64
     # rows, and a count that is not a multiple of the GEMM's 64-row tile
-    mm8_prefill = {rows: check_mm8(dev, gen, B=rows, shapes=MM8_SHAPES[:4])
+    mm8_prefill = {rows: [*check_mm8(dev, gen, B=rows, shapes=MM8_SHAPES[:4]),
+                          check_w16(dev, gen, B=rows, sites=W16_PREFILL_SITES)]
                    for rows in (512, 2048, 1000)}
     torch.cuda.empty_cache()
     check_small_model(dev)
     check_small_prefill(dev)
+    check_small_prefill(dev, mm8_core="pallas")
+    check_small_unfused(dev)
     torch.cuda.empty_cache()
+    # the w8a8 serving path, then path A (w8a16) once the first model is
+    # freed, then path B (unfused TMix) on path A's weights
     model, launches, per_step, path = run_engine(dev, args.profile)
     prefill = run_prefill(dev, model, args.profile)
     del model
+    torch.cuda.empty_cache()
+    model, w16_launches, w16_step, path_a = run_engine(dev, args.profile, blocks=4,
+                                                       mm8_core="pallas", tag="_w16")
+    path_a["prefill"] = run_prefill(dev, model, args.profile, B=64, chunks=4, tag="_w16")
+    path_b = run_unfused(dev, model)
+    del model
     for k in kernels:
-        k["launches"] = launches[k["name"]]
-        k["launches_per_step"] = per_step[k["name"]]
-        k["launches_per_chunk"] = prefill[0]["launches_per_chunk"][k["name"]]
+        name = k["name"]
+        if name == "wkv7_batch":
+            k["launches"] = sum(path_b[kind]["launches"][name] for kind in ("chunk", "step"))
+            k["launches_per_step"] = path_b["step"]["launches"][name]
+            k["launches_per_chunk"] = path_b["chunk"]["launches"][name]
+            continue
+        run, step, chunk = ((w16_launches, w16_step, path_a["prefill"]) if name == "mm8_w16_gemm"
+                            else (launches, per_step, prefill))
+        k["launches"] = run[name]
+        k["launches_per_step"] = step[name]
+        k["launches_per_chunk"] = chunk[0]["launches_per_chunk"][name]
     path["prefill"] = prefill
     path["mm8_prefill_rows"] = {rows: {k["name"]: k["sites"] for k in ks}
                                 for rows, ks in mm8_prefill.items()}
+    path["w16"] = path_a
+    path["unfused"] = path_b
 
     summary = {"kernels": kernels}
     os.makedirs(OUT_DIR, exist_ok=True)

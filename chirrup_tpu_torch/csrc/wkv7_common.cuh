@@ -1,6 +1,6 @@
-// Helpers shared by the WKV7 kernels (wkv7_step.cu, wkv7_chunk.cu): dtype
-// conversion, 16-byte loads and stores of one 64-wide state row, and the
-// 64-thread block sum.
+// Helpers shared by the WKV7 kernels (wkv7_step.cu, wkv7_chunk.cu,
+// wkv7_batch.cu): dtype conversion, 16-byte loads and stores of one 64-wide
+// state row, the 64-thread block sum and the decay with its dither.
 
 #pragma once
 

@@ -68,7 +68,7 @@ def build_model_factory(model_config: ModelLoadConfig, batch_size: int, device=N
         runtime = RuntimeConfig(
             activation_dtype=_DTYPES[model_config.activation_dtype],
             wkv_state_dtype=_DTYPES[model_config.wkv_state_dtype],
-            quantization=model_config.quantization)
+            quantization=model_config.quantization, mm8_core=model_config.mm8_core)
         cfg = RWKV7Config(**model_config.synthetic_config)
         if runtime.quantization == "int8":
             params = loader.synthetic_params_int8(

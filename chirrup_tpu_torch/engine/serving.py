@@ -88,7 +88,9 @@ def _quantize_params(params):
 def _merge_att_rkv(params):
     """Merge the stacked att R/K/V Mm8Weights into one Mm8MultiWeight (with the
     (L, 3, C) stack of their token-shift mixes), so a layer computes all three
-    in one quantize + one GEMM launch. No-op unless all three are quantized."""
+    in one quantize + one GEMM launch. No-op unless all three are quantized.
+    Only the w8a8 core (mm8_core "pallas_a8") has the merged kernel, so
+    ServingModel merges under it alone, as the JAX package does."""
     att = params["blocks"]["att"]
     ws = [att.get(k) for k in ("Wr", "Wk", "Wv")]
     if not all(isinstance(w, mm8.Mm8Weight) for w in ws):
@@ -146,7 +148,10 @@ class ServingModel:
         params = model.cast_dense(params, device=self.device)
         if runtime.quantization == "int8" and not _is_quantized(params):
             params = _quantize_params(params)
-        params = _pack_att_lora(_merge_att_rkv(params))
+        self.mm8_core = mm8.resolve_mm8_core(runtime.mm8_core)
+        if self.mm8_core == "pallas_a8":
+            params = _merge_att_rkv(params)
+        params = _pack_att_lora(params)
         self.params = model.cast_dense(params, runtime.activation_dtype)
         self._no_penalty_ids = torch.tensor(sorted(NO_PENALTY_TOKEN_IDS),
                                             dtype=torch.int32, device=self.device)
@@ -198,7 +203,7 @@ class ServingModel:
         logits, _ = model.forward_step(
             self.params, tokens, carry.state, active=active_mask,
             compute_dtype=self.runtime.activation_dtype,
-            use_dither=self.runtime.use_dither)
+            use_dither=self.runtime.use_dither, mm8_core=self.mm8_core)
         # record the PREVIOUS sample (deferred through last_sampled), decay,
         # penalties, logsumexp and per-chunk candidates in one pass
         no_penalty = (last[:, None] == self._no_penalty_ids[None, :]).any(-1)
@@ -271,7 +276,7 @@ class ServingModel:
         model.forward_chunk(self.params, self._upload(np.asarray(tokens), torch.int32),
                             state, self._upload(np.asarray(lengths), torch.int32),
                             compute_dtype=self.runtime.activation_dtype,
-                            use_dither=self.runtime.use_dither)
+                            use_dither=self.runtime.use_dither, mm8_core=self.mm8_core)
 
     def prefill_step(self, carry: BatchCarry, tokens, lengths) -> BatchCarry:
         """One chunk over the whole batch: tokens (B, T) and lengths (B,) host

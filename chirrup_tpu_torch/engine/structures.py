@@ -146,6 +146,9 @@ class ModelLoadConfig:
     quantization: Optional[str] = "int8"   # None | "int8"
     wkv_state_dtype: str = "bfloat16"      # "float32" | "bfloat16"
     activation_dtype: str = "bfloat16"
+    # the int8 GEMM under "int8" (RuntimeConfig.mm8_core): "auto" (w8a8) or
+    # "pallas" (w8a16)
+    mm8_core: str = "auto"
     # tokens per row of a prefill chunk (ServingModel.prefill_chunk)
     prefill_chunk: int = 64
     # test and benchmark hook: synthetic model instead of a checkpoint file

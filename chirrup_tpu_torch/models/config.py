@@ -7,6 +7,8 @@ from typing import Optional
 
 import torch
 
+from chirrup_tpu_torch.ops.mm8 import resolve_mm8_core
+
 HEAD_SIZE = 64
 
 
@@ -48,8 +50,14 @@ class RuntimeConfig:
     # decorrelates its per-step rounding)
     wkv_state_dtype: torch.dtype = torch.bfloat16
     use_dither: bool = True
-    # weight quantization: None (keep activation_dtype) or "int8" (mm8, w8a8)
+    # weight quantization: None (keep activation_dtype) or "int8" (mm8)
     quantization: Optional[str] = None
+    # the int8 GEMM under "int8" (ops/mm8.resolve_mm8_core): "auto" =
+    # "pallas_a8" (w8a8), or "pallas" (w8a16, no activation rounding in the GEMM)
+    mm8_core: str = "auto"
     # candidates the sampler draws from before its exact fallback (top-p
     # coverage is checked either way; greedy rows are always exact)
     sampler_k_max: int = 128
+
+    def __post_init__(self):
+        resolve_mm8_core(self.mm8_core)

@@ -12,17 +12,29 @@ layer's slab where it lies instead of building a new stacked state.
 Parameters are a nested dict of tensors stacked over a leading layer axis, with
 linears stored (in, out) for `x @ W`; INT8 linears are Mm8Weight (or the merged
 Mm8MultiWeight) and are handed to the kernels as LayerIndexed views.
+
+Every forward takes `mm8_core`, the int8 GEMM of the INT8 linears ("auto" or
+"pallas_a8" w8a8, or "pallas" w8a16; ops/mm8.resolve_mm8_core; merged R/K/V
+weights run under w8a8 only), and `wkv_fn`: None runs the fused
+WKV kernels (the kk/k~ prologue, GroupNorm and the bonus inside the kernel);
+a callable runs the unfused TMix tail around it. The callable has the
+signature of ops/wkv7_cuda.wkv7_batch,
+
+    wkv_fn(state, r, w_raw, k, v, a, b, elapsed, lengths, layer, *, use_dither)
+
+and advances layer `layer` of the stacked state IN PLACE, returning y (B, T,
+C); the JAX package's wkv_fn returns (y, new_state) instead.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
+from typing import Callable, Optional
 
 import torch
 import torch.nn.functional as F
 
-from chirrup_tpu_torch.models.config import RWKV7Config
+from chirrup_tpu_torch.models.config import HEAD_SIZE, RWKV7Config
 from chirrup_tpu_torch.ops import mm8
 from chirrup_tpu_torch.ops.linear import matmul
 from chirrup_tpu_torch.ops.wkv7_cuda import wkv7_chunk_fused, wkv7_step_fused
@@ -54,6 +66,25 @@ def layer_norm(x, w, b, eps=1e-5):
     out = F.layer_norm(x.to(torch.float32), (x.shape[-1],), w.to(torch.float32),
                        b.to(torch.float32), eps)
     return out.to(x.dtype)
+
+
+def group_norm(x, num_groups, w, b, eps):
+    """Per-head GroupNorm over (..., C) with C = num_groups * head_size, float32
+    inside, out in x.dtype (the TMix tail uses eps 64e-5)."""
+    shape = x.shape
+    xf = x.to(torch.float32).reshape(*shape[:-1], num_groups, shape[-1] // num_groups)
+    mu = xf.mean(-1, keepdim=True)
+    var = ((xf - mu) ** 2).mean(-1, keepdim=True)
+    xn = ((xf - mu) * torch.rsqrt(var + eps)).reshape(shape)
+    return (xn * w.to(torch.float32) + b.to(torch.float32)).to(x.dtype)
+
+
+def l2_normalize_heads(x, H, N):
+    """Per-head x / max(||x||, 1e-12), float32 inside, out in x.dtype."""
+    shape = x.shape
+    xf = x.to(torch.float32).reshape(*shape[:-1], H, N)
+    out = xf / torch.sqrt((xf * xf).sum(-1, keepdim=True)).clamp_min(1e-12)
+    return out.reshape(shape).to(x.dtype)
 
 
 def _masked_last(x, lengths, prev):
@@ -90,20 +121,27 @@ def layer_params(blocks, li: int):
 # -------------------------------------------------------------------- blocks
 
 def _tmix(att, li, layer_is_first, x, shift_prev, v_first, wkv_full, elapsed, lengths,
-          use_dither):
+          use_dither, mm8_core, wkv_fn):
     """Time-mix. Advances layer li of the stacked wkv state in place and returns
     (out, new_shift, v_first)."""
     B, T, C = x.shape
     xx = _token_shift_delta(x, shift_prev)
 
+    def mm(x, w, **kw):
+        return matmul(x, w, mm8_core=mm8_core, **kw)
+
     if "Wrkv" in att:
-        # merged R/K/V: one quantize + one GEMM off the shared (x, xx) pair
+        # merged R/K/V (the w8a8 core only): one quantize + one GEMM off the
+        # shared (x, xx) pair
+        if mm8.resolve_mm8_core(mm8_core) != "pallas_a8":
+            raise ValueError(f"merged R/K/V weights (Wrkv) run only under the w8a8 core, "
+                             f"not mm8_core {mm8_core!r}")
         rkv = mm8.mm8_multi_matmul(x, xx, att["mu_rkv"], att["Wrkv"])
         r, k, v = rkv.split(C, dim=-1)
     else:
-        r = matmul(x + xx * att["x_r"], att["Wr"])
-        k = matmul(x + xx * att["x_k"], att["Wk"])
-        v = matmul(x + xx * att["x_v"], att["Wv"])
+        r = mm(x + xx * att["x_r"], att["Wr"])
+        k = mm(x + xx * att["x_k"], att["Wk"])
+        v = mm(x + xx * att["x_v"], att["Wv"])
 
     if "lora1" in att:
         # packed LoRA chains (w / a / v-gate / g): two batched matmuls
@@ -116,18 +154,31 @@ def _tmix(att, li, layer_is_first, x, shift_prev, v_first, wkv_full, elapsed, le
         v_gate_pre = s2[2] + att["v0"]
         g = s2[3]
     else:
-        w_raw = matmul(torch.tanh(matmul(x + xx * att["x_w"], att["w1"])), att["w2"]) \
-            + att["w0"]
-        a = torch.sigmoid(matmul(matmul(x + xx * att["x_a"], att["a1"]), att["a2"])
-                          + att["a0"])
-        g = matmul(torch.sigmoid(matmul(x + xx * att["x_g"], att["g1"])), att["g2"])
-        v_gate_pre = matmul(matmul(x + xx * att["x_v"], att["v1"]), att["v2"]) + att["v0"]
+        w_raw = mm(torch.tanh(mm(x + xx * att["x_w"], att["w1"])), att["w2"]) + att["w0"]
+        a = torch.sigmoid(mm(mm(x + xx * att["x_a"], att["a1"]), att["a2"]) + att["a0"])
+        g = mm(torch.sigmoid(mm(x + xx * att["x_g"], att["g1"])), att["g2"])
+        v_gate_pre = mm(mm(x + xx * att["x_v"], att["v1"]), att["v2"]) + att["v0"]
 
     # layer 0 captures v_first; later layers blend toward it
     if layer_is_first:
         v_first = v
     else:
         v = v + (v_first - v) * torch.sigmoid(v_gate_pre)
+
+    if wkv_fn is not None:
+        # unfused: kk / k~ here, the bare recurrence, then GroupNorm (ln_b at
+        # masked positions, as in the JAX package) and the bonus
+        H = C // HEAD_SIZE
+        kk = l2_normalize_heads(k * att["k_k"], H, HEAD_SIZE)
+        k = k * (1 + (a - 1) * att["k_a"])
+        y = wkv_fn(wkv_full, r, w_raw, k, v, -kk, kk * a, elapsed, lengths, li,
+                   use_dither=use_dither).to(x.dtype)
+        y = group_norm(y, H, att["ln_x_w"], att["ln_x_b"], eps=64e-5)
+        bonus = (r * k * att["r_k"].reshape(-1)).reshape(B, T, H, HEAD_SIZE) \
+            .sum(-1, keepdim=True)
+        y = y + (bonus * v.reshape(B, T, H, HEAD_SIZE)).reshape(B, T, C)
+        out = mm(y, att["Wo"], mul_in=g)
+        return out, _masked_last(x, lengths, shift_prev), v_first
 
     # kk / k~ prologue and GroupNorm + bonus epilogue ride the WKV kernel: one
     # token (decode) or a chunk of T (prefill); y is zero past each row's length
@@ -142,22 +193,23 @@ def _tmix(att, li, layer_is_first, x, shift_prev, v_first, wkv_full, elapsed, le
     else:
         y = wkv7_chunk_fused(wkv_full, li, r, w_raw, k, a, v, *wkv_args,
                              use_dither=use_dither)
-    out = matmul(y.to(x.dtype), att["Wo"], mul_in=g)
+    out = mm(y.to(x.dtype), att["Wo"], mul_in=g)
     return out, _masked_last(x, lengths, shift_prev), v_first
 
 
-def _cmix(ffn, x, shift_prev, lengths):
+def _cmix(ffn, x, shift_prev, lengths, mm8_core):
     """Channel-mix FFN with relu^2."""
     xx = _token_shift_delta(x, shift_prev)
     kx = x + xx * ffn["x_k"]
     if isinstance(ffn["Wk"], mm8.LayerIndexed) and isinstance(ffn["Wv"], mm8.LayerIndexed):
-        out = mm8.mm8_ffn_matmul(kx, ffn["Wk"], ffn["Wv"])
+        out = mm8.mm8_ffn_matmul(kx, ffn["Wk"], ffn["Wv"], core=mm8_core)
     else:
-        out = matmul(matmul(kx, ffn["Wk"], activation="relu2"), ffn["Wv"])
+        out = matmul(matmul(kx, ffn["Wk"], activation="relu2", mm8_core=mm8_core),
+                     ffn["Wv"], mm8_core=mm8_core)
     return out, _masked_last(x, lengths, shift_prev)
 
 
-def _backbone(params, x, state: RWKVState, lengths, use_dither=True):
+def _backbone(params, x, state: RWKVState, lengths, use_dither, mm8_core, wkv_fn):
     """All layers; the state's shift and wkv are written in place per layer."""
     blocks = params["blocks"]
     L = state.wkv.shape[0]
@@ -168,10 +220,10 @@ def _backbone(params, x, state: RWKVState, lengths, use_dither=True):
         xn = layer_norm(x, blk["ln1_w"], blk["ln1_b"])
         att_out, att_shift, v_first = _tmix(
             blk["att"], li, li == 0, xn, shift_l[0], v_first, state.wkv,
-            state.elapsed, lengths, use_dither)
+            state.elapsed, lengths, use_dither, mm8_core, wkv_fn)
         x = x + att_out
         xn = layer_norm(x, blk["ln2_w"], blk["ln2_b"])
-        ffn_out, ffn_shift = _cmix(blk["ffn"], xn, shift_l[1], lengths)
+        ffn_out, ffn_shift = _cmix(blk["ffn"], xn, shift_l[1], lengths, mm8_core)
         x = x + ffn_out
         shift_l[0].copy_(att_shift)
         shift_l[1].copy_(ffn_shift)
@@ -184,42 +236,47 @@ def _embed(params, tokens, dtype):
 
 
 def forward_step(params, tokens, state: RWKVState, active=None, *,
-                 compute_dtype=torch.float32, use_dither=True):
+                 compute_dtype=torch.float32, use_dither=True, mm8_core="auto",
+                 wkv_fn: Optional[Callable] = None):
     """One-token step for the whole batch: tokens (B,) -> logits (B, V) in the
     head's output dtype; the state advances in place. active: optional (B,)
-    bool — inactive rows keep their state and yield unused logits."""
+    bool — inactive rows keep their state and yield unused logits. mm8_core
+    and wkv_fn: see the module docstring."""
     lengths = None if active is None else active.to(torch.int32)
     x = _embed(params, tokens[:, None], compute_dtype)
-    x = _backbone(params, x, state, lengths, use_dither)
+    x = _backbone(params, x, state, lengths, use_dither, mm8_core, wkv_fn)
     xh = layer_norm(x[:, 0], params["ln_out_w"], params["ln_out_b"])
-    logits = matmul(xh, params["head"])
+    logits = matmul(xh, params["head"], mm8_core=mm8_core)
     state.elapsed += (torch.ones_like(state.elapsed) if lengths is None else lengths)
     return logits, state
 
 
 def forward_chunk(params, tokens, state: RWKVState, lengths=None, *,
-                  compute_dtype=torch.float32, use_dither=True) -> RWKVState:
+                  compute_dtype=torch.float32, use_dither=True, mm8_core="auto",
+                  wkv_fn: Optional[Callable] = None) -> RWKVState:
     """Prefill a chunk: advance the state in place over tokens (B, T); no head
     (the last prompt token always goes through forward_step). lengths: optional
     (B,) int32 valid tokens per row; rows may be ragged or empty (length 0
     keeps the row's state), and each row's shift comes from its last valid
-    token."""
+    token. mm8_core and wkv_fn: see the module docstring."""
     x = _embed(params, tokens, compute_dtype)
-    _backbone(params, x, state, lengths, use_dither)
+    _backbone(params, x, state, lengths, use_dither, mm8_core, wkv_fn)
     state.elapsed += tokens.shape[1] if lengths is None else lengths
     return state
 
 
 def forward_seq(params, tokens, state: RWKVState, *, full_output=False,
-                compute_dtype=torch.float32, use_dither=True):
+                compute_dtype=torch.float32, use_dither=True, mm8_core="auto",
+                wkv_fn: Optional[Callable] = None):
     """Whole-sequence forward with logits: tokens (B, T). Returns float32 logits
-    (B, V), or (B, T, V) with full_output; the state advances in place."""
+    (B, V), or (B, T, V) with full_output; the state advances in place. The
+    eval / oracle entry. mm8_core and wkv_fn: see the module docstring."""
     x = _embed(params, tokens, compute_dtype)
-    x = _backbone(params, x, state, None, use_dither)
+    x = _backbone(params, x, state, None, use_dither, mm8_core, wkv_fn)
     if not full_output:
         x = x[:, -1:, :]
     logits = matmul(layer_norm(x, params["ln_out_w"], params["ln_out_b"]),
-                    params["head"]).to(torch.float32)
+                    params["head"], mm8_core=mm8_core).to(torch.float32)
     state.elapsed += tokens.shape[1]
     return (logits if full_output else logits[:, 0]), state
 

@@ -32,13 +32,14 @@ import torch
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = CSRC / "build"
-SOURCES = ("wkv7_step", "wkv7_chunk", "mm8_a8", "penalty_tail")
+SOURCES = ("wkv7_step", "wkv7_chunk", "wkv7_batch", "mm8_a8", "mm8_w16", "penalty_tail")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC")
 
 # launch counts by kernel name; plain integers, reset with reset_launches()
-LAUNCHES: Dict[str, int] = {"wkv7_step_fused": 0, "wkv7_chunk_fused": 0,
-                            "mm8_a8_quant_rows": 0, "mm8_a8_gemm": 0, "penalty_tail": 0}
+LAUNCHES: Dict[str, int] = {"wkv7_step_fused": 0, "wkv7_chunk_fused": 0, "wkv7_batch": 0,
+                            "mm8_a8_quant_rows": 0, "mm8_a8_gemm": 0, "mm8_w16_gemm": 0,
+                            "penalty_tail": 0}
 
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}

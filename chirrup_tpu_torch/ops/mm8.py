@@ -1,4 +1,4 @@
-"""mm8 — INT8 weight quantization and the w8a8 matmul built on it.
+"""mm8 — INT8 weight quantization and the matmuls built on it.
 
 Quantization scheme (the rwkv pip package convention, bit-compatible with the JAX
 package's ``quantize``):
@@ -15,8 +15,13 @@ xs = x * ry,
 
     y = rx * (xs @ q + 0.5 * sum(xs)) + sum(x * my) + mx * sum(x)
 
-and runs the GEMM term in int8 x int8 -> int32 on per-row int8 activations
-(w8a8): ops/mm8_cuda.py holds the kernels and their plain versions.
+The GEMM term runs under one of two schemes, the `core` of each matmul
+(RuntimeConfig.mm8_core, named as resolve_mm8_core reads it):
+- "pallas_a8" (w8a8, the default "auto"): xs quantized to int8 per row, an
+  int8 x int8 -> int32 GEMM, the corrections in its epilogue;
+- "pallas" (w8a16, rwkv-pip's exact scheme): xs stays in x's dtype, the codes
+  are widened inside the kernel, and the corrections run here in float32.
+ops/mm8_cuda.py holds the kernels and their plain versions.
 """
 
 from __future__ import annotations
@@ -26,6 +31,21 @@ import dataclasses
 import torch
 
 from chirrup_tpu_torch.ops import mm8_cuda
+
+# the inner int8 GEMM of the mm8 matmuls, by mm8_core name
+MM8_CORES = {"auto": "pallas_a8", "pallas_a8": "pallas_a8", "pallas": "pallas"}
+
+
+def resolve_mm8_core(name: str) -> str:
+    """"auto" and "pallas_a8" -> "pallas_a8" (w8a8: per-row int8 activations,
+    int8 x int8 -> int32 GEMM); "pallas" -> "pallas" (w8a16, the exact scheme:
+    activations stay in their dtype, the codes are widened in the kernel).
+    The JAX package's plain-XLA fallbacks "xla" and "xla_a8" have no
+    counterpart here: their port would be the plain version on the card."""
+    core = MM8_CORES.get(name)
+    if core is None:
+        raise ValueError(f"mm8_core {name!r} not supported: one of {sorted(MM8_CORES)}")
+    return core
 
 
 @dataclasses.dataclass(frozen=True)
@@ -129,11 +149,13 @@ def _rows(x: torch.Tensor) -> torch.Tensor:
     return x.reshape(-1, x.shape[-1]).contiguous()
 
 
-def mm8_matmul(x, w, *, activation=None, mul_in=None):
-    """w8a8 matmul. x: (..., K) float; w: Mm8Weight (K, M) or LayerIndexed of a
+def mm8_matmul(x, w, *, activation=None, mul_in=None, core="auto"):
+    """mm8 matmul. x: (..., K) float; w: Mm8Weight (K, M) or LayerIndexed of a
     stacked one. activation "relu2" squares the relu of the output; mul_in
-    (same shape as x) multiplies x before quantization. Returns (..., M) in
-    x.dtype."""
+    (same shape as x) multiplies x first. core: an mm8_core name
+    (resolve_mm8_core). Returns (..., M) in x.dtype."""
+    if resolve_mm8_core(core) == "pallas":
+        return _mm8_matmul_w16(x, w, activation, mul_in)
     lead = x.shape[:-1]
     mul2 = None if mul_in is None else _rows(mul_in)
     if isinstance(w, LayerIndexed):
@@ -144,6 +166,34 @@ def mm8_matmul(x, w, *, activation=None, mul_in=None):
         y = mm8_cuda.mm8_fused_a8(_rows(x), w.mx, w.rx, w.my, w.ry, w.q,
                                   activation=activation, mul_in=mul2)
     return y.reshape(*lead, y.shape[-1])
+
+
+def _mm8_matmul_w16(x, w, activation, mul_in):
+    """The w8a16 matmul in the JAX package's steps (ops/mm8.py mm8_matmul):
+    the gate multiplies in x's dtype; xs = x * ry*16 in float32 is rounded to
+    x's dtype for the core only; the sums and the corrections stay float32."""
+    if activation not in (None, "relu2"):
+        raise ValueError(f"unknown mm8 activation {activation!r}")
+    if mul_in is not None:
+        x = x * mul_in
+    if isinstance(w, LayerIndexed):
+        s, layer = w.w, w.li
+        mx, rx, my, ry = s.mx[layer], s.rx[layer], s.my[layer], s.ry[layer]
+    else:
+        s, layer = w, None
+        mx, rx, my, ry = w.mx, w.rx, w.my, w.ry
+    lead = x.shape[:-1]
+    xf = _rows(x).to(torch.float32)
+    xs_f = xf * (ry * 16.0)[None, :]
+    core = mm8_cuda.mm8_core_w16(xs_f.to(x.dtype), s.q, layer=layer)
+    xs_sum = xs_f.sum(-1, keepdim=True)
+    x_sum = xf.sum(-1, keepdim=True)
+    xmy_sum = (xf * my[None, :]).sum(-1, keepdim=True)
+    y = ((rx * 16.0)[None, :] / 256.0) * (core + 128.5 * xs_sum) + xmy_sum \
+        + mx[None, :] * x_sum
+    if activation == "relu2":
+        y = torch.square(torch.clamp_min(y, 0.0))
+    return y.to(x.dtype).reshape(*lead, y.shape[-1])
 
 
 def mm8_multi_matmul(x, xx, mu, w: LayerIndexed):
@@ -157,8 +207,12 @@ def mm8_multi_matmul(x, xx, mu, w: LayerIndexed):
     return y.reshape(*lead, y.shape[-1])
 
 
-def mm8_ffn_matmul(x, wk: LayerIndexed, wv: LayerIndexed):
-    """The CMix pair relu(x @ Wk)^2 @ Wv, both w8a8, on one layer."""
+def mm8_ffn_matmul(x, wk: LayerIndexed, wv: LayerIndexed, core="auto"):
+    """The CMix pair relu(x @ Wk)^2 @ Wv on one layer: the w8a8 pair of
+    kernels, or under core "pallas" two w8a16 matmuls (relu^2 on the first,
+    its output in x's dtype) as the JAX package runs them."""
+    if resolve_mm8_core(core) == "pallas":
+        return mm8_matmul(mm8_matmul(x, wk, activation="relu2", core=core), wv, core=core)
     li = wk.li
     lead = x.shape[:-1]
     sk, sv = wk.w, wv.w

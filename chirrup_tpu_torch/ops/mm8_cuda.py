@@ -1,7 +1,7 @@
-"""The w8a8 mm8 matmul: CUDA kernels (csrc/mm8_a8.cu) and their plain PyTorch
-versions.
+"""The mm8 matmul kernels (csrc/mm8_a8.cu, csrc/mm8_w16.cu) and their plain
+PyTorch versions.
 
-Two kernels carry every int8 matmul of the decode path:
+Two kernels carry every int8 matmul of the w8a8 scheme (mm8_core "pallas_a8"):
 
 - ``quant_rows``: per-row int8 quantization of x*ry*16 (x optionally mixed as
   x + xx*mu[m] for each of n variants, or gated as x*mul) plus the four row
@@ -11,7 +11,12 @@ Two kernels carry every int8 matmul of the decode path:
   relu^2, written in bfloat16 or float32 (or acc itself, for exactness checks).
 
 The compositions below (single, merged multi-projection, relu^2 FFN pair) are
-the port of the JAX package's fused a8 Pallas kernels.
+the port of the JAX package's fused a8 Pallas kernels; ``mm8_core_a8`` is the
+bare int8 core (the JAX ``mm8_core_pallas_a8``), ``gemm``'s int32 output.
+
+The exact w8a16 scheme (mm8_core "pallas") has one kernel, ``mm8_core_w16``:
+xs (B, K) bf16 or float32 times the int8 codes (K, M) -> float32, only the
+``xs @ q`` term (ops/mm8.py applies the corrections).
 """
 
 from __future__ import annotations
@@ -28,6 +33,8 @@ _SIGNATURES = {
     "mm8_a8_quant_rows": [_P] * 7 + [_I] * 5 + [_P],
     "mm8_a8_gemm": [_P] * 6 + [_I] * 6 + [_P],
 }
+_W16_SOURCE = "mm8_w16"
+_W16_SIGNATURES = {"mm8_w16_gemm": [_P] * 3 + [_I] * 4 + [_P]}
 # the GEMM kernel's tiles: K in 256-deep slices, output in 32-column tiles
 GEMM_BK, GEMM_BN = 256, 32
 
@@ -67,6 +74,13 @@ def quant_rows_reference(x, ry, my, *, xx=None, mu=None, mul=None):
 def gemm_acc_reference(x8, q):
     """Exact int32 x8 @ q through float64 (integer sums far below 2^53)."""
     return torch.matmul(x8.to(torch.float64), q.to(torch.float64)).to(torch.int32)
+
+
+def core_w16_reference(xs, q):
+    """xs (B, K) float x q (K, M) int8 -> (B, M) float32 with float32
+    accumulation. Widening bf16 xs and the codes to float32 is exact, so
+    every product is exact and only the sums round, as in the kernel."""
+    return torch.matmul(xs.to(torch.float32), q.to(torch.float32))
 
 
 def gemm_reference(x8, stats, q, mx, rx, *, relu2=False, out_dtype=torch.bfloat16):
@@ -149,10 +163,9 @@ def gemm(x8, stats, q, mx, rx, *, layer: Optional[int] = None, relu2=False,
     n, B, K = x8.shape
     K2, M = q_layer.shape
     dev = x8.device
-    if K2 != K or M % n or (M // n) % GEMM_BN or K % GEMM_BK:
-        raise ValueError(f"gemm: unsupported shapes x8 {tuple(x8.shape)} q "
-                         f"{tuple(q_layer.shape)} (K % {GEMM_BK} == 0 and each "
-                         f"variant's width % {GEMM_BN} == 0 required)")
+    if M % n:
+        raise ValueError(f"gemm: {M} columns do not split into {n} variants")
+    _check_gemm_shape("gemm", K, K2, M, M // n)
     # the GEMM loads both int8 operands 16 bytes at a time
     _kernels.require(x8, "x8", dtype=torch.int8, device=dev, align=16)
     _kernels.require(stats, "stats", dtype=torch.float32, shape=(n, B, 4), device=dev)
@@ -170,6 +183,48 @@ def gemm(x8, stats, q, mx, rx, *, layer: Optional[int] = None, relu2=False,
     _kernels.LAUNCHES["mm8_a8_gemm"] += 1
     _kernels.check(lib, _SOURCE, "mm8_a8_gemm", err)
     return out
+
+
+def _check_gemm_shape(fn, K, K2, M, width):
+    if K2 != K or M % width or width % GEMM_BN or K % GEMM_BK:
+        raise ValueError(f"{fn}: unsupported shapes K {K}, q ({K2}, {M}) (K % {GEMM_BK} "
+                         f"== 0 and each output variant's width % {GEMM_BN} == 0 required)")
+
+
+def mm8_core_w16(xs, q, *, layer: Optional[int] = None):
+    """xs @ q for the w8a16 mm8 matmul: xs (B, K) bfloat16 or float32, q the
+    (K, M) int8 codes, or the stacked (L, K, M) codes with `layer` (read at a
+    pointer offset, no copy). Returns (B, M) float32. The kernel on CUDA
+    tensors (K % 256 == 0, M % 32 == 0), the plain version on CPU tensors."""
+    q_layer = q if layer is None else q[layer]  # a view: no copy on either path
+    if xs.device.type == "cpu":
+        return core_w16_reference(xs, q_layer)
+    if not xs.is_cuda:
+        raise ValueError(f"mm8_core_w16: no kernel for device {xs.device}")
+    B, K = xs.shape
+    K2, M = q_layer.shape
+    _check_gemm_shape("mm8_core_w16", K, K2, M, M)
+    dev = xs.device
+    _kernels.require(xs, "xs", device=dev, align=16)  # 16-byte row loads
+    code = _kernels.dtype_code(xs, "xs")
+    _kernels.require(q_layer, "q", dtype=torch.int8, device=dev, align=16)
+    out = torch.empty((B, M), dtype=torch.float32, device=dev)
+    lib = _kernels.library(_W16_SOURCE, _W16_SIGNATURES)
+    err = lib.mm8_w16_gemm(xs.data_ptr(), q_layer.data_ptr(), out.data_ptr(), B, K, M, code,
+                           _kernels.stream_of(xs))
+    _kernels.LAUNCHES["mm8_w16_gemm"] += 1
+    _kernels.check(lib, _W16_SOURCE, "mm8_w16_gemm", err)
+    return out
+
+
+def mm8_core_a8(xs8, q, *, layer: Optional[int] = None):
+    """The bare w8a8 core: xs8 (B, K) int8 x q (K, M) int8, or the stacked
+    (L, K, M) codes with `layer`, -> exact (B, M) int32. ``gemm`` in its int32
+    output mode; no serving path of either package calls it."""
+    B, M = xs8.shape[0], q.shape[-1]
+    zeros = lambda *s: torch.zeros(s, dtype=torch.float32, device=xs8.device)
+    return gemm(xs8[None], zeros(1, B, 4), q, zeros(M), zeros(M), layer=layer,
+                out_dtype=torch.int32)
 
 
 # -------------------------------------------------------------- compositions

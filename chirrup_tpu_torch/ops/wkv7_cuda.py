@@ -1,11 +1,14 @@
-"""The fused WKV7 kernels: the decode step (csrc/wkv7_step.cu) and the
-prefill chunk (csrc/wkv7_chunk.cu), with their plain PyTorch versions.
+"""The WKV7 kernels, with their plain PyTorch versions: the fused decode step
+(csrc/wkv7_step.cu), the fused prefill chunk (csrc/wkv7_chunk.cu) and the bare
+recurrence over any T (csrc/wkv7_batch.cu).
 
-Tokens of the recurrence on layer `layer` of the stacked state, with the TMix
-prologue (per-head L2 norm of k*k_k; k~ = k*(1+(a-1)*k_a)) and epilogue
-(per-head GroupNorm, eps 64e-5, *ln_w+ln_b; plus (sum_head r*k~*r_k)*v) fused
-in. Positions at or past a row's length output zeros and leave its state
-alone; a row with length 0 keeps its state bit for bit.
+Each advances layer `layer` of the stacked state by tokens of the recurrence.
+The fused kernels carry the TMix prologue (per-head L2 norm of k*k_k;
+k~ = k*(1+(a-1)*k_a)) and epilogue (per-head GroupNorm, eps 64e-5,
+*ln_w+ln_b; plus (sum_head r*k~*r_k)*v); the bare one takes a, b and k~
+precomputed and returns raw y. Positions at or past a row's length output
+zeros and leave its state alone; a row with length 0 keeps its state bit for
+bit.
 """
 
 from __future__ import annotations
@@ -13,12 +16,13 @@ from __future__ import annotations
 import torch
 
 from chirrup_tpu_torch.ops import _kernels
-from chirrup_tpu_torch.ops.wkv7 import HEAD_SIZE, decay_from_raw
+from chirrup_tpu_torch.ops.wkv7 import HEAD_SIZE, decay_from_raw, wkv7_reference_batch
 
 _P, _I = _kernels.P, _kernels.I
 _SIGNATURES = {
     "wkv7_step": {"wkv7_step_fused": [_P] * 14 + [_I] * 11 + [_P]},
     "wkv7_chunk": {"wkv7_chunk_fused": [_P] * 14 + [_I] * 17 + [_P]},
+    "wkv7_batch": {"wkv7_batch": [_P] * 10 + [_I] * 19 + [_P]},
 }
 
 
@@ -201,4 +205,78 @@ def wkv7_chunk_fused(state, layer: int, r, w_raw, k_raw, a_iclr, v, k_k, k_a, r_
         _kernels.dtype_code(state, "state"), _kernels.stream_of(state))
     _kernels.LAUNCHES["wkv7_chunk_fused"] += 1
     _kernels.check(lib, "wkv7_chunk", "wkv7_chunk_fused", code)
+    return y
+
+
+def _check_precision(fn, precision):
+    """The JAX package's WKV precisions: "highest" and "default" both keep the
+    state math in float32, the only form the port runs; "bf16", the delta form
+    in the bf16 state dtype, is not ported."""
+    if precision == "bf16":
+        raise NotImplementedError(f"{fn}: precision 'bf16' (the delta-form update in the "
+                                  f"bf16 state dtype) is not ported")
+    if precision not in ("highest", "default"):
+        raise ValueError(f"{fn}: unknown precision {precision!r}")
+
+
+def wkv7_batch_reference(state_l, r, w_raw, k, v, a, b, elapsed, lengths=None, *,
+                         use_dither=True, precision="highest"):
+    """Plain version of the bare kernel on one layer's slab, without side
+    effects: ops/wkv7.wkv7_reference_batch. Returns y (B, T, C) in r.dtype,
+    zero at t >= lengths, and the new slab in state_l.dtype."""
+    _check_precision("wkv7_batch_reference", precision)
+    y, new = wkv7_reference_batch(state_l, r, w_raw, k, v, a, b, elapsed,
+                                  use_dither=use_dither, lengths=lengths)
+    return y.to(r.dtype), new
+
+
+def wkv7_batch(state, r, w_raw, k, v, a, b, elapsed, lengths=None, layer: int = 0, *,
+               use_dither: bool = True, precision: str = "highest"):
+    """The bare recurrence (the JAX wkv7_pallas_batch with `layer`): advance
+    layer `layer` of the stacked state (L, B, N, C) by up to T tokens per row,
+    in place, and return raw y (B, T, C) in r.dtype, zero at t >= lengths.
+    r, w_raw, k (k~), v, a (-kk), b (kk*a_iclr): (B, T, C) in one dtype with
+    unit column stride (request and token strides may differ); elapsed: (B,)
+    int32 (token t's dither counter is elapsed + t); lengths: (B,) int32, or
+    None for T everywhere. precision "highest" and "default" both run the
+    state in float32."""
+    _check_precision("wkv7_batch", precision)
+    B, T, C = r.shape
+    if lengths is None:
+        lengths = torch.full((B,), T, dtype=torch.int32, device=r.device)
+    if state.device.type == "cpu":
+        y, new = wkv7_batch_reference(state[layer], r, w_raw, k, v, a, b, elapsed, lengths,
+                                      use_dither=use_dither)
+        state[layer].copy_(new)
+        return y
+    if not state.is_cuda:
+        raise ValueError(f"wkv7_batch: no kernel for device {state.device}")
+    dev, act = state.device, r.dtype
+    L, _, N, _ = state.shape
+    if state.shape[1] != B or state.shape[3] != C or N != HEAD_SIZE or C % HEAD_SIZE:
+        raise ValueError(f"wkv7_batch: state {tuple(state.shape)} does not hold {B} rows "
+                         f"of width {C} in heads of {HEAD_SIZE}")
+    if not 0 <= layer < L:
+        raise IndexError(f"wkv7_batch: layer {layer} out of range [0, {L})")
+    _kernels.require(state, "state", device=dev, align=16)  # 16-byte row loads
+    for name, t in (("elapsed", elapsed), ("lengths", lengths)):
+        _kernels.require(t, name, dtype=torch.int32, shape=(B,), device=dev)
+    rows = (r, w_raw, k, v, a, b)
+    strides = []
+    for name, t in zip(("r", "w_raw", "k", "v", "a", "b"), rows):
+        if t.dtype != act or t.device != dev or tuple(t.shape) != (B, T, C) \
+                or t.stride(2) != 1 or max(t.stride(0), t.stride(1)) >= 2 ** 31:
+            raise ValueError(f"wkv7_batch: {name} must be ({B}, {T}, {C}) {act} on {dev} "
+                             f"with unit column stride, got {tuple(t.shape)} {t.dtype} "
+                             f"{t.device} {t.stride()}")
+        strides += [t.stride(0), t.stride(1)]
+    y = torch.empty((B, T, C), dtype=act, device=dev)
+    lib = _kernels.library("wkv7_batch", _SIGNATURES["wkv7_batch"])
+    code = lib.wkv7_batch(
+        state.data_ptr(), *(t.data_ptr() for t in rows), elapsed.data_ptr(),
+        lengths.data_ptr(), y.data_ptr(), B, T, C, layer, int(use_dither), *strides,
+        _kernels.dtype_code(r, "r"), _kernels.dtype_code(state, "state"),
+        _kernels.stream_of(state))
+    _kernels.LAUNCHES["wkv7_batch"] += 1
+    _kernels.check(lib, "wkv7_batch", "wkv7_batch", code)
     return y

@@ -2,6 +2,7 @@
 JAX engine, plus the port's import and device rules."""
 
 import asyncio
+import dataclasses
 import os
 import subprocess
 import sys
@@ -127,6 +128,29 @@ def test_engine_concurrent_requests_cpu(vocab_path):
         assert 1 <= len(c.task.generated_tokens) <= 3 + i
 
 
+@pytest.mark.parametrize("core,merged", [("auto", True), ("pallas", False)])
+def test_engine_mm8_core(vocab_path, core, merged):
+    """ModelLoadConfig.mm8_core reaches the worker's ServingModel: the w8a8
+    default merges R/K/V into one weight, the exact w8a16 core ("pallas")
+    keeps them apart; an INT8 engine on either core serves a greedy request."""
+    cfg = dataclasses.replace(_port_config(vocab_path), quantization="int8", mm8_core=core)
+    model, _ = build_model_factory(cfg, 2, device="cpu")()
+    assert model.mm8_core == {"auto": "pallas_a8", "pallas": "pallas"}[core]
+    assert ("Wrkv" in model.params["blocks"]["att"]) == merged
+
+    async def go():
+        eng = AsyncEngineCore()
+        await eng.init(worker_num=1, model_config=cfg, batch_size=2, load_timeout=60,
+                       device="cpu")
+        try:
+            return await _greedy(eng, PROMPT, 4)
+        finally:
+            eng.shutdown()
+
+    tokens, task = asyncio.run(asyncio.wait_for(go(), 60))
+    assert task.is_finished() and 1 <= len(tokens) <= 4
+
+
 def test_state_requests_raise(vocab_path):
     """Resuming from a state and cache_prefill belong to the state-cache slice."""
 
@@ -190,8 +214,8 @@ def _meta(*shape, dtype=torch.float32):
     return torch.empty(shape, dtype=dtype, device="meta")
 
 
-@pytest.mark.parametrize("wrapper", ["wkv7_step_fused", "wkv7_chunk_fused", "quant_rows", "gemm",
-                                     "penalty_tail"])
+@pytest.mark.parametrize("wrapper", ["wkv7_step_fused", "wkv7_chunk_fused", "wkv7_batch",
+                                     "quant_rows", "gemm", "mm8_core_w16", "penalty_tail"])
 def test_wrappers_raise_off_cpu_and_cuda(wrapper):
     """A wrapper takes its plain version only for CPU tensors; any other device
     that is not CUDA raises instead of falling back."""
@@ -206,7 +230,11 @@ def test_wrappers_raise_off_cpu_and_cuda(wrapper):
         "wkv7_chunk_fused": lambda: wkv7_cuda.wkv7_chunk_fused(
             _meta(1, B, 64, C), 0, *(_meta(B, 3, C) for _ in range(5)),
             *(_meta(C) for _ in range(5)), _meta(B, dtype=i32), _meta(B, dtype=i32)),
+        "wkv7_batch": lambda: wkv7_cuda.wkv7_batch(
+            _meta(1, B, 64, C), *(_meta(B, 3, C) for _ in range(6)), _meta(B, dtype=i32)),
         "quant_rows": lambda: mm8_cuda.quant_rows(_meta(B, C), _meta(1, C), _meta(1, C)),
+        "mm8_core_w16": lambda: mm8_cuda.mm8_core_w16(_meta(B, C),
+                                                      _meta(C, C, dtype=torch.int8)),
         "gemm": lambda: mm8_cuda.gemm(_meta(1, B, C, dtype=torch.int8), _meta(1, B, 4),
                                       _meta(C, C, dtype=torch.int8), _meta(C), _meta(C)),
         "penalty_tail": lambda: sampling_cuda.penalty_tail(
