@@ -15,9 +15,12 @@ Phases, in order; any failure ends the run with a non-zero exit:
    64, the WKV chunk kernel at the prefill variants (P, T) = (8, 64), (8, 256)
    and (32, 64) (and against a planted fault that ignores lengths), the bare
    WKV kernel at T = 1 (batch 64) and at the same variants (with the same
-   planted fault), the w8a8 mm8 kernels (and the bare int8 core, int32 out)
-   and the w8a16 core, bf16 and float32 activations, at its seven decode
-   sites, all at prefill row counts 512, 2048 and 1000 as well;
+   planted fault), the w8a8 mm8 kernels (and the bare int8 core, int32 out;
+   K-major codes, timed with cold weights at decode row counts) and the
+   w8a16 core, bf16 and float32 activations, at its seven decode sites, the
+   w8a8 kernels at 1 and 37 rows too, all at prefill row counts 512, 2048
+   and 1000 as well; before them, the w8a8 GEMM's registers and spills
+   (ptxas -v) and its wgmma and TMA instructions (cuobjdump, where present);
 4. the decode path and the compact prefill on a small model, kernels (GPU)
    against plain versions (CPU), and chunked prefill against token-by-token
    feeding on the GPU; the same for the w8a16 configuration (mm8_core
@@ -278,11 +281,39 @@ MM8_SHAPES = [  # (site, K, M, n variants, quant mode, relu2, stacked)
 ]
 
 
+def codes(dev, gen, L, K, M):
+    """Random int8 codes, logically (L, K, M) (or (K, M) when L is None),
+    stored K-major as mm8.to_k_major stores them: each layer's strides (1, K)."""
+    q = torch.randint(-128, 128, (L or 1, M, K), generator=gen, device=dev,
+                      dtype=torch.int8).transpose(-1, -2)
+    return q if L else q[0]
+
+
+def cold_layers(K, M, B):
+    """Layers of a stacked code tensor for timing: at decode row counts
+    enough that the rotation spans >= 160 MiB (3x the 50 MB L2), so every
+    launch finds its layer's codes cold, as a decode step does; 2 otherwise."""
+    return max(3, -(-(160 << 20) // (K * M))) if B <= 64 else 2
+
+
 def check_mm8(dev, gen, B=64, shapes=MM8_SHAPES):
+    """The quantizer and the w8a8 GEMM at each site with B rows: codes exact
+    and stats within their reordering bound; the GEMM's int32 accumulators
+    bit-equal to the plain version, y within one bf16 step of it (the same
+    float operations in the same order: expected 0), mm8_core_a8 exact. The
+    codes are K-major; stacked sites read layer 1. Times at decode row counts
+    (B <= 64) rotate over the layers of a stacked tensor larger than L2 (cold
+    weights), with the layer-1-every-time (warm) figure beside them; the
+    head (256 MiB) is cold either way. torch._int_mm runs on the same int8
+    operands the same way (with rows padded to 17, its least, when B < 17)."""
+    import itertools
+
     from chirrup_tpu_torch.ops import mm8_cuda
 
     bf = torch.bfloat16
     rnd = lambda *s: torch.randn(s, generator=gen, device=dev)
+    sms = (torch.cuda.get_device_properties(dev).multi_processor_count if dev.type == "cuda"
+           else mm8_cuda.H100_SMS)
     quant_rows_out, gemm_rows = [], []
     for site, K, M, n, mode, relu2, stacked in shapes:
         x = rnd(B, K).to(bf)
@@ -325,9 +356,8 @@ def check_mm8(dev, gen, B=64, shapes=MM8_SHAPES):
             f"{st_err:.3e} (tol {st_tol:.3e}); {q_ms:.4f} ms, plain {q_plain:.4f} ms, "
             f"bound {q_b:.4f} ms ({q_by})")
 
-        L = 2 if stacked else None
-        q = torch.randint(-128, 128, ((L,) if L else ()) + (K, M), generator=gen,
-                          device=dev, dtype=torch.int8)
+        L = cold_layers(K, M, B) if stacked else None
+        q = codes(dev, gen, L, K, M)
         layer = 1 if stacked else None
         mx, rx = rnd(M) * 0.01, rnd(M).abs() * 0.01 + 1e-3
         out_dtype = bf
@@ -344,37 +374,57 @@ def check_mm8(dev, gen, B=64, shapes=MM8_SHAPES):
         # outputs agree to the last bit; one bf16 step is the stated limit
         y_tol = 2.0 ** -7 * float(y_ref.float().abs().max())
         require(acc_equal and y_err <= y_tol,
-                f"mm8_a8_gemm {site}: acc equal {acc_equal}, y err {y_err} (tol {y_tol})")
-        g_ms = device_ms(lambda: mm8_cuda.gemm(x8, st, q, mx, rx, layer=layer, relu2=relu2,
-                                               out_dtype=out_dtype))
+                f"mm8_a8_gemm {site} B{B}: acc equal {acc_equal}, y err {y_err} (tol {y_tol})")
+        plan = mm8_cuda.gemm_plan(n, B, K, M, q_layer.stride(), sms)
+        call = lambda li: mm8_cuda.gemm(x8, st, q, mx, rx, layer=li, relu2=relu2,
+                                        out_dtype=out_dtype)
+        # the int8 GEMM alone, as cuBLASLt computes it (column-major B: the
+        # K-major codes as they are); for the merged R/K/V, one (B, K) x (K,
+        # n*C) product: the same operations
+        xa = x8[0] if B > 16 else torch.nn.functional.pad(x8[0], (0, 0, 0, 17 - B))
+        lib_call = lambda li: torch._int_mm(xa, q[li] if stacked else q)
+        g_warm = device_ms(lambda: call(layer))
+        lib_warm = device_ms(lambda: lib_call(layer))
+        if stacked and B <= 64:
+            cyc, cyc_lib = itertools.cycle(range(L)), itertools.cycle(range(L))
+            g_ms = device_ms(lambda: call(next(cyc)))
+            lib = device_ms(lambda: lib_call(next(cyc_lib)))
+        else:
+            g_ms, lib = g_warm, lib_warm
         g_plain = device_ms(lambda: mm8_cuda.gemm_reference(x8, st, q_layer, mx, rx,
                                                             relu2=relu2,
                                                             out_dtype=out_dtype), iters=3)
-        # the int8 GEMM alone, as cuBLASLt computes it (column-major B); for the
-        # merged R/K/V, one (B, K) x (K, n*C) product: the same operations
-        q_cm = q_layer.t().contiguous().t()
-        lib = device_ms(lambda: torch._int_mm(x8[0], q_cm))
         g_b, g_by = bound_ms(nbytes(x8, st, q_layer, mx, rx, y), 2 * B * K * M, "int8")
         # the bare int8 core (mm8_core_a8: the same kernel, int32 out, one
         # variant), stacked or not as the site is; int32 sums are exact
         core = mm8_cuda.mm8_core_a8(x8[0], q, layer=layer)
         core_equal = torch.equal(core, mm8_cuda.gemm_acc_reference(x8[0], q_layer))
-        require(core_equal, f"mm8_core_a8 {site}: int32 output differs from the plain version")
+        require(core_equal, f"mm8_core_a8 {site} B{B}: int32 output differs from the plain "
+                            f"version")
         c_ms = device_ms(lambda: mm8_cuda.mm8_core_a8(x8[0], q, layer=layer))
         c_plain = device_ms(lambda: mm8_cuda.gemm_acc_reference(x8[0], q_layer), iters=3)
         c_b, c_by = bound_ms(nbytes(x8[0], q_layer, core), 2 * B * K * M, "int8")
-        gemm_rows.append(dict(site=site, err=y_err, ms=g_ms, plain_ms=g_plain, bound_ms=g_b,
-                              bound_by=g_by, library_ms=lib,
+        gemm_rows.append(dict(site=site, rows=B, err=y_err, acc_exact=acc_equal, ms=g_ms,
+                              plain_ms=g_plain, bound_ms=g_b, bound_by=g_by, library_ms=lib,
+                              warm_ms=g_warm, library_warm_ms=lib_warm,
+                              cold=bool(stacked and B <= 64) or K * M >= 160 << 20,
+                              plan=dict(bm=plan.bm, bn=plan.bn, stages=plan.stages,
+                                        split=plan.split, grid=list(plan.grid)),
                               shape=f"({B}, {K}) x ({K}, {M}) int8 -> bf16"
                                     + (" relu2" if relu2 else ""),
                               core_a8=dict(stacked=stacked, exact=core_equal, ms=c_ms,
                                            plain_ms=c_plain, bound_ms=c_b, bound_by=c_by)))
-        log(f"mm8_a8_gemm {site} B{B} K{K} M{M}{' relu2' if relu2 else ''}: acc exact "
-            f"{acc_equal}, y err {y_err:.3e} (tol {y_tol:.3e}); {g_ms:.4f} ms, plain "
-            f"{g_plain:.4f} ms, torch._int_mm {lib:.4f} ms, bound {g_b:.4f} ms ({g_by}); "
-            f"mm8_core_a8 ({'stacked' if stacked else 'unstacked'}) int32 exact {core_equal}, "
+        temp = "cold" if gemm_rows[-1]["cold"] else "warm"
+        log(f"mm8_a8_gemm {site} B{B} K{K} M{M}{' relu2' if relu2 else ''} (tile {plan.bm}x"
+            f"{plan.bn}, {plan.stages} stages, split {plan.split}, grid {plan.grid}): acc exact "
+            f"{acc_equal}, y max diff {y_err:.3e} (tol {y_tol:.3e}); {temp} {g_ms:.4f} ms, "
+            f"torch._int_mm {lib:.4f} ms ({g_ms / lib:.2f}x), bound {g_b:.4f} ms ({g_by}, "
+            f"{100 * g_b / g_ms:.1f}% of it); warm {g_warm:.4f} ms, torch._int_mm warm "
+            f"{lib_warm:.4f} ms; plain {g_plain:.4f} ms; mm8_core_a8 "
+            f"({'stacked' if stacked else 'unstacked'}) int32 exact {core_equal}, "
             f"{c_ms:.4f} ms, plain {c_plain:.4f} ms, bound {c_b:.4f} ms ({c_by})")
-        del q, q_layer, q_cm, acc, acc_ref, core
+        del q, q_layer, acc, acc_ref, core, xa
+        torch.cuda.empty_cache()
     qr = quant_rows_out[0]    # the merged R/K/V quantization
     gr = gemm_rows[-1]        # the last site: the head on the decode path
     return [
@@ -390,6 +440,52 @@ def check_mm8(dev, gen, B=64, shapes=MM8_SHAPES):
              shape=gr["shape"] + " (head)", tolerance="int32 acc exact; y one bf16 step",
              sites=gemm_rows),
     ]
+
+
+def sass_report(lib_path, ptxas_proc):
+    """What the w8a8 GEMM compiled to: ptxas's registers and spills for each
+    kernel of csrc/mm8_a8.cu (from a -cubin build with
+    -Xptxas -v started beside the main build), and, where the toolkit has
+    cuobjdump, the count of IGMMA (wgmma) and UTMALDG (TMA load)
+    instructions in each GEMM kernel of the built library. Fails if a GEMM
+    kernel has no IGMMA."""
+    import re
+    import shutil
+
+    out = {}
+    log_text, _ = ptxas_proc.communicate()
+    for fn, body in re.findall(r"Compiling entry function '([^']+)'.*?\n(.*?)"
+                               r"(?=Compiling entry function|\Z)", log_text, re.S):
+        used = re.search(r"Used (\d+) registers", body)
+        spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", body)
+        tile = re.search(r"TileILi(\d+)ELi(\d+)ELi(\d+)ELi(\d+)", fn)
+        name = ("gemm %sx%s, %s stages, %s CTA/SM" % tile.groups() if tile
+                else "quant_rows " + ("bf16" if "bfloat16" in fn else "fp32"))
+        out[name] = dict(registers=int(used.group(1)) if used else None,
+                         spill_bytes=[int(spill.group(1)), int(spill.group(2))] if spill
+                         else None)
+    log("ptxas -v, csrc/mm8_a8.cu: " + "; ".join(
+        f"{k}: {v['registers']} registers, spill stores/loads {v['spill_bytes']} bytes"
+        for k, v in out.items()))
+    tool = shutil.which("cuobjdump") or os.path.join(
+        os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "cuobjdump")
+    if not os.path.exists(tool):
+        log("cuobjdump not found: SASS instruction counts not taken")
+        return out
+    sass = subprocess.run([tool, "-sass", str(lib_path)], capture_output=True, text=True,
+                          check=True).stdout
+    counts = {}
+    for fn, body in re.findall(r"Function : (\S+)\n(.*?)(?=Function : |\Z)", sass, re.S):
+        tile = re.search(r"TileILi(\d+)ELi(\d+)ELi(\d+)ELi(\d+)", fn)
+        if tile:
+            counts["gemm %sx%s" % tile.groups()[:2]] = dict(
+                IGMMA=len(re.findall(r"\bIGMMA", body)),
+                UTMALDG=len(re.findall(r"\bUTMALDG", body)))
+    log(f"SASS of {os.path.basename(str(lib_path))}, per GEMM kernel: {counts}")
+    require(counts and all(c["IGMMA"] > 0 for c in counts.values()),
+            f"the w8a8 GEMM compiled without IGMMA (wgmma): {counts}")
+    out["sass"] = counts
+    return out
 
 
 W16_SITES = [  # (site, K, M, stacked): the seven int8 products of a w8a16 decode step
@@ -839,6 +935,24 @@ def expected_launches(L, core, kind):
     return out
 
 
+def code_bytes(params):
+    """(bytes of every int8 code tensor of params, bytes of the storages
+    under them): equal when no code tensor keeps a second copy alive."""
+    from chirrup_tpu_torch.ops import mm8
+
+    qs = []
+
+    def walk(t):
+        if isinstance(t, dict):
+            for v in t.values():
+                walk(v)
+        elif isinstance(t, (mm8.Mm8Weight, mm8.Mm8MultiWeight)):
+            qs.append(t.q)
+
+    walk(params)
+    return sum(q.numel() for q in qs), sum(q.untyped_storage().nbytes() for q in qs)
+
+
 def write_vocab(path: str, size: int = 65536) -> None:
     """A byte-complete vocab of `size` ids: id 0 is implicit, ids 1..256 the
     single bytes, the rest distinct multi-byte ASCII strings."""
@@ -887,6 +1001,11 @@ def run_engine(dev, profile: bool, B=64, L=32, C=4096, V=65536, n_tok=32, blocks
             f"{worker.decode_block_size}, prefill variants {worker.model.prefill_variants}, "
             f"at most {worker.max_prefill_count} prompts prefilling")
         model = worker.model
+        numel, stored = code_bytes(model.params)
+        log(f"engine: int8 codes {numel / 2 ** 30:.3f} GiB in storages of "
+            f"{stored / 2 ** 30:.3f} GiB; device memory allocated "
+            f"{torch.cuda.memory_allocated(dev) / 2 ** 30:.2f} GiB after loading")
+        require(numel == stored, "a code tensor holds a second copy of its codes")
         compact_calls = []
         compact = model.prefill_step_compact
 
@@ -1291,12 +1410,25 @@ def main(argv=None) -> int:
     log(f"torch {torch.__version__}, CUDA {torch.version.cuda}, {torch.cuda.get_device_name(0)}")
 
     t0 = time.perf_counter()
+    ptxas_dir = tempfile.TemporaryDirectory()
+    ptxas = subprocess.Popen(  # beside the main build: registers and spills of the GEMM
+        [_kernels._nvcc(), *(f for f in _kernels.NVCC_FLAGS
+                             if f not in ("-shared", "-Xcompiler", "-fPIC")),
+         "-cubin", "-Xptxas", "-v", "-o", os.path.join(ptxas_dir.name, "mm8_a8.cubin"),
+         str(_kernels.CSRC / "mm8_a8.cu")], stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+        text=True)
     libs = _kernels.build()
     log(f"built {', '.join(p.name for p in libs.values())} in {time.perf_counter() - t0:.1f} s")
+    sass = sass_report(libs["mm8_a8"], ptxas)
+    ptxas_dir.cleanup()
 
     gen = torch.Generator(device=dev).manual_seed(0)
     kernels = [check_wkv(dev, gen), check_chunk(dev, gen), check_wkv_batch(dev, gen),
                *check_mm8(dev, gen), check_w16(dev, gen), check_penalty_tail(dev, gen)]
+    torch.cuda.empty_cache()
+    # the w8a8 kernels at the other decode row counts: one row, and a count
+    # that is not a multiple of 8
+    mm8_decode = {rows: check_mm8(dev, gen, B=rows) for rows in (1, 37)}
     torch.cuda.empty_cache()
     # the mm8 kernels at prefill row counts: 8 x 64 and 8 x 256 or 32 x 64
     # rows, and a count that is not a multiple of the GEMM's 64-row tile
@@ -1335,6 +1467,9 @@ def main(argv=None) -> int:
     path["prefill"] = prefill
     path["mm8_prefill_rows"] = {rows: {k["name"]: k["sites"] for k in ks}
                                 for rows, ks in mm8_prefill.items()}
+    path["mm8_decode_rows"] = {rows: {k["name"]: k["sites"] for k in ks}
+                               for rows, ks in mm8_decode.items()}
+    path["mm8_a8_build"] = sass
     path["w16"] = path_a
     path["unfused"] = path_b
 

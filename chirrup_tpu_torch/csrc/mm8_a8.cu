@@ -21,29 +21,50 @@
 // flops per element. Each element is recomputed for the second pass instead
 // of being kept, so a row of any width needs no shared memory.
 //
-// mm8_a8_gemm, one block per (32-column tile, 64-row tile):
+// mm8_a8_gemm, one CTA (or one cluster of CTAs) per (BM-row, BN-column) tile:
 //   acc[b, n] = sum_k x8[var(n), b, k] * q[layer, k, n]       (exact int32)
 //   y = rx/16 * (s * acc + 128.5 * sum xs) + sum x*my + mx * sum x
+// The codes are stored K-major (q[layer] has strides (1, K)): wgmma reads
+// 8-bit operands from shared memory K-major only.
 // Bound: at decode row counts (B <= 64) device memory, the K*M weight bytes
-// read once (16 MiB for Wo at 7.2B); the tensor-core work, 2*B*K*M int8 ops,
-// is ~5x below that line. The design streams each weight byte exactly once
-// per 64-row tile: 4 warps each own 16 rows x 32 columns of WMMA s8
-// m16n16k16 fragments; the block stages 256-deep K slices of the codes (8
-// KiB) and of the activations in shared memory, prefetching the next slice
-// into registers while the tensor cores work on the current one. The layer of
-// the stacked codes is a pointer offset, never a copy. Accumulation is exact,
-// so acc equals any correct int8 GEMM bit for bit; the epilogue uses
-// round-to-nearest intrinsics in the order above so that it also matches the
-// plain PyTorch version's separately rounded operations.
+// read once (16 MiB for Wo at 7.2B, 5 us at 3.35 TB/s); at prefill row counts
+// (512-2,048) the int8 tensor cores, 2*B*K*M operations (2,048 rows of R/K/V:
+// 0.21 TOP, 104 us at 1,979 TOP/s).
+// Design: warp-specialised. One producer thread keeps a ring of STAGES
+// shared-memory stages full with TMA (cp.async.bulk.tensor) loads of a
+// (BM, 128) activation tile and a (BN, 128) code tile, 128-byte swizzled, each
+// stage guarded by a full and an empty mbarrier; one or two consumer
+// warpgroups run wgmma m64nBNk32 s8.s8 -> s32 (four per stage) with the
+// accumulators in registers and release a stage as soon as the wgmma reading
+// it retires. The activations come through a 3-D map (n, B, K), so a row tile
+// past B reads zeros and never a neighbouring R/K/V variant's rows; the codes
+// through a 3-D map (L, M, K) whose layer is a coordinate, encoded once per
+// weight tensor by the wrapper. Two tile configurations:
+// - prefill (B > 64): 128 x 256 tiles, or 128 x 128 where those fill the
+//   card's waves better (the wrapper's plan), two consumer warpgroups, 4 (6)
+//   stages of 48 (32) KiB, setmaxnreg giving the consumers 232 registers;
+//   each code byte is read once per 128 rows;
+// - decode (B <= 64): 64 x 128 tiles, one consumer warpgroup, 4 stages of 24
+//   KiB, two CTAs per SM (128 KiB of codes in flight per SM). Where the column
+//   tiles number fewer than 128 (R/K/V, Wo, FFN Wv at 7.2B), K is split across
+//   the 2 or 4 CTAs of a thread-block cluster: each sums its K slice, then
+//   owns 1/split of the tile's columns, adds the others' int32 partials of
+//   those columns through distributed shared memory and runs their epilogue.
+//   Integer sums are exact in any order, so this changes no bit and needs no
+//   workspace.
+// The epilogue runs from registers: each thread reads the stats of its two
+// rows and rx, mx of its column pairs once, applies the round-to-nearest
+// intrinsics in the order above (the plain PyTorch version's separately
+// rounded operations, so y matches it bit for bit), and stores column pairs
+// (4 or 8 bytes). Rows >= B are not stored. A tile never straddles an R/K/V
+// variant: each variant's width is a multiple of BN.
 
+#include <cuda.h>  // CUtensorMap and its enums; the encoder comes through the runtime
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
-#include <mma.h>
 #include <stdint.h>
 
 namespace {
-
-using namespace nvcuda;
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
@@ -117,106 +138,396 @@ __global__ void __launch_bounds__(QT) quant_rows_kernel(
 
 // ---------------------------------------------------------------------- GEMM
 
-constexpr int BM = 64, BN = 32, BK = 256;
-constexpr int GT = 128;                 // 4 warps
-constexpr int XS = BK + 32;             // shared row strides (bytes), 32-byte multiples
-constexpr int WS = BN + 32;
-constexpr int X_LOADS = BM * BK / 16 / GT;  // 16-byte loads per thread per slice: 8
-constexpr int W_LOADS = BK * BN / 16 / GT;  // 4
+constexpr int BK = 128;  // K bytes per stage: one 128-byte swizzle row
 
-__global__ void __launch_bounds__(GT) gemm_kernel(
-    const int8_t* __restrict__ x8, const float* __restrict__ stats,
-    const int8_t* __restrict__ q, const float* __restrict__ mx, const float* __restrict__ rx,
-    void* __restrict__ out, int B, int K, int M, int n_var, int out_mode, int relu2) {
-  __shared__ __align__(128) int8_t smem[BM * XS + BK * WS];
-  int8_t* xs_t = smem;            // (BM, BK) activation slice
-  int8_t* ws_t = smem + BM * XS;  // (BK, BN) weight slice
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
 
-  const int n0 = blockIdx.x * BN, m0 = blockIdx.y * BM;
-  const int var = n0 / (M / n_var);
-  const int8_t* xv = x8 + (size_t)var * B * K;
-  const float* sv = stats + (size_t)var * B * 4;
-  const int t = threadIdx.x, warp = t >> 5;
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
+}
 
-  uint4 xr[X_LOADS], wr[W_LOADS];
-  auto fetch = [&](int k0) {
+// Waits for the phase of `parity` to complete. A pipeline fault that would
+// leave it waiting for good traps after ~2^34 cycles (seconds) instead, so
+// the launch fails rather than hanging the card.
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done = 0;
+  const long long start = clock64();
+  while (true) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done) : "r"(bar), "r"(parity) : "memory");
+    if (done) return;
+    if (clock64() - start > (1ll << 34)) __trap();
+  }
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
+               ::"r"(bar), "r"(bytes) : "memory");
+}
+
+__device__ __forceinline__ void tma_load_3d(uint32_t dst, const CUtensorMap* map, uint32_t bar,
+                                            int c0, int c1, int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%3, %4, %5}], [%2];\n"
+      ::"r"(dst), "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1), "r"(c2)
+      : "memory");
+}
+
+// wgmma shared-memory descriptor of a K-major tile of 128-byte rows with
+// 128-byte swizzle: 8-row groups 1024 bytes apart (SBO), layout type B128.
+__device__ __forceinline__ uint64_t smem_desc(uint32_t addr) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)1 << 16) |
+         ((uint64_t)(1024 >> 4) << 32) | ((uint64_t)1 << 62);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+// keeps the compiler from moving accumulator reads or writes across the
+// asynchronous wgmma issue and wait
+template <int R>
+__device__ __forceinline__ void fence_acc(int32_t (&d)[R]) {
 #pragma unroll
-    for (int i = 0; i < X_LOADS; ++i) {
-      const int idx = t + i * GT, rrow = idx / (BK / 16), c16 = (idx % (BK / 16)) * 16;
-      xr[i] = (m0 + rrow < B)
-                  ? *reinterpret_cast<const uint4*>(xv + (size_t)(m0 + rrow) * K + k0 + c16)
-                  : make_uint4(0, 0, 0, 0);
+  for (int i = 0; i < R; ++i) asm volatile("" : "+r"(d[i])::"memory");
+}
+
+__device__ __forceinline__ void wgmma_n128(int32_t (&d)[64], uint64_t da, uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k32.s32.s8.s8 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
+      "}, %64, %65, p;\n}\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]), "+r"(d[6]), "+r"(d[7]),
+        "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]), "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15]),
+        "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]), "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]),
+        "+r"(d[24]), "+r"(d[25]), "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]), "+r"(d[30]), "+r"(d[31]),
+        "+r"(d[32]), "+r"(d[33]), "+r"(d[34]), "+r"(d[35]), "+r"(d[36]), "+r"(d[37]), "+r"(d[38]), "+r"(d[39]),
+        "+r"(d[40]), "+r"(d[41]), "+r"(d[42]), "+r"(d[43]), "+r"(d[44]), "+r"(d[45]), "+r"(d[46]), "+r"(d[47]),
+        "+r"(d[48]), "+r"(d[49]), "+r"(d[50]), "+r"(d[51]), "+r"(d[52]), "+r"(d[53]), "+r"(d[54]), "+r"(d[55]),
+        "+r"(d[56]), "+r"(d[57]), "+r"(d[58]), "+r"(d[59]), "+r"(d[60]), "+r"(d[61]), "+r"(d[62]), "+r"(d[63])
+      : "l"(da), "l"(db), "r"(1));
+}
+
+__device__ __forceinline__ void wgmma_n256(int32_t (&d)[128], uint64_t da, uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %130, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k32.s32.s8.s8 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, "
+      "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, "
+      "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, "
+      "%96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111, "
+      "%112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, %127"
+      "}, %128, %129, p;\n}\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]), "+r"(d[6]), "+r"(d[7]),
+        "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]), "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15]),
+        "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]), "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]),
+        "+r"(d[24]), "+r"(d[25]), "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]), "+r"(d[30]), "+r"(d[31]),
+        "+r"(d[32]), "+r"(d[33]), "+r"(d[34]), "+r"(d[35]), "+r"(d[36]), "+r"(d[37]), "+r"(d[38]), "+r"(d[39]),
+        "+r"(d[40]), "+r"(d[41]), "+r"(d[42]), "+r"(d[43]), "+r"(d[44]), "+r"(d[45]), "+r"(d[46]), "+r"(d[47]),
+        "+r"(d[48]), "+r"(d[49]), "+r"(d[50]), "+r"(d[51]), "+r"(d[52]), "+r"(d[53]), "+r"(d[54]), "+r"(d[55]),
+        "+r"(d[56]), "+r"(d[57]), "+r"(d[58]), "+r"(d[59]), "+r"(d[60]), "+r"(d[61]), "+r"(d[62]), "+r"(d[63]),
+        "+r"(d[64]), "+r"(d[65]), "+r"(d[66]), "+r"(d[67]), "+r"(d[68]), "+r"(d[69]), "+r"(d[70]), "+r"(d[71]),
+        "+r"(d[72]), "+r"(d[73]), "+r"(d[74]), "+r"(d[75]), "+r"(d[76]), "+r"(d[77]), "+r"(d[78]), "+r"(d[79]),
+        "+r"(d[80]), "+r"(d[81]), "+r"(d[82]), "+r"(d[83]), "+r"(d[84]), "+r"(d[85]), "+r"(d[86]), "+r"(d[87]),
+        "+r"(d[88]), "+r"(d[89]), "+r"(d[90]), "+r"(d[91]), "+r"(d[92]), "+r"(d[93]), "+r"(d[94]), "+r"(d[95]),
+        "+r"(d[96]), "+r"(d[97]), "+r"(d[98]), "+r"(d[99]), "+r"(d[100]), "+r"(d[101]), "+r"(d[102]), "+r"(d[103]),
+        "+r"(d[104]), "+r"(d[105]), "+r"(d[106]), "+r"(d[107]), "+r"(d[108]), "+r"(d[109]), "+r"(d[110]), "+r"(d[111]),
+        "+r"(d[112]), "+r"(d[113]), "+r"(d[114]), "+r"(d[115]), "+r"(d[116]), "+r"(d[117]), "+r"(d[118]), "+r"(d[119]),
+        "+r"(d[120]), "+r"(d[121]), "+r"(d[122]), "+r"(d[123]), "+r"(d[124]), "+r"(d[125]), "+r"(d[126]), "+r"(d[127])
+      : "l"(da), "l"(db), "r"(1));
+}
+
+__device__ __forceinline__ uint32_t cluster_rank() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
+  return r;
+}
+
+// every thread of every CTA of the cluster; release then acquire
+__device__ __forceinline__ void cluster_sync() {
+  asm volatile("barrier.cluster.arrive.release;\nbarrier.cluster.wait.acquire;\n" ::: "memory");
+}
+
+// Tile configuration: BM rows (64 per consumer warpgroup) x BN columns, a
+// ring of STAGES stages, and MIN_CTAS CTAs per SM for the register budget.
+template <int BM_, int BN_, int STAGES_, int MIN_CTAS_>
+struct Tile {
+  static constexpr int BM = BM_, BN = BN_, STAGES = STAGES_, MIN_CTAS = MIN_CTAS_;
+  static constexpr int NC = BM / 64;  // consumer warpgroups
+  static constexpr int THREADS = (NC + 1) * 128;
+  static constexpr int A_BYTES = BM * BK, B_BYTES = BN * BK;
+  static constexpr int STAGE_BYTES = A_BYTES + B_BYTES;
+  // stages, full and empty barriers, and slack to align the base to 1024
+  static constexpr int SMEM = STAGES * STAGE_BYTES + 2 * STAGES * 8 + 1024;
+  static_assert(NC * 128 * (BN / 2) * 4 <= STAGES * STAGE_BYTES, "split-K partials fit the ring");
+};
+
+using PrefillWide = Tile<128, 256, 4, 1>;
+using PrefillNarrow = Tile<128, 128, 6, 1>;
+using Decode = Tile<64, 128, 4, 2>;
+
+template <class T>
+__global__ void __launch_bounds__(T::THREADS, T::MIN_CTAS) gemm_kernel(
+    const __grid_constant__ CUtensorMap xmap, const __grid_constant__ CUtensorMap qmap,
+    const float* __restrict__ stats, const float* __restrict__ mx,
+    const float* __restrict__ rx, void* __restrict__ out, int B, int K, int M, int width,
+    int layer, int split, int out_mode, int relu2) {
+  constexpr int BM = T::BM, BN = T::BN, STAGES = T::STAGES, NC = T::NC, R = BN / 2;
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;
+  const uint32_t bars = base + STAGES * T::STAGE_BYTES;
+  auto full = [&](int s) { return bars + 8u * s; };
+  auto empty = [&](int s) { return bars + 8u * (STAGES + s); };
+  auto tile_a = [&](int s) { return base + (uint32_t)(s * T::STAGE_BYTES); };
+  auto tile_b = [&](int s) { return tile_a(s) + T::A_BYTES; };
+
+  const int rank = split > 1 ? (int)cluster_rank() : 0;
+  const int m0 = (blockIdx.x / split) * BM, n0 = blockIdx.y * BN;
+  const int var = n0 / width;
+  const int kb_n = K / BK / split, kb0 = rank * kb_n;
+  const int wg = threadIdx.x / 128;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(full(s), 1);
+      mbar_init(empty(s), NC * 4);  // one arrival per consumer warp
     }
-#pragma unroll
-    for (int i = 0; i < W_LOADS; ++i) {
-      const int idx = t + i * GT, rrow = idx / (BN / 16), c16 = (idx % (BN / 16)) * 16;
-      wr[i] = *reinterpret_cast<const uint4*>(q + (size_t)(k0 + rrow) * M + n0 + c16);
-    }
-  };
-  auto stash = [&]() {
-#pragma unroll
-    for (int i = 0; i < X_LOADS; ++i) {
-      const int idx = t + i * GT, rrow = idx / (BK / 16), c16 = (idx % (BK / 16)) * 16;
-      *reinterpret_cast<uint4*>(xs_t + rrow * XS + c16) = xr[i];
-    }
-#pragma unroll
-    for (int i = 0; i < W_LOADS; ++i) {
-      const int idx = t + i * GT, rrow = idx / (BN / 16), c16 = (idx % (BN / 16)) * 16;
-      *reinterpret_cast<uint4*>(ws_t + rrow * WS + c16) = wr[i];
-    }
-  };
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    asm volatile("prefetch.tensormap [%0];\n" ::"l"(reinterpret_cast<uint64_t>(&xmap)) : "memory");
+    asm volatile("prefetch.tensormap [%0];\n" ::"l"(reinterpret_cast<uint64_t>(&qmap)) : "memory");
+  }
+  __syncthreads();
 
-  wmma::fragment<wmma::accumulator, 16, 16, 16, int> acc[BN / 16];
-#pragma unroll
-  for (int j = 0; j < BN / 16; ++j) wmma::fill_fragment(acc[j], 0);
-  wmma::fragment<wmma::matrix_a, 16, 16, 16, signed char, wmma::row_major> fa;
-  wmma::fragment<wmma::matrix_b, 16, 16, 16, signed char, wmma::row_major> fb;
-
-  fetch(0);
-  for (int k0 = 0; k0 < K; k0 += BK) {
-    stash();
-    __syncthreads();
-    if (k0 + BK < K) fetch(k0 + BK);  // next slice in flight during the MMAs
-#pragma unroll
-    for (int kk = 0; kk < BK; kk += 16) {
-      wmma::load_matrix_sync(fa, (const signed char*)(xs_t + warp * 16 * XS + kk), XS);
-#pragma unroll
-      for (int j = 0; j < BN / 16; ++j) {
-        wmma::load_matrix_sync(fb, (const signed char*)(ws_t + kk * WS + j * 16), WS);
-        wmma::mma_sync(acc[j], fa, fb, acc[j]);
+  if (wg == NC) {
+    // ---------------------------------------------------------- producer
+    if constexpr (NC == 2) asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n");
+    if (threadIdx.x == NC * 128) {
+      int s = 0;
+      uint32_t phase = 0;
+      for (int kb = 0; kb < kb_n; ++kb) {
+        mbar_wait(empty(s), phase ^ 1);
+        mbar_expect_tx(full(s), T::STAGE_BYTES);
+        const int k0 = (kb0 + kb) * BK;
+        tma_load_3d(tile_a(s), &xmap, full(s), k0, m0, var);
+        tma_load_3d(tile_b(s), &qmap, full(s), k0, n0, layer);
+        if (++s == STAGES) { s = 0; phase ^= 1; }
       }
     }
-    __syncthreads();
-  }
-
-  // epilogue: accumulators through shared memory, then one element per thread step
-  int* cs = reinterpret_cast<int*>(smem);  // (BM, BN) int32, aliases the slices
+    __syncwarp();
+    if (split > 1) {  // the consumers' two cluster barriers
+      cluster_sync();
+      cluster_sync();
+    }
+  } else {
+    // ---------------------------------------------------------- consumers
+    if constexpr (NC == 2) asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n");
+    const int t = threadIdx.x % 128, warp = t / 32, lane = t % 32;
+    int32_t acc[R];
 #pragma unroll
-  for (int j = 0; j < BN / 16; ++j)
-    wmma::store_matrix_sync(cs + warp * 16 * BN + j * 16, acc[j], BN, wmma::mem_row_major);
-  __syncthreads();
-  for (int e = t; e < BM * BN; e += GT) {
-    const int rrow = e / BN, col = e % BN, b = m0 + rrow, n = n0 + col;
-    if (b >= B) continue;
-    const int a = cs[e];
-    const size_t o = (size_t)b * M + n;
-    if (out_mode == 2) {
-      reinterpret_cast<int*>(out)[o] = a;
-      continue;
+    for (int i = 0; i < R; ++i) acc[i] = 0;
+    int s = 0, prev = 0;
+    uint32_t phase = 0;
+    for (int kb = 0; kb < kb_n; ++kb) {
+      mbar_wait(full(s), phase);
+      const uint64_t da = smem_desc(tile_a(s) + wg * 64 * BK), db = smem_desc(tile_b(s));
+      fence_acc(acc);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < BK / 32; ++kk) {  // 32 bytes of K per wgmma: +2 in 16-byte units
+        if constexpr (BN == 256) wgmma_n256(acc, da + 2 * kk, db + 2 * kk);
+        else wgmma_n128(acc, da + 2 * kk, db + 2 * kk);
+      }
+      wgmma_commit();
+      fence_acc(acc);
+      if (kb > 0) {  // the previous stage's wgmmas have retired: release it
+        wgmma_wait<1>();
+        fence_acc(acc);
+        if (lane == 0) mbar_arrive(empty(prev));
+      }
+      prev = s;
+      if (++s == STAGES) { s = 0; phase ^= 1; }
     }
-    const float* st = sv + (size_t)b * 4;
-    float y = __fmul_rn(__fmul_rn(rx[n], 0.0625f),
-                        __fadd_rn(__fmul_rn((float)a, st[0]), __fmul_rn(128.5f, st[1])));
-    y = __fadd_rn(__fadd_rn(y, st[3]), __fmul_rn(mx[n], st[2]));
-    if (relu2) {
-      y = fmaxf(y, 0.0f);
-      y = __fmul_rn(y, y);
+    wgmma_wait<0>();
+    fence_acc(acc);
+
+    // split-K: each CTA of the cluster owns 1/split of the tile's 8-column
+    // groups (accumulator quads): it adds the others' partials of those
+    // groups, read through distributed shared memory, and stores them. The
+    // ring is free here: every load into it has landed and been read.
+    const int groups = BN / 8 / split;
+    if (split > 1) {
+      const uint32_t part = base + (uint32_t)(wg * 128 * R * 4);
+#pragma unroll
+      for (int j = 0; j < BN / 8; ++j)
+        if (j / groups != rank)
+          asm volatile("st.shared.v4.s32 [%0], {%1, %2, %3, %4};\n"
+                       ::"r"(part + (uint32_t)((j * 128 + t) * 16)), "r"(acc[4 * j]),
+                       "r"(acc[4 * j + 1]), "r"(acc[4 * j + 2]), "r"(acc[4 * j + 3])
+                       : "memory");
+      cluster_sync();
+      for (int r = 1; r < split; ++r) {
+        uint32_t remote;
+        asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n"
+                     : "=r"(remote) : "r"(part), "r"((rank + r) % split));
+#pragma unroll
+        for (int j = 0; j < BN / 8; ++j) {
+          if (j / groups != rank) continue;
+          int32_t v0, v1, v2, v3;
+          asm volatile("ld.shared::cluster.v4.s32 {%0, %1, %2, %3}, [%4];\n"
+                       : "=r"(v0), "=r"(v1), "=r"(v2), "=r"(v3)
+                       : "r"(remote + (uint32_t)((j * 128 + t) * 16)) : "memory");
+          acc[4 * j] += v0; acc[4 * j + 1] += v1; acc[4 * j + 2] += v2; acc[4 * j + 3] += v3;
+        }
+      }
+      cluster_sync();  // the partials stay readable until every CTA has its sums
     }
-    if (out_mode == 1)
-      reinterpret_cast<__nv_bfloat16*>(out)[o] = __float2bfloat16_rn(y);
-    else
-      reinterpret_cast<float*>(out)[o] = y;
+
+    // ---------------------------------------------------------- epilogue
+    // wgmma's accumulator layout: acc[4j + 2h + e] is row 16*warp + lane/4
+    // + 8h, column 8j + 2*(lane%4) + e of this warpgroup's 64 x BN tile
+    const int row0 = m0 + wg * 64 + warp * 16 + lane / 4;
+    const float* sv = stats + (size_t)var * B * 4;
+    float4 st[2];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int row = row0 + 8 * h;
+      st[h] = row < B ? *reinterpret_cast<const float4*>(sv + (size_t)row * 4)
+                      : make_float4(0.f, 0.f, 0.f, 0.f);
+    }
+#pragma unroll
+    for (int j = 0; j < BN / 8; ++j) {
+      if (j / groups != rank) continue;
+      const int n = n0 + 8 * j + 2 * (lane % 4);
+      const float2 rx2 = *reinterpret_cast<const float2*>(rx + n);
+      const float2 mx2 = *reinterpret_cast<const float2*>(mx + n);
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int row = row0 + 8 * h;
+        if (row >= B) continue;
+        const int a0 = acc[4 * j + 2 * h], a1 = acc[4 * j + 2 * h + 1];
+        const size_t o = (size_t)row * M + n;
+        if (out_mode == 2) {
+          *reinterpret_cast<int2*>(reinterpret_cast<int32_t*>(out) + o) = make_int2(a0, a1);
+          continue;
+        }
+        const float4 sr = st[h];
+        const float sxs = __fmul_rn(128.5f, sr.y);
+        float y0 = __fmul_rn(__fmul_rn(rx2.x, 0.0625f),
+                             __fadd_rn(__fmul_rn(__int2float_rn(a0), sr.x), sxs));
+        float y1 = __fmul_rn(__fmul_rn(rx2.y, 0.0625f),
+                             __fadd_rn(__fmul_rn(__int2float_rn(a1), sr.x), sxs));
+        y0 = __fadd_rn(__fadd_rn(y0, sr.w), __fmul_rn(mx2.x, sr.z));
+        y1 = __fadd_rn(__fadd_rn(y1, sr.w), __fmul_rn(mx2.y, sr.z));
+        if (relu2) {
+          y0 = fmaxf(y0, 0.0f);
+          y1 = fmaxf(y1, 0.0f);
+          y0 = __fmul_rn(y0, y0);
+          y1 = __fmul_rn(y1, y1);
+        }
+        if (out_mode == 1)
+          *reinterpret_cast<__nv_bfloat162*>(reinterpret_cast<__nv_bfloat16*>(out) + o) =
+              __floats2bfloat162_rn(y0, y1);
+        else
+          *reinterpret_cast<float2*>(reinterpret_cast<float*>(out) + o) = make_float2(y0, y1);
+      }
+    }
   }
+}
+
+// ------------------------------------------------------------- host side
+
+// cuTensorMapEncodeTiled through the runtime's driver entry point, so the
+// library need not link libcuda
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+EncodeTiled encoder() {
+  static EncodeTiled fn = nullptr;
+  if (!fn) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault,
+                                     &found);
+#else
+    cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    if (found == cudaDriverEntryPointSuccess) fn = reinterpret_cast<EncodeTiled>(p);
+  }
+  return fn;
+}
+
+// errors of this library beyond the runtime's codes
+constexpr int ERR_NO_ENCODER = 10001, ERR_ENCODE = 10002, ERR_TILE = 10003;
+
+// A 3-D int8 tensor (d2, d1, d0) with d0 contiguous, read in (1, box1, 128)
+// boxes with 128-byte swizzle; out-of-range rows read as zeros.
+int encode_3d(CUtensorMap* map, const void* ptr, uint64_t d0, uint64_t d1, uint64_t d2,
+              uint32_t box1) {
+  EncodeTiled fn = encoder();
+  if (!fn) return ERR_NO_ENCODER;
+  const cuuint64_t dims[3] = {d0, d1, d2};
+  const cuuint64_t strides[2] = {d0, d0 * d1};  // bytes, dims 1 and 2
+  const cuuint32_t box[3] = {(cuuint32_t)BK, box1, 1};
+  const cuuint32_t elem[3] = {1, 1, 1};
+  const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_UINT8, 3, const_cast<void*>(ptr), dims,
+                        strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                        CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                        CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : ERR_ENCODE;
+}
+
+template <class T>
+int launch(const CUtensorMap& xmap, const CUtensorMap& qmap, const float* stats,
+           const float* mx, const float* rx, void* out, int B, int K, int M, int width,
+           int layer, int split, int out_mode, int relu2, cudaStream_t stream) {
+  static bool configured = false;
+  if (!configured) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        gemm_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, T::SMEM);
+    if (e != cudaSuccess) return (int)e;
+    configured = true;
+  }
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(split * ((B + T::BM - 1) / T::BM), M / T::BN, 1);
+  cfg.blockDim = dim3(T::THREADS, 1, 1);
+  cfg.dynamicSmemBytes = T::SMEM;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = split;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  const cudaError_t e = cudaLaunchKernelEx(&cfg, gemm_kernel<T>, xmap, qmap, stats, mx, rx, out,
+                                           B, K, M, width, layer, split, out_mode, relu2);
+  return e != cudaSuccess ? (int)e : (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -240,18 +551,45 @@ extern "C" int mm8_a8_quant_rows(const void* x, const void* aux, const void* mu,
   return (int)cudaGetLastError();
 }
 
-// q points at the layer's (K, M) codes. out_mode: 0 = float32 y, 1 = bfloat16 y,
-// 2 = the raw int32 accumulators (a debug entry for exactness checks).
-extern "C" int mm8_a8_gemm(const void* x8, const void* stats, const void* q, const void* mx,
-                           const void* rx, void* out, int B, int K, int M, int n_var,
-                           int out_mode, int relu2, void* stream) {
-  const dim3 grid(M / BN, (B + BM - 1) / BM);
-  gemm_kernel<<<grid, GT, 0, (cudaStream_t)stream>>>(
-      (const int8_t*)x8, (const float*)stats, (const int8_t*)q, (const float*)mx,
-      (const float*)rx, out, B, K, M, n_var, out_mode, relu2);
-  return (int)cudaGetLastError();
+// The tensor map of stacked K-major codes: q points at L layers of (M, K)
+// bytes (the logical (L, K, M) with strides (K*M, 1, K)), read in (box_n, 128)
+// tiles. map_out: 128 bytes of host memory, handed back to mm8_a8_gemm.
+extern "C" int mm8_a8_codes_map(const void* q, int L, int K, int M, int box_n, void* map_out) {
+  return encode_3d(reinterpret_cast<CUtensorMap*>(map_out), q, (uint64_t)K, (uint64_t)M,
+                   (uint64_t)L, (uint32_t)box_n);
+}
+
+// x8 (n_var, B, K) int8; qmap from mm8_a8_codes_map with box_n = bn; the tile
+// configuration (bm, bn, stages, split) from the wrapper's plan. out_mode:
+// 0 = float32 y, 1 = bfloat16 y, 2 = the raw int32 accumulators (for exactness
+// checks).
+extern "C" int mm8_a8_gemm(const void* x8, const void* stats, const void* qmap, const void* mx,
+                           const void* rx, void* out, int B, int K, int M, int n_var, int layer,
+                           int out_mode, int relu2, int bm, int bn, int stages, int split,
+                           void* stream) {
+  CUtensorMap xmap;
+  const int err = encode_3d(&xmap, x8, (uint64_t)K, (uint64_t)B, (uint64_t)n_var, (uint32_t)bm);
+  if (err) return err;
+  const CUtensorMap& q = *reinterpret_cast<const CUtensorMap*>(qmap);
+  const int width = M / n_var;
+  cudaStream_t s = (cudaStream_t)stream;
+  const float *st = (const float*)stats, *mxp = (const float*)mx, *rxp = (const float*)rx;
+#define MM8_A8_LAUNCH(T)                                                                   \
+  if (bm == T::BM && bn == T::BN && stages == T::STAGES)                                   \
+    return launch<T>(xmap, q, st, mxp, rxp, out, B, K, M, width, layer, split, out_mode, relu2, \
+                     s);
+  MM8_A8_LAUNCH(PrefillWide)
+  MM8_A8_LAUNCH(PrefillNarrow)
+  MM8_A8_LAUNCH(Decode)
+#undef MM8_A8_LAUNCH
+  return ERR_TILE;
 }
 
 extern "C" const char* mm8_a8_error_string(int code) {
-  return cudaGetErrorString((cudaError_t)code);
+  switch (code) {
+    case ERR_NO_ENCODER: return "cuTensorMapEncodeTiled not found through the runtime";
+    case ERR_ENCODE: return "cuTensorMapEncodeTiled refused the tensor map";
+    case ERR_TILE: return "no GEMM kernel for this tile configuration";
+    default: return cudaGetErrorString((cudaError_t)code);
+  }
 }

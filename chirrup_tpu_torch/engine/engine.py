@@ -71,11 +71,12 @@ def build_model_factory(model_config: ModelLoadConfig, batch_size: int, device=N
             quantization=model_config.quantization, mm8_core=model_config.mm8_core)
         cfg = RWKV7Config(**model_config.synthetic_config)
         if runtime.quantization == "int8":
-            params = loader.synthetic_params_int8(
+            make = lambda: loader.synthetic_params_int8(
                 cfg, seed=seed, dtype=runtime.activation_dtype, device=device)
         else:
-            params = loader.synthetic_params(cfg, seed=seed, device=device)
-        model = ServingModel(cfg, params, runtime, batch_size,
+            make = lambda: loader.synthetic_params(cfg, seed=seed, device=device)
+        # the model makes the tree itself and holds the only reference
+        model = ServingModel(cfg, make, runtime, batch_size,
                              prefill_chunk=model_config.prefill_chunk, device=device,
                              seed=seed)
         return model, WorldTokenizer(model_config.vocab_path)

@@ -21,7 +21,7 @@ prefill gathers its rows and writes them back).
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict, Optional
+from typing import Any, Callable, Dict, Optional, Union
 
 import numpy as np
 import torch
@@ -101,6 +101,20 @@ def _merge_att_rkv(params):
     return {**params, "blocks": {**params["blocks"], "att": att}}
 
 
+def _codes_to_k_major(params) -> None:
+    """Store the int8 codes of the w8a8 core K-major (mm8.to_k_major), as its
+    GEMM kernel reads them: Wrkv (or Wr, Wk, Wv), Wo, FFN Wk and Wv, head. In
+    place in params' dicts (ServingModel's own: cast_dense builds new ones),
+    one tensor at a time, so each old tensor is freed before the next is
+    copied when nothing else holds it."""
+    att, ffn = params["blocks"]["att"], params["blocks"]["ffn"]
+    for tree, keys in ((att, ("Wrkv", "Wr", "Wk", "Wv", "Wo")), (ffn, ("Wk", "Wv")),
+                       (params, ("head",))):
+        for k in keys:
+            if isinstance(tree.get(k), (mm8.Mm8Weight, mm8.Mm8MultiWeight)):
+                tree[k] = mm8.to_k_major(tree[k])
+
+
 def _pack_att_lora(params):
     """Pack the four TMix LoRA chains (decay w, iclr a, v-gate v, gate g) into
     (L, 4, C, D) / (L, 4, D, C) tensors plus the (L, 4, C) stack of their
@@ -124,9 +138,15 @@ def _pack_att_lora(params):
 
 
 class ServingModel:
-    """Owns prepared parameters and the step functions for one worker."""
+    """Owns prepared parameters and the step functions for one worker.
 
-    def __init__(self, config: RWKV7Config, params: Dict[str, Any],
+    `params` is the parameter tree, or a function of no arguments that makes
+    it: then the model holds the only reference to the tree while it prepares
+    it, so each code tensor it replaces (merged R/K/V, K-major codes) is freed
+    at once and loading costs at most one code tensor more than the result."""
+
+    def __init__(self, config: RWKV7Config,
+                 params: Union[Dict[str, Any], Callable[[], Dict[str, Any]]],
                  runtime: RuntimeConfig, batch_size: int, prefill_chunk: int = 64, *,
                  device=None, seed: int = 0):
         self.config = config
@@ -145,12 +165,15 @@ class ServingModel:
         self.prefill_variants = sorted({(small, prefill_chunk * (P // small)),
                                         (P, prefill_chunk)})
         self.device = resolve_device(device)
+        if callable(params):
+            params = params()
         params = model.cast_dense(params, device=self.device)
         if runtime.quantization == "int8" and not _is_quantized(params):
             params = _quantize_params(params)
         self.mm8_core = mm8.resolve_mm8_core(runtime.mm8_core)
         if self.mm8_core == "pallas_a8":
             params = _merge_att_rkv(params)
+            _codes_to_k_major(params)
         params = _pack_att_lora(params)
         self.params = model.cast_dense(params, runtime.activation_dtype)
         self._no_penalty_ids = torch.tensor(sorted(NO_PENALTY_TOKEN_IDS),

@@ -6,22 +6,27 @@ Two kernels carry every int8 matmul of the w8a8 scheme (mm8_core "pallas_a8"):
 - ``quant_rows``: per-row int8 quantization of x*ry*16 (x optionally mixed as
   x + xx*mu[m] for each of n variants, or gated as x*mul) plus the four row
   statistics [s, sum xs, sum x, sum x*my] of the decomposed dequantization;
-- ``gemm``: int8 x int8 -> int32 on the tensor cores, then
+- ``gemm``: int8 x int8 -> int32 on the tensor cores (TMA-fed wgmma), then
   y = rx*16/256 * (s*acc + 128.5*sum xs) + sum x*my + mx*sum x, with an optional
   relu^2, written in bfloat16 or float32 (or acc itself, for exactness checks).
+  On CUDA it takes the codes K-major only: each layer (K, M) with strides
+  (1, K), as ``mm8.to_k_major`` stores them (wgmma reads 8-bit operands
+  K-major); anything else raises. ``gemm_plan`` picks its tiles.
 
 The compositions below (single, merged multi-projection, relu^2 FFN pair) are
 the port of the JAX package's fused a8 Pallas kernels; ``mm8_core_a8`` is the
 bare int8 core (the JAX ``mm8_core_pallas_a8``), ``gemm``'s int32 output.
 
 The exact w8a16 scheme (mm8_core "pallas") has one kernel, ``mm8_core_w16``:
-xs (B, K) bf16 or float32 times the int8 codes (K, M) -> float32, only the
-``xs @ q`` term (ops/mm8.py applies the corrections).
+xs (B, K) bf16 or float32 times the int8 codes (K, M), N-major (contiguous)
+-> float32, only the ``xs @ q`` term (ops/mm8.py applies the corrections).
 """
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+import ctypes
+import functools
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
@@ -31,12 +36,25 @@ _SOURCE = "mm8_a8"
 _P, _I = _kernels.P, _kernels.I
 _SIGNATURES = {
     "mm8_a8_quant_rows": [_P] * 7 + [_I] * 5 + [_P],
-    "mm8_a8_gemm": [_P] * 6 + [_I] * 6 + [_P],
+    "mm8_a8_codes_map": [_P] + [_I] * 4 + [_P],
+    "mm8_a8_gemm": [_P] * 6 + [_I] * 11 + [_P],
 }
 _W16_SOURCE = "mm8_w16"
 _W16_SIGNATURES = {"mm8_w16_gemm": [_P] * 3 + [_I] * 4 + [_P]}
-# the GEMM kernel's tiles: K in 256-deep slices, output in 32-column tiles
-GEMM_BK, GEMM_BN = 256, 32
+# the w8a16 kernel's tiles: K in 256-deep slices, output in 32-column tiles
+W16_BK, W16_BN = 256, 32
+
+# the w8a8 GEMM's tiles (csrc/mm8_a8.cu): K in 128-byte stages; (bm, bn) ->
+# pipeline stages. B > A8_DECODE_ROWS takes a 128-row prefill tile, 256
+# columns wide unless 128 fills the card's waves of one CTA per SM better;
+# B <= A8_DECODE_ROWS the decode tile, with K split across a cluster of up
+# to A8_MAX_SPLIT CTAs until the grid has A8_MIN_CTAS CTAs.
+A8_BK = 128
+A8_TILES = {(128, 256): 4, (128, 128): 6, (64, 128): 4}
+A8_DECODE_ROWS = 64
+A8_MIN_CTAS = 128
+A8_MAX_SPLIT = 4
+H100_SMS = 132
 
 _OUT_MODES = {torch.float32: 0, torch.bfloat16: 1, torch.int32: 2}
 
@@ -145,12 +163,88 @@ def quant_rows(x, ry, my, *, xx=None, mu=None, mul=None):
     return x8, stats
 
 
+class GemmPlan(NamedTuple):
+    """The w8a8 GEMM's launch: (bm, bn) tiles with `stages` pipeline stages,
+    K split across the `split` CTAs of a cluster (rank r sums k_slices[r]),
+    grid (split * row tiles, column tiles, 1), as the kernel's host side
+    forms it from the same four numbers."""
+    bm: int
+    bn: int
+    stages: int
+    split: int
+    grid: Tuple[int, int, int]
+    k_slices: Tuple[Tuple[int, int], ...]
+
+
+def _wave_fill(ctas: int, sms: int) -> float:
+    """The busy share of `sms` SMs over the waves of `ctas` one-per-SM CTAs."""
+    return ctas / (-(-ctas // sms) * sms)
+
+
+@functools.lru_cache(maxsize=None)
+def gemm_plan(n: int, B: int, K: int, M: int, q_strides, sms: int = H100_SMS) -> GemmPlan:
+    """The tile configuration of the w8a8 GEMM for x8 (n, B, K) times the
+    codes of one layer, logically (K, M) with strides `q_strides`, on a card
+    of `sms` SMs. Raises ValueError for N-major codes (strides other than
+    (1, K)), K % 128 != 0, or a variant width M / n that is not a multiple
+    of 128."""
+    if tuple(q_strides) != (1, K):
+        raise ValueError(f"gemm: the codes must be K-major, strides (1, {K}) "
+                         f"(mm8.to_k_major), got {tuple(q_strides)}")
+    if n < 1 or M % n:
+        raise ValueError(f"gemm: {M} columns do not split into {n} variants")
+    width = M // n
+    if K % A8_BK or K == 0 or width % 128 or B < 1:
+        raise ValueError(f"gemm: unsupported shapes B {B}, K {K}, M {M}, {n} variants "
+                         f"(K % {A8_BK} == 0 and each variant's width % 128 == 0 required)")
+    rows = -(-B // (128 if B > A8_DECODE_ROWS else 64))
+    if B <= A8_DECODE_ROWS:
+        bm, bn = 64, 128
+    elif width % 256 or (_wave_fill(rows * M // 256, sms)
+                         < _wave_fill(rows * M // 128, sms) - 0.1):
+        bm, bn = 128, 128
+    else:
+        bm, bn = 128, 256
+    cols, blocks = M // bn, K // A8_BK
+    split = 1
+    if B <= A8_DECODE_ROWS:
+        while (cols * split < A8_MIN_CTAS and split < A8_MAX_SPLIT
+               and blocks % (2 * split) == 0):
+            split *= 2
+    per = K // split
+    return GemmPlan(bm=bm, bn=bn, stages=A8_TILES[(bm, bn)], split=split,
+                    grid=(split * rows, cols, 1),
+                    k_slices=tuple((r * per, (r + 1) * per) for r in range(split)))
+
+
+# tensor maps of code tensors, by (address, shape, box): a map holds only
+# those, so it stays right for whatever tensor later has the same address
+_CODE_MAPS = {}
+
+
+def _codes_map(lib, ptr: int, L: int, K: int, M: int, bn: int):
+    key = (ptr, L, K, M, bn)
+    buf = _CODE_MAPS.get(key)
+    if buf is None:
+        buf = ctypes.create_string_buffer(128)
+        err = lib.mm8_a8_codes_map(ptr, L, K, M, bn, buf)
+        _kernels.check(lib, _SOURCE, "mm8_a8_codes_map", err)
+        _CODE_MAPS[key] = buf
+    return buf
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(dev: torch.device) -> int:
+    return torch.cuda.get_device_properties(dev).multi_processor_count
+
+
 def gemm(x8, stats, q, mx, rx, *, layer: Optional[int] = None, relu2=False,
          out_dtype=torch.bfloat16):
     """See gemm_reference. q is (K, M), or the stacked (L, K, M) codes with
-    `layer`: the kernel then reads that layer at a pointer offset (no copy).
-    mx, rx: (M,) float32 of the same layer. out_dtype torch.int32 returns the
-    raw accumulators."""
+    `layer`: the kernel then reads that layer through a coordinate of its
+    tensor map (no copy). On CUDA the codes must be K-major (mm8.to_k_major):
+    q[layer] with strides (1, K). mx, rx: (M,) float32 of the same layer.
+    out_dtype torch.int32 returns the raw accumulators."""
     if layer is not None:
         q_layer = q[layer]  # a view: no copy on either path
     else:
@@ -162,33 +256,38 @@ def gemm(x8, stats, q, mx, rx, *, layer: Optional[int] = None, relu2=False,
         raise ValueError(f"gemm: no kernel for device {x8.device}")
     n, B, K = x8.shape
     K2, M = q_layer.shape
+    if K2 != K:
+        raise ValueError(f"gemm: x8 has K {K}, the codes {K2}")
     dev = x8.device
-    if M % n:
-        raise ValueError(f"gemm: {M} columns do not split into {n} variants")
-    _check_gemm_shape("gemm", K, K2, M, M // n)
-    # the GEMM loads both int8 operands 16 bytes at a time
+    plan = gemm_plan(n, B, K, M, q_layer.stride(), _sm_count(dev))
+    L = 1 if layer is None else q.shape[0]
+    if (q.dtype != torch.int8 or q.device != dev or q.data_ptr() % 16
+            or (L > 1 and q.stride(0) != K * M)):
+        raise ValueError(f"gemm: the codes must be int8 on {dev}, layers K*M apart, "
+                         f"16-byte aligned")
     _kernels.require(x8, "x8", dtype=torch.int8, device=dev, align=16)
-    _kernels.require(stats, "stats", dtype=torch.float32, shape=(n, B, 4), device=dev)
-    _kernels.require(q_layer, "q", dtype=torch.int8, device=dev, align=16)
-    _kernels.require(mx, "mx", dtype=torch.float32, shape=(M,), device=dev)
-    _kernels.require(rx, "rx", dtype=torch.float32, shape=(M,), device=dev)
+    _kernels.require(stats, "stats", dtype=torch.float32, shape=(n, B, 4), device=dev,
+                     align=16)
+    _kernels.require(mx, "mx", dtype=torch.float32, shape=(M,), device=dev, align=8)
+    _kernels.require(rx, "rx", dtype=torch.float32, shape=(M,), device=dev, align=8)
     if out_dtype not in _OUT_MODES:
         raise TypeError(f"gemm: out_dtype {out_dtype} not supported")
     out = torch.empty((B, M), dtype=out_dtype, device=dev)
     lib = _kernels.library(_SOURCE, _SIGNATURES)
+    qmap = _codes_map(lib, q.data_ptr(), L, K, M, plan.bn)
     err = lib.mm8_a8_gemm(
-        x8.data_ptr(), stats.data_ptr(), q_layer.data_ptr(), mx.data_ptr(),
-        rx.data_ptr(), out.data_ptr(), B, K, M, n, _OUT_MODES[out_dtype],
-        int(relu2), _kernels.stream_of(x8))
+        x8.data_ptr(), stats.data_ptr(), qmap, mx.data_ptr(), rx.data_ptr(), out.data_ptr(),
+        B, K, M, n, 0 if layer is None else layer, _OUT_MODES[out_dtype], int(relu2),
+        plan.bm, plan.bn, plan.stages, plan.split, _kernels.stream_of(x8))
     _kernels.LAUNCHES["mm8_a8_gemm"] += 1
     _kernels.check(lib, _SOURCE, "mm8_a8_gemm", err)
     return out
 
 
-def _check_gemm_shape(fn, K, K2, M, width):
-    if K2 != K or M % width or width % GEMM_BN or K % GEMM_BK:
-        raise ValueError(f"{fn}: unsupported shapes K {K}, q ({K2}, {M}) (K % {GEMM_BK} "
-                         f"== 0 and each output variant's width % {GEMM_BN} == 0 required)")
+def _check_w16_shape(K, K2, M):
+    if K2 != K or M % W16_BN or K % W16_BK:
+        raise ValueError(f"mm8_core_w16: unsupported shapes K {K}, q ({K2}, {M}) "
+                         f"(K % {W16_BK} == 0 and M % {W16_BN} == 0 required)")
 
 
 def mm8_core_w16(xs, q, *, layer: Optional[int] = None):
@@ -203,7 +302,7 @@ def mm8_core_w16(xs, q, *, layer: Optional[int] = None):
         raise ValueError(f"mm8_core_w16: no kernel for device {xs.device}")
     B, K = xs.shape
     K2, M = q_layer.shape
-    _check_gemm_shape("mm8_core_w16", K, K2, M, M)
+    _check_w16_shape(K, K2, M)
     dev = xs.device
     _kernels.require(xs, "xs", device=dev, align=16)  # 16-byte row loads
     code = _kernels.dtype_code(xs, "xs")
@@ -220,7 +319,8 @@ def mm8_core_w16(xs, q, *, layer: Optional[int] = None):
 def mm8_core_a8(xs8, q, *, layer: Optional[int] = None):
     """The bare w8a8 core: xs8 (B, K) int8 x q (K, M) int8, or the stacked
     (L, K, M) codes with `layer`, -> exact (B, M) int32. ``gemm`` in its int32
-    output mode; no serving path of either package calls it."""
+    output mode, so on CUDA the codes must be K-major as there (mm8.to_k_major);
+    no serving path of either package calls it."""
     B, M = xs8.shape[0], q.shape[-1]
     zeros = lambda *s: torch.zeros(s, dtype=torch.float32, device=xs8.device)
     return gemm(xs8[None], zeros(1, B, 4), q, zeros(M), zeros(M), layer=layer,
