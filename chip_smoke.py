@@ -15,12 +15,13 @@ Phases, in order; any failure ends the run with a non-zero exit:
    64, the WKV chunk kernel at the prefill variants (P, T) = (8, 64), (8, 256)
    and (32, 64) (and against a planted fault that ignores lengths), the bare
    WKV kernel at T = 1 (batch 64) and at the same variants (with the same
-   planted fault), the w8a8 mm8 kernels (and the bare int8 core, int32 out;
-   K-major codes, timed with cold weights at decode row counts) and the
-   w8a16 core, bf16 and float32 activations, at its seven decode sites, the
-   w8a8 kernels at 1 and 37 rows too, all at prefill row counts 512, 2048
-   and 1000 as well; before them, the w8a8 GEMM's registers and spills
-   (ptxas -v) and its wgmma and TMA instructions (cuobjdump, where present);
+   planted fault), the w8a8 mm8 kernels (and the bare int8 core, int32 out)
+   and the w8a16 core, bf16 and float32 activations, at its seven decode
+   sites, both on K-major codes and timed with cold weights at decode row
+   counts, both at 1 and 37 rows too, all at prefill row counts 512, 2048
+   and 1000 as well; before them, both TMA GEMMs' registers and spills
+   (ptxas -v) and their wgmma and TMA instructions (cuobjdump, where
+   present);
 4. the decode path and the compact prefill on a small model, kernels (GPU)
    against plain versions (CPU), and chunked prefill against token-by-token
    feeding on the GPU; the same for the w8a16 configuration (mm8_core
@@ -442,29 +443,57 @@ def check_mm8(dev, gen, B=64, shapes=MM8_SHAPES):
     ]
 
 
-def sass_report(lib_path, ptxas_proc):
-    """What the w8a8 GEMM compiled to: ptxas's registers and spills for each
-    kernel of csrc/mm8_a8.cu (from a -cubin build with
-    -Xptxas -v started beside the main build), and, where the toolkit has
-    cuobjdump, the count of IGMMA (wgmma) and UTMALDG (TMA load)
-    instructions in each GEMM kernel of the built library. Fails if a GEMM
-    kernel has no IGMMA."""
+# the TMA + wgmma GEMMs: source -> the SASS mnemonic of its wgmma (integer
+# for the w8a8 GEMM, floating point for the w8a16 one)
+GEMM_SOURCES = {"mm8_a8": "IGMMA", "mm8_w16": "HGMMA"}
+
+
+def _tile_name(fn):
+    """'gemm 128x128, 4 stages, 1 CTA/SM' from a kernel's mangled name (its
+    Tile<BM, BN, STAGES, MIN_CTAS> argument), or None."""
+    import re
+
+    tile = re.search(r"TileILi(\d+)ELi(\d+)ELi(\d+)ELi(\d+)", fn)
+    return "gemm %sx%s, %s stages, %s CTA/SM" % tile.groups() if tile else None
+
+
+def start_ptxas(source, out_dir):
+    """A -cubin build of csrc/<source>.cu with -Xptxas -v, started beside the
+    main build: its registers and spills."""
+    from chirrup_tpu_torch.ops import _kernels
+
+    return subprocess.Popen(
+        [_kernels._nvcc(), *(f for f in _kernels.NVCC_FLAGS
+                             if f not in ("-shared", "-Xcompiler", "-fPIC")),
+         "-cubin", "-Xptxas", "-v", "-o", os.path.join(out_dir, f"{source}.cubin"),
+         str(_kernels.CSRC / f"{source}.cu")], stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True)
+
+
+def sass_report(source, lib_path, ptxas_proc):
+    """What a GEMM source compiled to: ptxas's registers and spills for each
+    of its kernels (start_ptxas), and, where the toolkit has cuobjdump, the
+    count of wgmma (GEMM_SOURCES[source]) and UTMALDG (TMA load) instructions
+    in each TMA GEMM kernel of the built library. Fails if the build failed
+    or a TMA GEMM kernel has no wgmma."""
     import re
     import shutil
 
+    mma = GEMM_SOURCES[source]
     out = {}
     log_text, _ = ptxas_proc.communicate()
+    require(ptxas_proc.returncode == 0, f"ptxas -v build of {source}.cu failed:\n{log_text}")
     for fn, body in re.findall(r"Compiling entry function '([^']+)'.*?\n(.*?)"
                                r"(?=Compiling entry function|\Z)", log_text, re.S):
         used = re.search(r"Used (\d+) registers", body)
         spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", body)
-        tile = re.search(r"TileILi(\d+)ELi(\d+)ELi(\d+)ELi(\d+)", fn)
-        name = ("gemm %sx%s, %s stages, %s CTA/SM" % tile.groups() if tile
-                else "quant_rows " + ("bf16" if "bfloat16" in fn else "fp32"))
+        name = _tile_name(fn) or next(
+            (k for k in ("quant_rows bf16", "quant_rows fp32", "w16_f32")
+             if k.split()[0] in fn and ("bfloat16" in fn) == k.endswith("bf16")), fn)
         out[name] = dict(registers=int(used.group(1)) if used else None,
                          spill_bytes=[int(spill.group(1)), int(spill.group(2))] if spill
                          else None)
-    log("ptxas -v, csrc/mm8_a8.cu: " + "; ".join(
+    log(f"ptxas -v, csrc/{source}.cu: " + "; ".join(
         f"{k}: {v['registers']} registers, spill stores/loads {v['spill_bytes']} bytes"
         for k, v in out.items()))
     tool = shutil.which("cuobjdump") or os.path.join(
@@ -476,14 +505,13 @@ def sass_report(lib_path, ptxas_proc):
                           check=True).stdout
     counts = {}
     for fn, body in re.findall(r"Function : (\S+)\n(.*?)(?=Function : |\Z)", sass, re.S):
-        tile = re.search(r"TileILi(\d+)ELi(\d+)ELi(\d+)ELi(\d+)", fn)
-        if tile:
-            counts["gemm %sx%s" % tile.groups()[:2]] = dict(
-                IGMMA=len(re.findall(r"\bIGMMA", body)),
-                UTMALDG=len(re.findall(r"\bUTMALDG", body)))
-    log(f"SASS of {os.path.basename(str(lib_path))}, per GEMM kernel: {counts}")
-    require(counts and all(c["IGMMA"] > 0 for c in counts.values()),
-            f"the w8a8 GEMM compiled without IGMMA (wgmma): {counts}")
+        name = _tile_name(fn)
+        if name:
+            counts[name] = {mma: len(re.findall(rf"\b{mma}", body)),
+                            "UTMALDG": len(re.findall(r"\bUTMALDG", body))}
+    log(f"SASS of {os.path.basename(str(lib_path))}, per TMA GEMM kernel: {counts}")
+    require(counts and all(c[mma] > 0 for c in counts.values()),
+            f"a {source} GEMM kernel compiled without {mma} (wgmma): {counts}")
     out["sass"] = counts
     return out
 
@@ -511,21 +539,33 @@ def sum_excess(got, ref, sq_terms, K, c):
 def check_w16(dev, gen, B=64, sites=W16_SITES):
     """The w8a16 core (mm8_core_w16: xs @ q, float32 out) against its plain
     version (a float32 product of the widened operands; TF32 is off) at each
-    site, with bf16 xs (the serving dtype) and float32 xs. The limit is
-    sum_excess's with c = 8 for float32 xs (~20 standard deviations of the
+    site, with bf16 xs (the serving dtype) and float32 xs. The codes are
+    K-major, as codes() builds them; stacked sites read layer 1. The limit
+    is sum_excess's with c = 8 for float32 xs (~20 standard deviations of the
     two float32 sums) and c = 64 for bf16 xs (room for the tensor cores'
     own accumulation order). The comparison must reject two planted faults:
-    the codes of the neighbouring 32-column tile, and (float32 xs) TF32-rounded
-    activations. The head site, bf16, is the JSON line's headline."""
+    the codes 32 columns on, and (float32 xs) TF32-rounded activations.
+    Times at decode row counts (B <= 64) rotate over the layers of a stacked
+    tensor larger than L2 (cold weights), with the layer-1-every-time (warm)
+    figure beside them, and torch.matmul (xs times the codes converted to
+    xs's dtype beforehand, K-major as they are) is timed the same way; the
+    head is cold either way. The head site, bf16, is the JSON line's
+    headline."""
+    import itertools
+
     from chirrup_tpu_torch.ops import mm8_cuda
 
+    sms = (torch.cuda.get_device_properties(dev).multi_processor_count if dev.type == "cuda"
+           else mm8_cuda.H100_SMS)
     rows = []
     for site, K, M, stacked in sites:
-        q = torch.randint(-128, 128, ((2,) if stacked else ()) + (K, M), generator=gen,
-                          device=dev, dtype=torch.int8)
+        L = cold_layers(K, M, B) if stacked else None
+        q = codes(dev, gen, L, K, M)
         layer = 1 if stacked else None
         q_layer = q[layer] if stacked else q
         q_sq = q_layer.float().square()
+        plan = mm8_cuda.w16_plan(B, K, M, q_layer.stride(), sms)
+        cold = stacked and B <= 64
         for dtype, c in ((torch.bfloat16, 64), (torch.float32, 8)):
             xs = torch.randn((B, K), generator=gen, device=dev).to(dtype)
             got = mm8_cuda.mm8_core_w16(xs, q, layer=layer)
@@ -534,8 +574,10 @@ def check_w16(dev, gen, B=64, sites=W16_SITES):
             torch.cuda.synchronize()
             require(tuple(got.shape) == (B, M) and got.dtype == torch.float32,
                     f"mm8_w16_gemm {site}: output {tuple(got.shape)} {got.dtype}")
+            again = mm8_cuda.mm8_core_w16(xs, q, layer=layer)
+            require(torch.equal(again, got), f"mm8_w16_gemm {site}: a second run differs")
             ex = sum_excess(got, ref, sq, K, c)
-            faults = {"neighbour tile": mm8_cuda.core_w16_reference(
+            faults = {"neighbour columns": mm8_cuda.core_w16_reference(
                 xs, torch.roll(q_layer, 32, dims=1))}
             if dtype == torch.float32:
                 tf32 = (xs.view(torch.int32) & ~0x1FFF).view(torch.float32)
@@ -543,26 +585,39 @@ def check_w16(dev, gen, B=64, sites=W16_SITES):
             fault_ex = {k: sum_excess(f, ref, sq, K, c) for k, f in faults.items()}
             err = max_abs(got, ref)
             name = "bf16" if dtype == torch.bfloat16 else "fp32"
-            require(ex <= 1, f"mm8_w16_gemm {site} {name} xs: worst |err|/limit {ex}")
+            require(ex <= 1, f"mm8_w16_gemm {site} B{B} {name} xs: worst |err|/limit {ex}")
             require(min(fault_ex.values()) > 1,
                     f"mm8_w16_gemm {site} {name}: the check passes a planted fault {fault_ex}")
-            ms = device_ms(lambda: mm8_cuda.mm8_core_w16(xs, q, layer=layer))
             plain = device_ms(lambda: mm8_cuda.core_w16_reference(xs, q_layer), iters=3)
-            # the library call: one dense product of xs with codes converted
-            # to xs's dtype beforehand
-            q_conv = q_layer.to(dtype)
-            lib = device_ms(lambda: torch.matmul(xs, q_conv))
+            q_conv = q.to(dtype)  # every layer, K-major as the codes are
+            call = lambda li: mm8_cuda.mm8_core_w16(xs, q, layer=li)
+            lib_call = lambda li: torch.matmul(xs, q_conv if li is None else q_conv[li])
+            warm = device_ms(lambda: call(layer))
+            lib_warm = device_ms(lambda: lib_call(layer))
+            if cold:
+                cyc, cyc_lib = itertools.cycle(range(L)), itertools.cycle(range(L))
+                ms = device_ms(lambda: call(next(cyc)))
+                lib = device_ms(lambda: lib_call(next(cyc_lib)))
+            else:
+                ms, lib = warm, lib_warm
             b, by = bound_ms(nbytes(xs, q_layer, got), 2 * B * K * M, name)
-            rows.append(dict(site=site, xs=name, err=err, excess=ex, fault_excess=fault_ex,
-                             ms=ms, plain_ms=plain, bound_ms=b, bound_by=by, library_ms=lib,
+            rows.append(dict(site=site, rows=B, xs=name, err=err, excess=ex,
+                             fault_excess=fault_ex, ms=ms, plain_ms=plain, bound_ms=b,
+                             bound_by=by, library_ms=lib, warm_ms=warm, library_warm_ms=lib_warm,
+                             cold=cold or K * M >= 160 << 20,
+                             plan=dict(bm=plan.bm, bn=plan.bn, stages=plan.stages,
+                                       split=plan.split, grid=list(plan.grid)),
                              shape=f"({B}, {K}) {name} x ({K}, {M}) int8 -> f32"
                                    + (" (stacked)" if stacked else "")))
-            log(f"mm8_w16_gemm {site} B{B} K{K} M{M} {name} xs: err {err:.3e}, worst "
-                f"|err|/limit {ex:.3f} (c {c}); planted faults "
+            temp = "cold" if rows[-1]["cold"] else "warm"
+            log(f"mm8_w16_gemm {site} B{B} K{K} M{M} {name} xs (tile {plan.bm}x{plan.bn}, "
+                f"{plan.stages} stages, split {plan.split}, grid {plan.grid}): err {err:.3e}, "
+                f"worst |err|/limit {ex:.3f} (c {c}); planted faults "
                 + ", ".join(f"{k} {v:.3g}" for k, v in fault_ex.items())
-                + f"; {ms:.4f} ms, plain {plain:.4f} ms, torch.matmul {name} {lib:.4f} ms, "
-                  f"bound {b:.4f} ms ({by})")
-            del xs, got, ref, sq, faults, q_conv
+                + f"; {temp} {ms:.4f} ms, torch.matmul {name} {lib:.4f} ms ({ms / lib:.2f}x), "
+                  f"bound {b:.4f} ms ({by}, {100 * b / ms:.1f}% of it); warm {warm:.4f} ms, "
+                  f"torch.matmul warm {lib_warm:.4f} ms; plain {plain:.4f} ms")
+            del xs, got, again, ref, sq, faults, q_conv
         del q, q_layer, q_sq
         torch.cuda.empty_cache()
     head = [r for r in rows if r["xs"] == "bf16"][-1]
@@ -1411,24 +1466,20 @@ def main(argv=None) -> int:
 
     t0 = time.perf_counter()
     ptxas_dir = tempfile.TemporaryDirectory()
-    ptxas = subprocess.Popen(  # beside the main build: registers and spills of the GEMM
-        [_kernels._nvcc(), *(f for f in _kernels.NVCC_FLAGS
-                             if f not in ("-shared", "-Xcompiler", "-fPIC")),
-         "-cubin", "-Xptxas", "-v", "-o", os.path.join(ptxas_dir.name, "mm8_a8.cubin"),
-         str(_kernels.CSRC / "mm8_a8.cu")], stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-        text=True)
+    ptxas = {src: start_ptxas(src, ptxas_dir.name) for src in GEMM_SOURCES}
     libs = _kernels.build()
     log(f"built {', '.join(p.name for p in libs.values())} in {time.perf_counter() - t0:.1f} s")
-    sass = sass_report(libs["mm8_a8"], ptxas)
+    sass = {src: sass_report(src, libs[src], proc) for src, proc in ptxas.items()}
     ptxas_dir.cleanup()
 
     gen = torch.Generator(device=dev).manual_seed(0)
     kernels = [check_wkv(dev, gen), check_chunk(dev, gen), check_wkv_batch(dev, gen),
                *check_mm8(dev, gen), check_w16(dev, gen), check_penalty_tail(dev, gen)]
     torch.cuda.empty_cache()
-    # the w8a8 kernels at the other decode row counts: one row, and a count
+    # the mm8 kernels at the other decode row counts: one row, and a count
     # that is not a multiple of 8
-    mm8_decode = {rows: check_mm8(dev, gen, B=rows) for rows in (1, 37)}
+    mm8_decode = {rows: [*check_mm8(dev, gen, B=rows), check_w16(dev, gen, B=rows)]
+                  for rows in (1, 37)}
     torch.cuda.empty_cache()
     # the mm8 kernels at prefill row counts: 8 x 64 and 8 x 256 or 32 x 64
     # rows, and a count that is not a multiple of the GEMM's 64-row tile
@@ -1469,7 +1520,7 @@ def main(argv=None) -> int:
                                 for rows, ks in mm8_prefill.items()}
     path["mm8_decode_rows"] = {rows: {k["name"]: k["sites"] for k in ks}
                                for rows, ks in mm8_decode.items()}
-    path["mm8_a8_build"] = sass
+    path["gemm_builds"] = sass
     path["w16"] = path_a
     path["unfused"] = path_b
 

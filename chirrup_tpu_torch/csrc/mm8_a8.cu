@@ -59,10 +59,13 @@
 // (4 or 8 bytes). Rows >= B are not stored. A tile never straddles an R/K/V
 // variant: each variant's width is a multiple of BN.
 
-#include <cuda.h>  // CUtensorMap and its enums; the encoder comes through the runtime
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "hopper_common.cuh"
+
+using namespace hopper;
 
 namespace {
 
@@ -140,74 +143,6 @@ __global__ void __launch_bounds__(QT) quant_rows_kernel(
 
 constexpr int BK = 128;  // K bytes per stage: one 128-byte swizzle row
 
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
-}
-
-// Waits for the phase of `parity` to complete. A pipeline fault that would
-// leave it waiting for good traps after ~2^34 cycles (seconds) instead, so
-// the launch fails rather than hanging the card.
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  uint32_t done = 0;
-  const long long start = clock64();
-  while (true) {
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done) : "r"(bar), "r"(parity) : "memory");
-    if (done) return;
-    if (clock64() - start > (1ll << 34)) __trap();
-  }
-}
-
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
-               ::"r"(bar), "r"(bytes) : "memory");
-}
-
-__device__ __forceinline__ void tma_load_3d(uint32_t dst, const CUtensorMap* map, uint32_t bar,
-                                            int c0, int c1, int c2) {
-  asm volatile(
-      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes "
-      "[%0], [%1, {%3, %4, %5}], [%2];\n"
-      ::"r"(dst), "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1), "r"(c2)
-      : "memory");
-}
-
-// wgmma shared-memory descriptor of a K-major tile of 128-byte rows with
-// 128-byte swizzle: 8-row groups 1024 bytes apart (SBO), layout type B128.
-__device__ __forceinline__ uint64_t smem_desc(uint32_t addr) {
-  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)1 << 16) |
-         ((uint64_t)(1024 >> 4) << 32) | ((uint64_t)1 << 62);
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-template <int N>
-__device__ __forceinline__ void wgmma_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
-}
-// keeps the compiler from moving accumulator reads or writes across the
-// asynchronous wgmma issue and wait
-template <int R>
-__device__ __forceinline__ void fence_acc(int32_t (&d)[R]) {
-#pragma unroll
-  for (int i = 0; i < R; ++i) asm volatile("" : "+r"(d[i])::"memory");
-}
-
 __device__ __forceinline__ void wgmma_n128(int32_t (&d)[64], uint64_t da, uint64_t db) {
   asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
@@ -258,17 +193,6 @@ __device__ __forceinline__ void wgmma_n256(int32_t (&d)[128], uint64_t da, uint6
         "+r"(d[112]), "+r"(d[113]), "+r"(d[114]), "+r"(d[115]), "+r"(d[116]), "+r"(d[117]), "+r"(d[118]), "+r"(d[119]),
         "+r"(d[120]), "+r"(d[121]), "+r"(d[122]), "+r"(d[123]), "+r"(d[124]), "+r"(d[125]), "+r"(d[126]), "+r"(d[127])
       : "l"(da), "l"(db), "r"(1));
-}
-
-__device__ __forceinline__ uint32_t cluster_rank() {
-  uint32_t r;
-  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
-  return r;
-}
-
-// every thread of every CTA of the cluster; release then acquire
-__device__ __forceinline__ void cluster_sync() {
-  asm volatile("barrier.cluster.arrive.release;\nbarrier.cluster.wait.acquire;\n" ::: "memory");
 }
 
 // Tile configuration: BM rows (64 per consumer warpgroup) x BN columns, a
@@ -459,49 +383,6 @@ __global__ void __launch_bounds__(T::THREADS, T::MIN_CTAS) gemm_kernel(
 
 // ------------------------------------------------------------- host side
 
-// cuTensorMapEncodeTiled through the runtime's driver entry point, so the
-// library need not link libcuda
-typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-                                CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-EncodeTiled encoder() {
-  static EncodeTiled fn = nullptr;
-  if (!fn) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-    cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault,
-                                     &found);
-#else
-    cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
-#endif
-    if (found == cudaDriverEntryPointSuccess) fn = reinterpret_cast<EncodeTiled>(p);
-  }
-  return fn;
-}
-
-// errors of this library beyond the runtime's codes
-constexpr int ERR_NO_ENCODER = 10001, ERR_ENCODE = 10002, ERR_TILE = 10003;
-
-// A 3-D int8 tensor (d2, d1, d0) with d0 contiguous, read in (1, box1, 128)
-// boxes with 128-byte swizzle; out-of-range rows read as zeros.
-int encode_3d(CUtensorMap* map, const void* ptr, uint64_t d0, uint64_t d1, uint64_t d2,
-              uint32_t box1) {
-  EncodeTiled fn = encoder();
-  if (!fn) return ERR_NO_ENCODER;
-  const cuuint64_t dims[3] = {d0, d1, d2};
-  const cuuint64_t strides[2] = {d0, d0 * d1};  // bytes, dims 1 and 2
-  const cuuint32_t box[3] = {(cuuint32_t)BK, box1, 1};
-  const cuuint32_t elem[3] = {1, 1, 1};
-  const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_UINT8, 3, const_cast<void*>(ptr), dims,
-                        strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
-                        CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-                        CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  return r == CUDA_SUCCESS ? 0 : ERR_ENCODE;
-}
-
 template <class T>
 int launch(const CUtensorMap& xmap, const CUtensorMap& qmap, const float* stats,
            const float* mx, const float* rx, void* out, int B, int K, int M, int width,
@@ -555,8 +436,7 @@ extern "C" int mm8_a8_quant_rows(const void* x, const void* aux, const void* mu,
 // bytes (the logical (L, K, M) with strides (K*M, 1, K)), read in (box_n, 128)
 // tiles. map_out: 128 bytes of host memory, handed back to mm8_a8_gemm.
 extern "C" int mm8_a8_codes_map(const void* q, int L, int K, int M, int box_n, void* map_out) {
-  return encode_3d(reinterpret_cast<CUtensorMap*>(map_out), q, (uint64_t)K, (uint64_t)M,
-                   (uint64_t)L, (uint32_t)box_n);
+  return encode_codes_map(reinterpret_cast<CUtensorMap*>(map_out), q, L, K, M, box_n);
 }
 
 // x8 (n_var, B, K) int8; qmap from mm8_a8_codes_map with box_n = bn; the tile
@@ -568,7 +448,8 @@ extern "C" int mm8_a8_gemm(const void* x8, const void* stats, const void* qmap, 
                            int out_mode, int relu2, int bm, int bn, int stages, int split,
                            void* stream) {
   CUtensorMap xmap;
-  const int err = encode_3d(&xmap, x8, (uint64_t)K, (uint64_t)B, (uint64_t)n_var, (uint32_t)bm);
+  const int err = encode_3d(&xmap, CU_TENSOR_MAP_DATA_TYPE_UINT8, 1, x8, (uint64_t)K, (uint64_t)B,
+                            (uint64_t)n_var, (uint32_t)BK, (uint32_t)bm);
   if (err) return err;
   const CUtensorMap& q = *reinterpret_cast<const CUtensorMap*>(qmap);
   const int width = M / n_var;
@@ -585,11 +466,4 @@ extern "C" int mm8_a8_gemm(const void* x8, const void* stats, const void* qmap, 
   return ERR_TILE;
 }
 
-extern "C" const char* mm8_a8_error_string(int code) {
-  switch (code) {
-    case ERR_NO_ENCODER: return "cuTensorMapEncodeTiled not found through the runtime";
-    case ERR_ENCODE: return "cuTensorMapEncodeTiled refused the tensor map";
-    case ERR_TILE: return "no GEMM kernel for this tile configuration";
-    default: return cudaGetErrorString((cudaError_t)code);
-  }
-}
+extern "C" const char* mm8_a8_error_string(int code) { return error_string(code); }

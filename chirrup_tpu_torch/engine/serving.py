@@ -65,6 +65,19 @@ def forbidden_bias_row(forbidden_ids, V) -> np.ndarray:
     return bias
 
 
+def _host_tensor(a) -> torch.Tensor:
+    """A snapshot array as a tensor: a port snapshot's tensor as it is, a
+    numpy array as it is, and an ml_dtypes bfloat16 array (a JAX package
+    snapshot; numpy has no bf16 of its own, so it is recognised by its dtype's
+    name) through float32, which holds every bf16 value exactly."""
+    if isinstance(a, torch.Tensor):
+        return a
+    a = np.asarray(a)
+    if a.dtype.name == "bfloat16":
+        return torch.from_numpy(a.astype(np.float32)).to(torch.bfloat16)
+    return torch.from_numpy(np.ascontiguousarray(a))
+
+
 def _is_quantized(tree) -> bool:
     if isinstance(tree, dict):
         return any(_is_quantized(v) for v in tree.values())
@@ -102,11 +115,11 @@ def _merge_att_rkv(params):
 
 
 def _codes_to_k_major(params) -> None:
-    """Store the int8 codes of the w8a8 core K-major (mm8.to_k_major), as its
-    GEMM kernel reads them: Wrkv (or Wr, Wk, Wv), Wo, FFN Wk and Wv, head. In
-    place in params' dicts (ServingModel's own: cast_dense builds new ones),
-    one tensor at a time, so each old tensor is freed before the next is
-    copied when nothing else holds it."""
+    """Store the int8 codes K-major (mm8.to_k_major), as the GEMM kernels of
+    both cores (w8a8 and w8a16) read them: Wrkv (or Wr, Wk, Wv), Wo, FFN Wk
+    and Wv, head. In place in params' dicts (ServingModel's own: cast_dense
+    builds new ones), one tensor at a time, so each old tensor is freed
+    before the next is copied when nothing else holds it."""
     att, ffn = params["blocks"]["att"], params["blocks"]["ffn"]
     for tree, keys in ((att, ("Wrkv", "Wr", "Wk", "Wv", "Wo")), (ffn, ("Wk", "Wv")),
                        (params, ("head",))):
@@ -173,7 +186,7 @@ class ServingModel:
         self.mm8_core = mm8.resolve_mm8_core(runtime.mm8_core)
         if self.mm8_core == "pallas_a8":
             params = _merge_att_rkv(params)
-            _codes_to_k_major(params)
+        _codes_to_k_major(params)
         params = _pack_att_lora(params)
         self.params = model.cast_dense(params, runtime.activation_dtype)
         self._no_penalty_ids = torch.tensor(sorted(NO_PENALTY_TOKEN_IDS),
@@ -337,10 +350,8 @@ class ServingModel:
             st.wkv[:, slot].zero_()
             st.elapsed[slot] = 0
         else:
-            st.shift[:, :, slot].copy_(torch.from_numpy(
-                np.asarray(request_state.shift, np.float32)).to(st.shift.dtype))
-            st.wkv[:, slot].copy_(torch.from_numpy(
-                np.asarray(request_state.wkv, np.float32)).to(st.wkv.dtype))
+            st.shift[:, :, slot].copy_(_host_tensor(request_state.shift))
+            st.wkv[:, slot].copy_(_host_tensor(request_state.wkv))
             st.elapsed[slot] = int(request_state.elapsed)
         carry.occurrence[slot].zero_()
         carry.presence_vec[slot].copy_(torch.from_numpy(
@@ -368,10 +379,12 @@ class ServingModel:
         return self.insert_slot(carry, slot, None, _Defaults)
 
     def extract_slot(self, carry: BatchCarry, slot: int) -> RequestState:
-        """Snapshot a slot's recurrent state to host (float32 numpy; the
-        bf16 -> f32 -> bf16 round trip through insert_slot is exact)."""
+        """Snapshot a slot's recurrent state to host at its DEVICE dtypes, as
+        the JAX package does (bf16 in serving: half the host bytes of
+        float32): contiguous CPU tensors that share nothing with the carry.
+        insert_slot copies them back unconverted, so resuming from a snapshot
+        is bit-identical to an uninterrupted run."""
         st = carry.state
-        return RequestState(
-            shift=st.shift[:, :, slot].to(torch.float32).cpu().numpy(),
-            wkv=st.wkv[:, slot].to(torch.float32).cpu().numpy(),
-            elapsed=int(st.elapsed[slot]))
+        host = lambda t: t.to("cpu", copy=True, memory_format=torch.contiguous_format)
+        return RequestState(shift=host(st.shift[:, :, slot]), wkv=host(st.wkv[:, slot]),
+                            elapsed=int(st.elapsed[slot]))

@@ -4,8 +4,8 @@ Semantics mirror the reference engine's task model
 (chirrup's core_structure.py): a Task is the unit of scheduling,
 carrying prompt/prefill tokens, sampling parameters, stop/forbidden token sets,
 prefix-cache options and its own output/event queues bridging the worker thread to
-asyncio. States are host-side numpy snapshots (device residency is the worker's
-business, not the task's).
+asyncio. States are host-side snapshots: CPU tensors at the device's dtype
+(device residency is the worker's business, not the task's).
 """
 
 from __future__ import annotations
@@ -17,6 +17,7 @@ import uuid
 from typing import Any, Dict, List, Optional, Sequence
 
 import numpy as np
+import torch
 
 FINISH_REASON_STRINGS = ("stop", "length", "abort")
 
@@ -75,17 +76,25 @@ _FINISHED_REASON_MAP = {
 }
 
 
+def _nbytes(a) -> int:
+    if isinstance(a, torch.Tensor):
+        return a.numel() * a.element_size()
+    return np.asarray(a).nbytes
+
+
 @dataclasses.dataclass
 class RequestState:
     """Host-side snapshot of one request's recurrent state (the unit the prefix
-    state-cache stores; reference keeps a 3-tensor list, rwkv7.py:224-235)."""
+    state-cache stores; reference keeps a 3-tensor list, rwkv7.py:224-235).
+    ServingModel.extract_slot makes CPU tensors at the state's device dtype
+    (bf16 in serving); insert_slot also takes numpy arrays."""
 
-    shift: np.ndarray    # (L, 2, C)
-    wkv: np.ndarray      # (L, N, H*N)
+    shift: torch.Tensor  # (L, 2, C)
+    wkv: torch.Tensor    # (L, N, H*N)
     elapsed: int
 
     def nbytes(self) -> int:
-        return self.shift.nbytes + self.wkv.nbytes + 8
+        return _nbytes(self.shift) + _nbytes(self.wkv) + 8
 
 
 @dataclasses.dataclass

@@ -148,9 +148,9 @@ def merge_stacked(ws) -> Mm8MultiWeight:
 def to_k_major(w):
     """The same Mm8Weight / Mm8MultiWeight with its codes stored K-major: q
     keeps its logical (..., K, M) shape and values, each (K, M) layer with
-    strides (1, K) (the storage holds (..., M, K)), as the w8a8 GEMM kernel
-    reads them; q[layer] stays a view at a pointer offset. A weight that is
-    already K-major comes back as it is."""
+    strides (1, K) (the storage holds (..., M, K)), as the GEMM kernels of
+    both cores read them; q[layer] stays a view at a pointer offset. A
+    weight that is already K-major comes back as it is."""
     q_t = w.q.transpose(-1, -2)
     if q_t.is_contiguous():
         return w

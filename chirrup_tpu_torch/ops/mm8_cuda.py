@@ -18,8 +18,10 @@ the port of the JAX package's fused a8 Pallas kernels; ``mm8_core_a8`` is the
 bare int8 core (the JAX ``mm8_core_pallas_a8``), ``gemm``'s int32 output.
 
 The exact w8a16 scheme (mm8_core "pallas") has one kernel, ``mm8_core_w16``:
-xs (B, K) bf16 or float32 times the int8 codes (K, M), N-major (contiguous)
--> float32, only the ``xs @ q`` term (ops/mm8.py applies the corrections).
+xs (B, K) bf16 or float32 times the int8 codes (K, M) -> float32, only the
+``xs @ q`` term (ops/mm8.py applies the corrections). On CUDA it too takes
+the codes K-major only; bf16 xs runs a TMA-fed wgmma GEMM on the codes
+widened to bf16 in shared memory, whose tiles ``w16_plan`` picks.
 """
 
 from __future__ import annotations
@@ -40,9 +42,10 @@ _SIGNATURES = {
     "mm8_a8_gemm": [_P] * 6 + [_I] * 11 + [_P],
 }
 _W16_SOURCE = "mm8_w16"
-_W16_SIGNATURES = {"mm8_w16_gemm": [_P] * 3 + [_I] * 4 + [_P]}
-# the w8a16 kernel's tiles: K in 256-deep slices, output in 32-column tiles
-W16_BK, W16_BN = 256, 32
+_W16_SIGNATURES = {
+    "mm8_w16_codes_map": [_P] + [_I] * 4 + [_P],
+    "mm8_w16_gemm": [_P] * 4 + [_I] * 9 + [_P],
+}
 
 # the w8a8 GEMM's tiles (csrc/mm8_a8.cu): K in 128-byte stages; (bm, bn) ->
 # pipeline stages. B > A8_DECODE_ROWS takes a 128-row prefill tile, 256
@@ -55,6 +58,14 @@ A8_DECODE_ROWS = 64
 A8_MIN_CTAS = 128
 A8_MAX_SPLIT = 4
 H100_SMS = 132
+
+# the w8a16 GEMM's tiles (csrc/mm8_w16.cu): K in 128-deep stages; (bm, bn) ->
+# pipeline stages. Prefill tiles are chosen as the w8a8 GEMM's; B <=
+# A8_DECODE_ROWS takes the decode tile, two CTAs per SM, with K split across a
+# cluster of up to A8_MAX_SPLIT CTAs until the grid has W16_MIN_CTAS CTAs.
+W16_BK = 128
+W16_TILES = {(128, 256): 2, (128, 128): 4, (64, 128): 2}
+W16_MIN_CTAS = 256
 
 _OUT_MODES = {torch.float32: 0, torch.bfloat16: 1, torch.int32: 2}
 
@@ -197,24 +208,54 @@ def gemm_plan(n: int, B: int, K: int, M: int, q_strides, sms: int = H100_SMS) ->
     if K % A8_BK or K == 0 or width % 128 or B < 1:
         raise ValueError(f"gemm: unsupported shapes B {B}, K {K}, M {M}, {n} variants "
                          f"(K % {A8_BK} == 0 and each variant's width % 128 == 0 required)")
-    rows = -(-B // (128 if B > A8_DECODE_ROWS else 64))
-    if B <= A8_DECODE_ROWS:
-        bm, bn = 64, 128
-    elif width % 256 or (_wave_fill(rows * M // 256, sms)
-                         < _wave_fill(rows * M // 128, sms) - 0.1):
-        bm, bn = 128, 128
-    else:
-        bm, bn = 128, 256
-    cols, blocks = M // bn, K // A8_BK
+    bm, bn = (64, 128) if B <= A8_DECODE_ROWS else (128, _prefill_bn(B, M, width, sms))
+    return _split_plan(bm, bn, A8_TILES[(bm, bn)], B, K, M, A8_MIN_CTAS)
+
+
+def _prefill_bn(B: int, M: int, width: int, sms: int) -> int:
+    """The prefill tile's width: 256 columns unless the variant width is not
+    a multiple of 256 or 128 fills the waves of one CTA per SM on `sms` SMs
+    clearly better."""
+    rows = -(-B // 128)
+    if width % 256 or (_wave_fill(rows * M // 256, sms)
+                       < _wave_fill(rows * M // 128, sms) - 0.1):
+        return 128
+    return 256
+
+
+def _split_plan(bm: int, bn: int, stages: int, B: int, K: int, M: int,
+                min_ctas: int) -> GemmPlan:
+    """The plan of (bm, bn) tiles over (B, K) x (K, M): at decode row counts
+    (B <= A8_DECODE_ROWS) K is split across a cluster of 2, then 4 CTAs while
+    the grid has fewer than `min_ctas` CTAs and each slice stays whole
+    128-deep stages."""
+    rows, cols, blocks = -(-B // bm), M // bn, K // A8_BK
     split = 1
     if B <= A8_DECODE_ROWS:
-        while (cols * split < A8_MIN_CTAS and split < A8_MAX_SPLIT
+        while (cols * split < min_ctas and split < A8_MAX_SPLIT
                and blocks % (2 * split) == 0):
             split *= 2
     per = K // split
-    return GemmPlan(bm=bm, bn=bn, stages=A8_TILES[(bm, bn)], split=split,
-                    grid=(split * rows, cols, 1),
+    return GemmPlan(bm=bm, bn=bn, stages=stages, split=split, grid=(split * rows, cols, 1),
                     k_slices=tuple((r * per, (r + 1) * per) for r in range(split)))
+
+
+@functools.lru_cache(maxsize=None)
+def w16_plan(B: int, K: int, M: int, q_strides, sms: int = H100_SMS) -> GemmPlan:
+    """The tile configuration of the w8a16 GEMM for xs (B, K) times the codes
+    of one layer, logically (K, M) with strides `q_strides`, on a card of
+    `sms` SMs: at B <= 64 the 64 x 128 decode tile, K split until the grid
+    has W16_MIN_CTAS CTAs; above, 128 x 256 or 128 x 128 by the w8a8 GEMM's
+    rule. Raises ValueError for N-major codes (strides other than (1, K)),
+    K % 128 != 0, M % 128 != 0 or no rows."""
+    if tuple(q_strides) != (1, K):
+        raise ValueError(f"mm8_core_w16: the codes must be K-major, strides (1, {K}) "
+                         f"(mm8.to_k_major), got {tuple(q_strides)}")
+    if K % W16_BK or K == 0 or M % 128 or M == 0 or B < 1:
+        raise ValueError(f"mm8_core_w16: unsupported shapes B {B}, K {K}, M {M} "
+                         f"(K % {W16_BK} == 0 and M % 128 == 0 required)")
+    bm, bn = (64, 128) if B <= A8_DECODE_ROWS else (128, _prefill_bn(B, M, M, sms))
+    return _split_plan(bm, bn, W16_TILES[(bm, bn)], B, K, M, W16_MIN_CTAS)
 
 
 # tensor maps of code tensors, by (address, shape, box): a map holds only
@@ -222,13 +263,15 @@ def gemm_plan(n: int, B: int, K: int, M: int, q_strides, sms: int = H100_SMS) ->
 _CODE_MAPS = {}
 
 
-def _codes_map(lib, ptr: int, L: int, K: int, M: int, bn: int):
+def _codes_map(lib, source: str, ptr: int, L: int, K: int, M: int, bn: int):
+    """The tensor map of K-major codes at `ptr`, encoded by `source`'s
+    library (both GEMMs encode the same map, so either's serves both)."""
     key = (ptr, L, K, M, bn)
     buf = _CODE_MAPS.get(key)
     if buf is None:
         buf = ctypes.create_string_buffer(128)
-        err = lib.mm8_a8_codes_map(ptr, L, K, M, bn, buf)
-        _kernels.check(lib, _SOURCE, "mm8_a8_codes_map", err)
+        fn = f"{source}_codes_map"
+        _kernels.check(lib, source, fn, getattr(lib, fn)(ptr, L, K, M, bn, buf))
         _CODE_MAPS[key] = buf
     return buf
 
@@ -274,7 +317,7 @@ def gemm(x8, stats, q, mx, rx, *, layer: Optional[int] = None, relu2=False,
         raise TypeError(f"gemm: out_dtype {out_dtype} not supported")
     out = torch.empty((B, M), dtype=out_dtype, device=dev)
     lib = _kernels.library(_SOURCE, _SIGNATURES)
-    qmap = _codes_map(lib, q.data_ptr(), L, K, M, plan.bn)
+    qmap = _codes_map(lib, _SOURCE, q.data_ptr(), L, K, M, plan.bn)
     err = lib.mm8_a8_gemm(
         x8.data_ptr(), stats.data_ptr(), qmap, mx.data_ptr(), rx.data_ptr(), out.data_ptr(),
         B, K, M, n, 0 if layer is None else layer, _OUT_MODES[out_dtype], int(relu2),
@@ -284,17 +327,12 @@ def gemm(x8, stats, q, mx, rx, *, layer: Optional[int] = None, relu2=False,
     return out
 
 
-def _check_w16_shape(K, K2, M):
-    if K2 != K or M % W16_BN or K % W16_BK:
-        raise ValueError(f"mm8_core_w16: unsupported shapes K {K}, q ({K2}, {M}) "
-                         f"(K % {W16_BK} == 0 and M % {W16_BN} == 0 required)")
-
-
 def mm8_core_w16(xs, q, *, layer: Optional[int] = None):
     """xs @ q for the w8a16 mm8 matmul: xs (B, K) bfloat16 or float32, q the
-    (K, M) int8 codes, or the stacked (L, K, M) codes with `layer` (read at a
-    pointer offset, no copy). Returns (B, M) float32. The kernel on CUDA
-    tensors (K % 256 == 0, M % 32 == 0), the plain version on CPU tensors."""
+    (K, M) int8 codes, or the stacked (L, K, M) codes with `layer` (read in
+    place, no copy). Returns (B, M) float32. The kernel on CUDA tensors, with
+    the codes K-major (mm8.to_k_major; w16_plan names the shapes it takes),
+    the plain version on CPU tensors."""
     q_layer = q if layer is None else q[layer]  # a view: no copy on either path
     if xs.device.type == "cpu":
         return core_w16_reference(xs, q_layer)
@@ -302,15 +340,23 @@ def mm8_core_w16(xs, q, *, layer: Optional[int] = None):
         raise ValueError(f"mm8_core_w16: no kernel for device {xs.device}")
     B, K = xs.shape
     K2, M = q_layer.shape
-    _check_w16_shape(K, K2, M)
+    if K2 != K:
+        raise ValueError(f"mm8_core_w16: xs has K {K}, the codes {K2}")
     dev = xs.device
-    _kernels.require(xs, "xs", device=dev, align=16)  # 16-byte row loads
+    plan = w16_plan(B, K, M, q_layer.stride(), _sm_count(dev))
+    L = 1 if layer is None else q.shape[0]
+    if (q.dtype != torch.int8 or q.device != dev or q.data_ptr() % 16
+            or (L > 1 and q.stride(0) != K * M)):
+        raise ValueError(f"mm8_core_w16: the codes must be int8 on {dev}, layers K*M "
+                         f"apart, 16-byte aligned")
+    _kernels.require(xs, "xs", device=dev, align=16)
     code = _kernels.dtype_code(xs, "xs")
-    _kernels.require(q_layer, "q", dtype=torch.int8, device=dev, align=16)
     out = torch.empty((B, M), dtype=torch.float32, device=dev)
     lib = _kernels.library(_W16_SOURCE, _W16_SIGNATURES)
-    err = lib.mm8_w16_gemm(xs.data_ptr(), q_layer.data_ptr(), out.data_ptr(), B, K, M, code,
-                           _kernels.stream_of(xs))
+    qmap = _codes_map(lib, _W16_SOURCE, q.data_ptr(), L, K, M, plan.bn) if code == 1 else None
+    err = lib.mm8_w16_gemm(xs.data_ptr(), qmap, q_layer.data_ptr(), out.data_ptr(), B, K, M,
+                           0 if layer is None else layer, code, plan.bm, plan.bn, plan.stages,
+                           plan.split, _kernels.stream_of(xs))
     _kernels.LAUNCHES["mm8_w16_gemm"] += 1
     _kernels.check(lib, _W16_SOURCE, "mm8_w16_gemm", err)
     return out

@@ -1,5 +1,6 @@
 """The w8a8 GEMM's host side (ops/mm8.py to_k_major, ops/mm8_cuda.py
-gemm_plan) and the K-major codes of ServingModel, on the CPU.
+gemm_plan) and the K-major codes of ServingModel, on the CPU (the w8a16
+GEMM's plan: tests/test_torch_mm8_w16_plan.py).
 
 The kernel (csrc/mm8_a8.cu) reads the int8 codes K-major and launches the
 tile configuration, cluster split and grid that gemm_plan returns; both are
@@ -67,10 +68,10 @@ def test_to_k_major(kind):
 
 @pytest.mark.parametrize("core", ["pallas_a8", "pallas"])
 def test_serving_model_code_layout(core):
-    """ServingModel stores every code tensor K-major under the w8a8 core
-    (merged R/K/V, Wo, the FFN pair, the head) and leaves them N-major
-    (contiguous) under w8a16, whose kernel reads them so; no code tensor keeps
-    a second copy under either."""
+    """ServingModel stores every code tensor K-major under both cores, as
+    both GEMM kernels read them: the w8a8 core's merged R/K/V and the w8a16
+    core's separate R, K, V, then Wo, the FFN pair and the head; no code
+    tensor keeps a second copy under either."""
     cfg = RWKV7Config(n_layer=2, n_embd=128, vocab_size=512)
     params = synthetic_params_int8(cfg, seed=2, dtype=torch.float32, device="cpu")
     rt = RuntimeConfig(activation_dtype=torch.float32, wkv_state_dtype=torch.float32,
@@ -80,8 +81,7 @@ def test_serving_model_code_layout(core):
     names = (["Wrkv"] if core == "pallas_a8" else ["Wr", "Wk", "Wv"]) + ["Wo"]
     ws = [att[k] for k in names] + [ffn["Wk"], ffn["Wv"], m.params["head"]]
     for w in ws:
-        assert _k_major_layers(w.q) == (core == "pallas_a8")
-        assert w.q.is_contiguous() == (core == "pallas")
+        assert _k_major_layers(w.q) and not w.q.is_contiguous()
         assert w.q.untyped_storage().nbytes() == w.q.numel()
     assert torch.equal(m.params["head"].q, params["head"].q)
     assert torch.equal(att["Wo"].q, params["blocks"]["att"]["Wo"].q)

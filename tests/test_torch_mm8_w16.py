@@ -225,7 +225,7 @@ def test_w16_serving_matches_jax_pallas():
         js, ts = jm.extract_slot(jc, s), tm.extract_slot(tc, s)
         assert ts.elapsed == js.elapsed
         for a, b in ((ts.shift, js.shift), (ts.wkv, js.wkv)):
-            b = np.asarray(b)
+            a, b = a.float().numpy(), np.asarray(b, np.float32)
             np.testing.assert_allclose(a, b, rtol=0, atol=1e-4 * np.abs(b).max())
 
 

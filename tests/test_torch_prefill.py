@@ -287,7 +287,7 @@ def test_int8_compact_prefill_then_decode_matches_jax():
         js, ts = jm.extract_slot(jc, s), tm.extract_slot(tc, s)
         assert ts.elapsed == js.elapsed == {0: 12, 1: 5, 2: 8, 3: 0}[s]
         for a, b in ((ts.shift, js.shift), (ts.wkv, js.wkv)):
-            b = np.asarray(b)
+            a, b = a.float().numpy(), np.asarray(b, np.float32)
             np.testing.assert_allclose(a, b, rtol=0, atol=2e-3 * max(np.abs(b).max(), 1e-6))
     act = np.array([True, True, True, False])
     toks = np.array([prompts[0][12], prompts[1][5], prompts[2][8], 0], np.int32)

@@ -127,8 +127,8 @@ def test_int8_serving_matches_jax_pallas(int8_models):
         js, ts = jm.extract_slot(jc, s), tm.extract_slot(tc, s)
         assert ts.elapsed == js.elapsed
         for a, b in ((ts.shift, js.shift), (ts.wkv, js.wkv)):
-            np.testing.assert_allclose(a, np.asarray(b), rtol=0,
-                                       atol=2e-3 * np.abs(np.asarray(b)).max())
+            a, b = a.float().numpy(), np.asarray(b, np.float32)
+            np.testing.assert_allclose(a, b, rtol=0, atol=2e-3 * np.abs(b).max())
 
 
 def test_decode_block_equals_decode_steps(int8_models):
