@@ -2,6 +2,7 @@
 """Smoke run of chirrup_tpu_torch on one NVIDIA GPU (built for an H100, sm_90a).
 
     python3 chip_smoke.py [--profile]
+    python3 chip_smoke.py --compare DIR    # DIR: another checkout (compare_trees)
 
 Phases, in order; any failure ends the run with a non-zero exit:
 
@@ -13,14 +14,20 @@ Phases, in order; any failure ends the run with a non-zero exit:
    its time, its bound, the plain version's time and, where one PyTorch call
    computes the same function, that call's time: the decode kernels at batch
    64, the WKV chunk kernel at the prefill variants (P, T) = (8, 64), (8, 256)
-   and (32, 64) (and against a planted fault that ignores lengths), the bare
+   and (32, 64) (against a planted fault that ignores lengths, a second run
+   bit-equal, timed with full rows too, and its serial floor: the longest
+   row's tokens times one token of the chain), the bare
    WKV kernel at T = 1 (batch 64) and at the same variants (with the same
-   planted fault), the w8a8 mm8 kernels (and the bare int8 core, int32 out)
+   planted fault), the w8a8 mm8 kernels (the quantizer against a planted
+   fault, the neighbouring row's codes and stats, with a second run
+   bit-equal and its other launches timed; the bare int8 core, int32 out)
    and the w8a16 core, bf16 and float32 activations, at its seven decode
    sites, both on K-major codes and timed with cold weights at decode row
    counts, both at 1 and 37 rows too, all at prefill row counts 512, 2048
-   and 1000 as well; before them, both TMA GEMMs' registers and spills
-   (ptxas -v) and their wgmma and TMA instructions (cuobjdump, where
+   and 1000 as well, then the quantizer's time over a decode step and its
+   share of the bytes bound at 2,048 rows; before them, the registers and
+   spills (ptxas -v) of both TMA GEMMs, the quantizer and the WKV chunk
+   kernel, and the GEMMs' wgmma and TMA instructions (cuobjdump, where
    present);
 4. the decode path and the compact prefill on a small model, kernels (GPU)
    against plain versions (CPU), and chunked prefill against token-by-token
@@ -197,38 +204,80 @@ def check_wkv(dev, gen, B=64, C=4096, L=32, li=17):
                 tolerance="per element 2^-7 |ref| + 2^-8 rms(ref), y and state")
 
 
-def check_chunk(dev, gen, variants=((8, 64), (8, 256), (32, 64)), C=4096, L=32, li=9):
-    """The chunk kernel against its plain version at each prefill variant, with
-    bf16 rows and state, r/k/v as views of one merged (P, T, 3C) projection
-    output, and lengths that include 0, 1, one not a multiple of 8, and T. The
-    same per-element limit as the decode step, on y and on the state; the
-    comparison must reject a planted fault: a plain version that ignores
-    lengths. The first variant is the headline of the JSON line."""
-    from chirrup_tpu_torch.ops.wkv7_cuda import wkv7_chunk_fused, wkv7_chunk_fused_reference
-
+def chunk_params(dev, gen, C):
+    """The chunk kernel's per-channel parameters k_k, k_a, r_k, ln_w, ln_b
+    (C,) bf16."""
     bf = torch.bfloat16
     rnd = lambda *s: torch.randn(s, generator=gen, device=dev)
     k_k, k_a, r_k = ((rnd(C) * 0.5 + 1.0).to(bf) for _ in range(3))
-    ln_w, ln_b = (rnd(C) * 0.1 + 1.0).to(bf), (rnd(C) * 0.1).to(bf)
+    return k_k, k_a, r_k, (rnd(C) * 0.1 + 1.0).to(bf), (rnd(C) * 0.1).to(bf)
+
+
+def chunk_inputs(dev, gen, P, T, C, L, params):
+    """Random chunk-kernel inputs around `params` (chunk_params): bf16 rows
+    with r/k/v views of one merged (P, T, 3C) projection output, a bf16 state
+    of L layers, dither counters (the first crossing 2^31 mid-chunk), and
+    lengths that include 0, 1, one not a multiple of 8, and T."""
+    bf = torch.bfloat16
+    rnd = lambda *s: torch.randn(s, generator=gen, device=dev)
+    rkv = rnd(P, T, 3 * C).to(bf)
+    r, k, v = rkv.split(C, dim=-1)
+    w = rnd(P, T, C).to(bf)
+    a = torch.sigmoid(rnd(P, T, C)).to(bf)
+    state = (rnd(L, P, 64, C) * 0.3).to(bf)
+    elapsed = torch.randint(0, 2 ** 31 - 1, (P,), generator=gen, device=dev,
+                            dtype=torch.int64).to(torch.int32)
+    elapsed[0] = 2 ** 31 - 7                 # the counter crosses 2^31 mid-chunk
+    lengths = torch.randint(0, T + 1, (P,), generator=gen, device=dev,
+                            dtype=torch.int64).to(torch.int32)
+    lengths[:4] = torch.tensor([0, 1, T - 3, T], dtype=torch.int32)[:P]
+    return state, (r, w, k, a, v, *params, elapsed, lengths)
+
+
+def chunk_token_us(dev, C=4096, T=(64, 256)):
+    """The time of one token of the chunk kernel's chain: one request (one
+    block per head, the card nearly empty), every row full, timed at two
+    chunk lengths; the slope between them, in microseconds. Its inputs come
+    from a generator of its own, so the checked variants' draws do not
+    depend on it."""
+    from chirrup_tpu_torch.ops.wkv7_cuda import wkv7_chunk_fused
+
+    gen = torch.Generator(device=dev).manual_seed(1)
+    params = chunk_params(dev, gen, C)
+    ms = []
+    for t in T:
+        state, args = chunk_inputs(dev, gen, 1, t, C, 2, params)
+        full = (*args[:-1], torch.full_like(args[-1], t))
+        ms.append(device_ms(lambda: wkv7_chunk_fused(state, 1, *full)))
+    return 1e3 * (ms[1] - ms[0]) / (T[1] - T[0])
+
+
+def check_chunk(dev, gen, variants=((8, 64), (8, 256), (32, 64)), C=4096, L=32, li=9):
+    """The chunk kernel against its plain version at each prefill variant, with
+    bf16 rows and state (chunk_inputs). The same per-element limit as the
+    decode step, on y and on the state; the comparison must reject a planted
+    fault: a plain version that ignores lengths. A second run from the same
+    state must give the same bits. Timed at its ragged lengths and with full
+    rows; beside the bound, the serial floor: the longest row's tokens times
+    one token of the chain (chunk_token_us). The first variant is the
+    headline of the JSON line."""
+    from chirrup_tpu_torch.ops import wkv7_cuda
+    from chirrup_tpu_torch.ops.wkv7_cuda import wkv7_chunk_fused, wkv7_chunk_fused_reference
+
+    params = chunk_params(dev, gen, C)
     sites = []
     for P, T in variants:
-        rkv = rnd(P, T, 3 * C).to(bf)
-        r, k, v = rkv.split(C, dim=-1)
-        w = rnd(P, T, C).to(bf)
-        a = torch.sigmoid(rnd(P, T, C)).to(bf)
-        state = (rnd(L, P, 64, C) * 0.3).to(bf)
-        elapsed = torch.randint(0, 2 ** 31 - 1, (P,), generator=gen, device=dev,
-                                dtype=torch.int64).to(torch.int32)
-        elapsed[0] = 2 ** 31 - 7                 # the counter crosses 2^31 mid-chunk
-        lengths = torch.randint(0, T + 1, (P,), generator=gen, device=dev,
-                                dtype=torch.int64).to(torch.int32)
-        lengths[:4] = torch.tensor([0, 1, T - 3, T], dtype=torch.int32)
-        args = (r, w, k, a, v, k_k, k_a, r_k, ln_w, ln_b, elapsed, lengths)
+        state, args = chunk_inputs(dev, gen, P, T, C, L, params)
+        lengths = args[-1]
         before, neighbour = state[li].clone(), state[li - 1].clone()
         y_ref, s_ref = wkv7_chunk_fused_reference(before, *args)
+
+        def agrees(y, s_new):
+            return bf16_excess(y, y_ref), bf16_excess(s_new, s_ref)
+
         y = wkv7_chunk_fused(state, li, *args)
         torch.cuda.synchronize()
-        ex_y, ex_s = bf16_excess(y, y_ref), bf16_excess(state[li], s_ref)
+        ex_y, ex_s = agrees(y, state[li])
         err = max(max_abs(y, y_ref), max_abs(state[li], s_ref))
         require(ex_y <= 1 and ex_s <= 1,
                 f"wkv7_chunk_fused P{P} T{T}: worst |err|/limit y {ex_y}, state {ex_s}")
@@ -240,33 +289,56 @@ def check_chunk(dev, gen, variants=((8, 64), (8, 256), (32, 64)), C=4096, L=32, 
         require(bool((y[past] == 0).all()), "wkv7_chunk_fused: output past a length")
         y_fault, s_fault = wkv7_chunk_fused_reference(before, *args[:-1],
                                                       torch.full_like(lengths, T))
-        ex_fault = max(bf16_excess(y_fault, y_ref), bf16_excess(s_fault, s_ref))
+        ex_fault = max(agrees(y_fault, s_fault))
         require(ex_fault > 1, f"wkv7_chunk_fused: the check passes a kernel that ignores "
                               f"lengths (worst |err|/limit {ex_fault})")
+        s_first = state[li].clone()
+        state[li].copy_(before)
+        y_again = wkv7_chunk_fused(state, li, *args)
+        require(torch.equal(y_again, y) and torch.equal(state[li], s_first),
+                f"wkv7_chunk_fused P{P} T{T}: a second run differs")
+        plan = wkv7_cuda.chunk_plan(P, T, C)
         ms = device_ms(lambda: wkv7_chunk_fused(state, li, *args))
+        full = (*args[:-1], torch.full_like(lengths, T))
+        full_ms = device_ms(lambda: wkv7_chunk_fused(state, li, *full))
         plain = device_ms(lambda: wkv7_chunk_fused_reference(state[li], *args), iters=1,
                           reps=3)
         # this run's work: the valid tokens, the slabs of rows that have any
         n_tok = int(lengths.sum())
         live = int((lengths > 0).sum())
         moved = (2 * live * 64 * C * state.element_size() + 5 * n_tok * C * 2
-                 + nbytes(y, k_k, k_a, r_k, ln_w, ln_b, elapsed, lengths))
+                 + nbytes(y, *args[5:]))
         b, by = bound_ms(moved, 9 * n_tok * 64 * C, "fp32")
-        log(f"wkv7_chunk_fused P{P} T{T} C{C} bf16, {n_tok} valid tokens (lengths "
-            f"{lengths[:4].tolist()}...): y/state err {err:.3e}; worst |err|/limit y "
-            f"{ex_y:.3f}, state {ex_s:.3f} (limit 2^-7|ref| + 2^-8 rms(ref)); planted fault "
-            f"(lengths ignored) {ex_fault:.2f}; {ms:.4f} ms, plain {plain:.4f} ms, bound "
-            f"{b:.4f} ms ({by})")
-        sites.append(dict(variant=[P, T], valid_tokens=n_tok, err=err, ms=ms, plain_ms=plain,
-                          bound_ms=b, bound_by=by, fault_excess=ex_fault))
-        del rkv, r, k, v, w, a, state, before, neighbour, y, y_ref, s_ref, y_fault, s_fault
+        sites.append(dict(variant=[P, T], valid_tokens=n_tok, longest=int(lengths.max()),
+                          err=err, ex_y=ex_y, ex_s=ex_s, ms=ms, full_rows_ms=full_ms,
+                          plain_ms=plain, bound_ms=b, bound_by=by, fault_excess=ex_fault,
+                          plan=plan._asdict(), lengths=lengths[:4].tolist()))
+        del state, args, before, neighbour, y, y_ref, s_ref, y_fault, s_fault, s_first, y_again
+        del full
         torch.cuda.empty_cache()
+    token_us = chunk_token_us(dev, C)
+    log(f"wkv7_chunk_fused: one token of the chain {token_us:.4f} us (one request, full rows, "
+        f"slope between T 64 and 256)")
+    for x in sites:
+        P, T = x["variant"]
+        plan = x["plan"]
+        x["token_us"] = token_us
+        x["serial_floor_ms"] = x["longest"] * token_us / 1e3
+        log(f"wkv7_chunk_fused P{P} T{T} C{C} bf16 ({plan['threads']} threads, "
+            f"{plan['rows_per_thread']} state rows a thread, {plan['threads_per_row']} threads "
+            f"a row, {plan['tile_tokens']} tokens a tile), {x['valid_tokens']} valid tokens "
+            f"(lengths {x['lengths']}...): y/state err {x['err']:.3e}; worst |err|/limit y "
+            f"{x['ex_y']:.3f}, state {x['ex_s']:.3f} (limit 2^-7|ref| + 2^-8 rms(ref)); "
+            f"planted fault (lengths ignored) {x['fault_excess']:.2f}; second run bit-equal; "
+            f"{x['ms']:.4f} ms (full rows {x['full_rows_ms']:.4f}), plain {x['plain_ms']:.4f} "
+            f"ms, bound {x['bound_ms']:.4f} ms ({x['bound_by']}), serial floor "
+            f"{x['serial_floor_ms']:.4f} ms ({x['longest']} tokens)")
     head = sites[0]
     return dict(name="wkv7_chunk_fused", route="cuda", source="chirrup_tpu_torch/csrc/wkv7_chunk.cu",
                 replaces="chirrup_tpu/ops/wkv7_pallas.py:714",
                 max_abs_err=max(x["err"] for x in sites), ms=head["ms"],
                 plain_ms=head["plain_ms"], bound_ms=head["bound_ms"], bound_by=head["bound_by"],
-                library_ms=None,
+                library_ms=None, serial_floor_ms=head["serial_floor_ms"],
                 shape=f"P{variants[0][0]} T{variants[0][1]} C{C}, state ({L}, P, 64, {C}) bf16, "
                       f"one layer",
                 tolerance="per element 2^-7 |ref| + 2^-8 rms(ref), y and state",
@@ -297,9 +369,22 @@ def cold_layers(K, M, B):
     return max(3, -(-(160 << 20) // (K * M))) if B <= 64 else 2
 
 
+def quant_agrees(x8, st, x8_ref, st_ref, st_tol):
+    """(codes max |err|, sums max |err|, whether the quantizer's output
+    passes): codes and s equal, each sum within its entry of st_tol."""
+    code_err = max_abs(x8, x8_ref)
+    st_diff = (st[..., 1:] - st_ref[..., 1:]).abs()
+    ok = (code_err == 0 and torch.equal(st[..., 0], st_ref[..., 0])
+          and bool((st_diff <= st_tol).all()))
+    return code_err, float(st_diff.max()), ok
+
+
 def check_mm8(dev, gen, B=64, shapes=MM8_SHAPES):
     """The quantizer and the w8a8 GEMM at each site with B rows: codes exact
-    and stats within their reordering bound; the GEMM's int32 accumulators
+    and stats within their reordering bound, a planted fault (the
+    neighbouring row's codes and stats) rejected, a second run bit-equal, and
+    the quantizer's other launches (elements a thread) checked and timed
+    beside quant_plan's; the GEMM's int32 accumulators
     bit-equal to the plain version, y within one bf16 step of it (the same
     float operations in the same order: expected 0), mm8_core_a8 exact. The
     codes are K-major; stacked sites read layer 1. Times at decode row counts
@@ -330,9 +415,6 @@ def check_mm8(dev, gen, B=64, shapes=MM8_SHAPES):
         x8, st = mm8_cuda.quant_rows(x, ry, my, **kw)
         x8_ref, st_ref = mm8_cuda.quant_rows_reference(x, ry, my, **kw)
         torch.cuda.synchronize()
-        code_err = max_abs(x8, x8_ref)
-        st_diff = (st[..., 1:] - st_ref[..., 1:]).abs()
-        st_err = float(st_diff.max())
         # s is one max and one division: exact. The three sums add the same
         # float32 terms in another order: each is within 2*K*eps32*sum|terms|
         xm = x.float()[None]
@@ -342,20 +424,48 @@ def check_mm8(dev, gen, B=64, shapes=MM8_SHAPES):
             xm = xm * kw["mul"].float()[None]
         terms = (xm * (ry * 16)[:, None], xm, xm * my[:, None])
         st_tol = torch.stack([2 * K * 2.0 ** -23 * t.abs().sum(-1) for t in terms], -1)
-        require(code_err == 0 and torch.equal(st[..., 0], st_ref[..., 0])
-                and bool((st_diff <= st_tol).all()),
-                f"mm8_a8_quant_rows {site}: codes err {code_err}, stats err {st_err}")
+        code_err, st_err, ok = quant_agrees(x8, st, x8_ref, st_ref, st_tol)
+        require(ok, f"mm8_a8_quant_rows {site}: codes err {code_err}, stats err {st_err}")
+        # the planted fault: the neighbouring row's codes and stats
+        fault = quant_agrees(torch.roll(x8_ref, 1, dims=1), torch.roll(st_ref, 1, dims=1),
+                             x8_ref, st_ref, st_tol)
+        require(B == 1 or not fault[2], f"mm8_a8_quant_rows {site}: the check passes the "
+                                        f"neighbouring row's codes and stats")
+        x8_again, st_again = mm8_cuda.quant_rows(x, ry, my, **kw)
+        require(torch.equal(x8_again, x8) and torch.equal(st_again, st),
+                f"mm8_a8_quant_rows {site}: a second run differs")
         st_tol = float(st_tol.max())
+        plan = mm8_cuda.quant_plan(n, B, K)
         q_ms = device_ms(lambda: mm8_cuda.quant_rows(x, ry, my, **kw))
+        # the other launches the kernel has for this site, each checked and timed
+        alt = {}
+        for elems in (8, 16, 32):
+            try:
+                other = mm8_cuda.quant_shape(n, B, K, elems)
+            except ValueError:
+                continue
+            if other == plan:
+                continue
+            got = mm8_cuda.quant_rows_planned(other, x, ry, my, **kw)
+            require(quant_agrees(*got, x8_ref, st_ref, st_tol)[2],
+                    f"mm8_a8_quant_rows {site}: launch {other} disagrees")
+            alt[f"{elems}e"] = device_ms(
+                lambda: mm8_cuda.quant_rows_planned(other, x, ry, my, **kw))
         q_plain = device_ms(lambda: mm8_cuda.quant_rows_reference(x, ry, my, **kw), iters=5)
         aux = [t for t in kw.values()]
         q_b, q_by = bound_ms(nbytes(x, ry, my, *aux, x8, st), 8 * n * B * K, "fp32")
-        quant_rows_out.append(dict(site=site, err=max(code_err, st_err), ms=q_ms,
+        quant_rows_out.append(dict(site=site, rows=B, err=max(code_err, st_err), ms=q_ms,
                                    plain_ms=q_plain, bound_ms=q_b, bound_by=q_by,
+                                   plan=plan._asdict(), alternatives_ms=alt,
                                    shape=f"n {n}, ({B}, {K}) bf16 -> int8"))
-        log(f"mm8_a8_quant_rows {site} n{n} B{B} K{K}: codes err {code_err}, stats err "
-            f"{st_err:.3e} (tol {st_tol:.3e}); {q_ms:.4f} ms, plain {q_plain:.4f} ms, "
-            f"bound {q_b:.4f} ms ({q_by})")
+        log(f"mm8_a8_quant_rows {site} n{n} B{B} K{K} ({plan.threads} threads x {plan.elems}, "
+            f"grid {plan.grid}): codes "
+            f"err {code_err}, stats err {st_err:.3e} (tol {st_tol:.3e}); planted fault "
+            f"(neighbouring row) {'rejected' if not fault[2] else 'n/a at one row'}; second "
+            f"run bit-equal; {q_ms:.4f} ms, bound {q_b:.4f} ms ({q_by}, "
+            f"{100 * q_b / q_ms:.1f}% of it); plain {q_plain:.4f} ms; other launches "
+            f"(elements e a thread) "
+            + (", ".join(f"{k} {v:.4f} ms" for k, v in alt.items()) or "none"))
 
         L = cold_layers(K, M, B) if stacked else None
         q = codes(dev, gen, L, K, M)
@@ -446,6 +556,9 @@ def check_mm8(dev, gen, B=64, shapes=MM8_SHAPES):
 # the TMA + wgmma GEMMs: source -> the SASS mnemonic of its wgmma (integer
 # for the w8a8 GEMM, floating point for the w8a16 one)
 GEMM_SOURCES = {"mm8_a8": "IGMMA", "mm8_w16": "HGMMA"}
+# the sources whose registers and spills the run reports (ptxas -v): the
+# GEMMs (mm8_a8 holds the quantizer too) and the WKV chunk kernel
+PTXAS_SOURCES = (*GEMM_SOURCES, "wkv7_chunk")
 
 
 def _tile_name(fn):
@@ -455,6 +568,26 @@ def _tile_name(fn):
 
     tile = re.search(r"TileILi(\d+)ELi(\d+)ELi(\d+)ELi(\d+)", fn)
     return "gemm %sx%s, %s stages, %s CTA/SM" % tile.groups() if tile else None
+
+
+def _kernel_name(fn):
+    """A readable name for a kernel's mangled name: the GEMM tiles
+    (_tile_name), the quantizer's <dtype, elements a thread, mode>, the chunk
+    kernel's <activation dtype, state dtype>."""
+    import re
+
+    name = _tile_name(fn)
+    if name:
+        return name
+    dt = lambda t: "bf16" if "bfloat16" in t or re.fullmatch(r"S\d*_", t) else "fp32"
+    m = re.search(r"quant_rows_kernelI(\w+?)Li(\d+)ELi(\d)EE", fn)
+    if m:
+        return f"quant_rows {dt(m.group(1))} E{m.group(2)} mode {m.group(3)}"
+    m = re.search(r"wkv7_chunk_fused_kernelI(13__nv_bfloat16|f)(13__nv_bfloat16|S\d*_|f)E",
+                  fn)
+    if m:
+        return f"chunk {dt(m.group(1))} state {dt(m.group(2))}"
+    return next((k for k in ("w16_f32",) if k in fn), fn)
 
 
 def start_ptxas(source, out_dir):
@@ -471,15 +604,14 @@ def start_ptxas(source, out_dir):
 
 
 def sass_report(source, lib_path, ptxas_proc):
-    """What a GEMM source compiled to: ptxas's registers and spills for each
-    of its kernels (start_ptxas), and, where the toolkit has cuobjdump, the
-    count of wgmma (GEMM_SOURCES[source]) and UTMALDG (TMA load) instructions
-    in each TMA GEMM kernel of the built library. Fails if the build failed
-    or a TMA GEMM kernel has no wgmma."""
+    """What a source compiled to: ptxas's registers and spills for each of
+    its kernels (start_ptxas), and, for a GEMM source where the toolkit has
+    cuobjdump, the count of wgmma (GEMM_SOURCES[source]) and UTMALDG (TMA
+    load) instructions in each TMA GEMM kernel of the built library. Fails if
+    the build failed or a TMA GEMM kernel has no wgmma."""
     import re
     import shutil
 
-    mma = GEMM_SOURCES[source]
     out = {}
     log_text, _ = ptxas_proc.communicate()
     require(ptxas_proc.returncode == 0, f"ptxas -v build of {source}.cu failed:\n{log_text}")
@@ -487,20 +619,20 @@ def sass_report(source, lib_path, ptxas_proc):
                                r"(?=Compiling entry function|\Z)", log_text, re.S):
         used = re.search(r"Used (\d+) registers", body)
         spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", body)
-        name = _tile_name(fn) or next(
-            (k for k in ("quant_rows bf16", "quant_rows fp32", "w16_f32")
-             if k.split()[0] in fn and ("bfloat16" in fn) == k.endswith("bf16")), fn)
-        out[name] = dict(registers=int(used.group(1)) if used else None,
+        out[_kernel_name(fn)] = dict(registers=int(used.group(1)) if used else None,
                          spill_bytes=[int(spill.group(1)), int(spill.group(2))] if spill
                          else None)
     log(f"ptxas -v, csrc/{source}.cu: " + "; ".join(
         f"{k}: {v['registers']} registers, spill stores/loads {v['spill_bytes']} bytes"
         for k, v in out.items()))
+    if source not in GEMM_SOURCES:
+        return out
     tool = shutil.which("cuobjdump") or os.path.join(
         os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "cuobjdump")
     if not os.path.exists(tool):
         log("cuobjdump not found: SASS instruction counts not taken")
         return out
+    mma = GEMM_SOURCES[source]
     sass = subprocess.run([tool, "-sass", str(lib_path)], capture_output=True, text=True,
                           check=True).stdout
     counts = {}
@@ -966,6 +1098,23 @@ def check_small_unfused(dev):
             msg += (f"; against the fused kernels on the GPU "
                     f"{', '.join(f'{e:.3e}' for e in errs)}")
         log(msg)
+
+
+def summarize_quant(kernels, mm8_prefill):
+    """The quantizer over a w8a8 decode step, reckoned from its per-site
+    times at batch 64 (32 layers of R/K/V, Wo, FFN Wk and FFN Wv, and the
+    head: 129 launches), and each site's share of its bytes bound at 2,048
+    rows."""
+    sites = {q["site"]: q for q in next(k for k in kernels
+                                        if k["name"] == "mm8_a8_quant_rows")["sites"]}
+    layer = ("att R/K/V", "att Wo", "ffn Wk", "ffn Wv")
+    step_ms = 32 * sum(sites[s]["ms"] for s in layer) + sites["head"]["ms"]
+    rows = next(k for k in mm8_prefill[2048] if k["name"] == "mm8_a8_quant_rows")["sites"]
+    share = {q["site"]: q["bound_ms"] / q["ms"] for q in rows}
+    log(f"mm8_a8_quant_rows over a decode step (batch 64, 129 launches, from the per-site "
+        f"times): {step_ms:.4f} ms; at 2,048 rows, share of the bytes bound: "
+        + ", ".join(f"{k} {100 * v:.1f}%" for k, v in share.items()))
+    return dict(decode_step_ms=step_ms, share_of_bound_2048=share)
 
 
 # ------------------------------------------------------------- main path
@@ -1443,12 +1592,85 @@ def unfused_layer0_float32(dev, m, B, P, T):
     return out
 
 
+# ------------------------------------------------------- two trees compared
+
+# one tree's run of the comparison, in a process of its own started in that
+# tree's root: the chunk kernel after check_wkv from seed 0 (so its inputs are
+# a full run's), the quantizer (with its GEMM) at batch 64 and at 2,048 rows
+# from seed 1; the sites' numbers go to the JSON file named by argv[1]
+_COMPARE_RUN = """
+import json, sys, torch
+import chip_smoke as cs
+from chirrup_tpu_torch.ops import _kernels
+dev = torch.device("cuda", 0)
+torch.backends.cuda.matmul.allow_tf32 = False
+_kernels.build(("wkv7_step", "wkv7_chunk", "mm8_a8"))
+gen = torch.Generator(device=dev).manual_seed(0)
+cs.check_wkv(dev, gen)
+out = {"chunk": cs.check_chunk(dev, gen)["sites"]}
+for rows, shapes in ((64, cs.MM8_SHAPES), (2048, cs.MM8_SHAPES[:4])):
+    gen = torch.Generator(device=dev).manual_seed(1)
+    out[f"quant_{rows}"] = cs.check_mm8(dev, gen, B=rows, shapes=shapes)[0]["sites"]
+json.dump(out, open(sys.argv[1], "w"))
+"""
+
+
+def compare_trees(parent: str) -> int:
+    """The WKV chunk kernel and the activation quantizer of this tree against
+    those of another checkout `parent` (a `git archive` of another commit
+    unpacked into a gitignored directory), each tree in a process of its own,
+    in turns parent, change, change, parent, on the same inputs (_COMPARE_RUN).
+    Prints each run's chunk times (with its valid tokens: the same in every
+    run) and the quantizer's time over a decode step and at 2,048 rows;
+    writes every site's numbers to chiprun_out/compare.json."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    trees = {"parent": os.path.abspath(parent), "change": here}
+    os.makedirs(OUT_DIR, exist_ok=True)
+    runs = []
+    for i, label in enumerate(("parent", "change", "change", "parent"), 1):
+        path = os.path.join(OUT_DIR, f"compare_{i}_{label}.json")
+        with open(os.path.join(OUT_DIR, f"compare_{i}_{label}.log"), "w") as out:
+            rc = subprocess.run([sys.executable, "-c", _COMPARE_RUN, path], cwd=trees[label],
+                                stdout=out, stderr=subprocess.STDOUT).returncode
+        require(rc == 0, f"compare run {i} ({label}) exited {rc}: see "
+                         f"chiprun_out/compare_{i}_{label}.log")
+        with open(path) as f:
+            res = json.load(f)
+        quant = {q["site"]: q["ms"] for q in res["quant_64"]}
+        step = 32 * sum(quant[s] for s in ("att R/K/V", "att Wo", "ffn Wk", "ffn Wv")) \
+            + quant["head"]
+        runs.append(dict(run=i, tree=label, chunk=[
+            dict(variant=x["variant"], valid_tokens=x["valid_tokens"], ms=x["ms"],
+                 bound_ms=x["bound_ms"]) for x in res["chunk"]],
+            quant_decode_step_ms=step, quant_64_ms=quant,
+            quant_2048=[dict(site=q["site"], ms=q["ms"], bound_ms=q["bound_ms"])
+                        for q in res["quant_2048"]]))
+        log(f"run {i} ({label}): wkv7_chunk_fused " + "; ".join(
+            f"{tuple(x['variant'])} {x['ms']:.4f} ms ({x['valid_tokens']} valid tokens)"
+            for x in runs[-1]["chunk"])
+            + f"; mm8_a8_quant_rows over a decode step {step:.4f} ms (batch 64, per site "
+            + ", ".join(f"{k} {1e3 * v:.2f} us" for k, v in quant.items())
+            + "); at 2,048 rows " + ", ".join(
+                f"{q['site']} {1e3 * q['ms']:.2f} us ({100 * q['bound_ms'] / q['ms']:.1f}% of "
+                f"its bound)" for q in runs[-1]["quant_2048"]))
+    tokens = {tuple(tuple([x["variant"][0], x["variant"][1], x["valid_tokens"]])
+                    for x in r["chunk"]) for r in runs}
+    require(len(tokens) == 1, f"the trees timed the chunk kernel on different lengths: {tokens}")
+    with open(os.path.join(OUT_DIR, "compare.json"), "w") as f:
+        json.dump(runs, f, indent=1)
+    return 0
+
+
 # ------------------------------------------------------------------- main
 
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--profile", action="store_true",
                         help="also print a torch.profiler table of one decode block")
+    parser.add_argument("--compare", metavar="DIR",
+                        help="instead of the smoke run, time the WKV chunk kernel and the "
+                             "quantizer of the checkout in DIR against this tree's "
+                             "(compare_trees)")
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the GPU only", file=sys.stderr)
@@ -1459,6 +1681,8 @@ def main(argv=None) -> int:
                           "--format=csv,noheader"], capture_output=True, text=True,
                          check=True).stdout.strip().splitlines()
     log(smi[0])
+    if args.compare:
+        return compare_trees(args.compare)
     dev = torch.device("cuda", 0)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -1466,7 +1690,7 @@ def main(argv=None) -> int:
 
     t0 = time.perf_counter()
     ptxas_dir = tempfile.TemporaryDirectory()
-    ptxas = {src: start_ptxas(src, ptxas_dir.name) for src in GEMM_SOURCES}
+    ptxas = {src: start_ptxas(src, ptxas_dir.name) for src in PTXAS_SOURCES}
     libs = _kernels.build()
     log(f"built {', '.join(p.name for p in libs.values())} in {time.perf_counter() - t0:.1f} s")
     sass = {src: sass_report(src, libs[src], proc) for src, proc in ptxas.items()}
@@ -1487,6 +1711,7 @@ def main(argv=None) -> int:
                           check_w16(dev, gen, B=rows, sites=W16_PREFILL_SITES)]
                    for rows in (512, 2048, 1000)}
     torch.cuda.empty_cache()
+    quant_summary = summarize_quant(kernels, mm8_prefill)
     check_small_model(dev)
     check_small_prefill(dev)
     check_small_prefill(dev, mm8_core="pallas")
@@ -1520,7 +1745,8 @@ def main(argv=None) -> int:
                                 for rows, ks in mm8_prefill.items()}
     path["mm8_decode_rows"] = {rows: {k["name"]: k["sites"] for k in ks}
                                for rows, ks in mm8_decode.items()}
-    path["gemm_builds"] = sass
+    path["builds"] = sass
+    path["quant_summary"] = quant_summary
     path["w16"] = path_a
     path["unfused"] = path_b
 

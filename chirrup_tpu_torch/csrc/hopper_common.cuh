@@ -1,7 +1,8 @@
-// Hopper building blocks shared by the TMA + wgmma GEMMs (mm8_a8.cu,
-// mm8_w16.cu): shared-memory addresses, mbarriers, TMA tensor loads and the
-// tensor-map encoder, wgmma descriptors and fences, and thread-block
-// clusters. Everything here needs sm_90a.
+// Hopper building blocks shared by the hand-written kernels: shared-memory
+// addresses, mbarriers, TMA tensor loads and the tensor-map encoder, wgmma
+// descriptors and fences (the GEMMs, mm8_a8.cu and mm8_w16.cu), thread-block
+// clusters (the GEMMs' split-K) and the error codes beyond the runtime's.
+// Everything here needs sm_90a.
 
 #pragma once
 
@@ -122,13 +123,14 @@ inline EncodeTiled encoder() {
 }
 
 // errors of these libraries beyond the runtime's codes
-constexpr int ERR_NO_ENCODER = 10001, ERR_ENCODE = 10002, ERR_TILE = 10003;
+constexpr int ERR_NO_ENCODER = 10001, ERR_ENCODE = 10002, ERR_TILE = 10003, ERR_PLAN = 10004;
 
 inline const char* error_string(int code) {
   switch (code) {
     case ERR_NO_ENCODER: return "cuTensorMapEncodeTiled not found through the runtime";
     case ERR_ENCODE: return "cuTensorMapEncodeTiled refused the tensor map";
     case ERR_TILE: return "no GEMM kernel for this tile configuration";
+    case ERR_PLAN: return "no kernel for this launch plan";
     default: return cudaGetErrorString((cudaError_t)code);
   }
 }

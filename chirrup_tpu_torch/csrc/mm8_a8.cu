@@ -10,16 +10,33 @@
 //   The row math is _quant_rows (mm8_pallas.py:176) and the epilogue
 //   _dequant_tile (mm8_pallas.py:190).
 //
-// mm8_a8_quant_rows, one block per (row b, variant m):
+// mm8_a8_quant_rows, per (row b, variant m):
 //   x_m  = x                      (mode 0)
 //        = x + xx * mu[m]         (mode 1, the token-shift mix of merged R/K/V)
 //        = x * mul                (mode 2, the TMix gate before Wo)
 //   xs   = x_m * (ry[m] * 16)     s = max(max|xs| / 127, 1e-20)
 //   x8   = round_half_even(xs / s)
 //   stats[m, b] = [s, sum xs, sum x_m, sum x_m * my[m]]
-// Bound: device memory (the rows read once, int8 codes written once); a few
-// flops per element. Each element is recomputed for the second pass instead
-// of being kept, so a row of any width needs no shared memory.
+// Bound: device memory, each input byte read once and each code and stat
+// written once (64 rows of 4,096: under 1 us at 3.35 TB/s); a few
+// operations per element. At decode row counts the time is latency, a few
+// microseconds a launch whatever the bytes, so a thread must not walk a
+// chain of loads or pass over its row twice; at prefill row counts it is
+// the instructions per code.
+// Design: one pass with the row in registers. A CTA takes one (row,
+// variant); each thread holds 8, 16 or 32 elements in 8-element chunks t,
+// t + threads, ... (16-byte loads of x, xx or mul, and mu; float4 loads of
+// ry and my), forms the mixed value and xs, keeps xs in registers and its
+// partial max and three partial sums. The block reduces
+// the four values once (warp shuffles, then one shared-memory round), in a
+// fixed order. Each thread then writes its codes 8 to a store. The codes
+// are round-half-even of the IEEE quotient xs / s bit for bit: a multiply
+// by rn(1/s) decides them except within 2^-15 of a half-integer, where the
+// kernel divides (codes4 below). The plan (mm8_cuda.quant_plan) picks the
+// elements a thread; s and the codes do not depend on it, the three sums
+// only through their order. (All three R/K/V variants in one CTA, reading x
+// and xx once, was slower at every row count on the H100: at 16 elements a
+// thread it spills within the 64 registers that 1,024 threads leave.)
 //
 // mm8_a8_gemm, one CTA (or one cluster of CTAs) per (BM-row, BN-column) tile:
 //   acc[b, n] = sum_k x8[var(n), b, k] * q[layer, k, n]       (exact int32)
@@ -69,74 +86,189 @@ using namespace hopper;
 
 namespace {
 
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
-
 // ------------------------------------------------------------------ quantize
 
-constexpr int QT = 256;  // threads of a quantize block
+// 8 consecutive elements of a row: one 16-byte load (bf16) or two (float32),
+// kept as loaded until they are needed as floats
+template <typename T> struct Raw8 { uint4 u[sizeof(T) / 2]; };
 
 template <typename T>
-__device__ __forceinline__ float mixed(const T* x, const T* aux, const T* mu, int kk,
-                                       int mode) {
-  const float xf = to_f32(x[kk]);
-  if (mode == 1) return __fadd_rn(xf, __fmul_rn(to_f32(aux[kk]), to_f32(mu[kk])));
-  if (mode == 2) return __fmul_rn(xf, to_f32(aux[kk]));
-  return xf;
+__device__ __forceinline__ Raw8<T> load_raw8(const T* p) {
+  Raw8<T> r;
+  const uint4* q = reinterpret_cast<const uint4*>(p);
+#pragma unroll
+  for (int i = 0; i < (int)(sizeof(T) / 2); ++i) r.u[i] = __ldg(q + i);
+  return r;
+}
+
+__device__ __forceinline__ void to_floats(const Raw8<__nv_bfloat16>& r, float (&v)[8]) {
+  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&r.u[0]);
+#pragma unroll
+  for (int e = 0; e < 4; ++e) {
+    const float2 f = __bfloat1622float2(h[e]);
+    v[2 * e] = f.x;
+    v[2 * e + 1] = f.y;
+  }
+}
+
+__device__ __forceinline__ void to_floats(const Raw8<float>& r, float (&v)[8]) {
+  const float* f = reinterpret_cast<const float*>(&r.u[0]);
+#pragma unroll
+  for (int e = 0; e < 8; ++e) v[e] = f[e];
+}
+
+__device__ __forceinline__ void load8(const float* p, float (&v)[8]) {
+  const float4 a = __ldg(reinterpret_cast<const float4*>(p));
+  const float4 b = __ldg(reinterpret_cast<const float4*>(p) + 1);
+  v[0] = a.x; v[1] = a.y; v[2] = a.z; v[3] = a.w;
+  v[4] = b.x; v[5] = b.y; v[6] = b.z; v[7] = b.w;
+}
+
+// [max, sum, sum, sum] of every thread's v over the block (warp shuffles,
+// then one shared-memory round read by warp 0), in a fixed order; every
+// thread gets the result. red holds 32 float4, out one.
+__device__ __forceinline__ float4 block_stats(float4 v, float4* red, float4* out) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) {
+    v.x = fmaxf(v.x, __shfl_xor_sync(0xffffffffu, v.x, o));
+    v.y += __shfl_xor_sync(0xffffffffu, v.y, o);
+    v.z += __shfl_xor_sync(0xffffffffu, v.z, o);
+    v.w += __shfl_xor_sync(0xffffffffu, v.w, o);
+  }
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  if (lane == 0) red[warp] = v;
+  __syncthreads();
+  if (warp == 0) {
+    v = lane < (int)(blockDim.x >> 5) ? red[lane] : make_float4(0.f, 0.f, 0.f, 0.f);
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) {
+      v.x = fmaxf(v.x, __shfl_xor_sync(0xffffffffu, v.x, o));
+      v.y += __shfl_xor_sync(0xffffffffu, v.y, o);
+      v.z += __shfl_xor_sync(0xffffffffu, v.z, o);
+      v.w += __shfl_xor_sync(0xffffffffu, v.w, o);
+    }
+    if (lane == 0) *out = v;
+  }
+  __syncthreads();
+  return *out;
+}
+
+// The codes of 4 elements xs, packed into one word (byte e = element e):
+// round-half-even of the IEEE quotient xs / s, bit for bit, without a
+// division for almost every element. |xs / s| <= 127 (s >= max|xs| / 127 up
+// to its rounding), and q = xs * rn(1/s) has a relative error below 2^-23,
+// so |q - xs / s| < 1.6e-5 and |q - rn(xs / s)| < 2e-5. Where q lies farther
+// than 2^-15 from every half-integer, no half-integer separates the two and
+// they round to the same integer; where one of the four lies within 2^-15
+// (about 6 in 10^5 of uniformly spread quotients) the kernel takes the IEEE
+// division for all four. q - rint(q) and 0.5 - |that| are exact where the
+// test can be close.
+__device__ __forceinline__ uint32_t codes4(const float* xs, float s, float inv) {
+  float q[4];
+  bool near = false;
+#pragma unroll
+  for (int e = 0; e < 4; ++e) {
+    q[e] = __fmul_rn(xs[e], inv);
+    near |= 0.5f - fabsf(q[e] - rintf(q[e])) <= 0x1p-15f;
+  }
+  if (near) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) q[e] = __fdiv_rn(xs[e], s);
+  }
+  return __byte_perm(__byte_perm(__float2int_rn(q[0]), __float2int_rn(q[1]), 0x0040),
+                     __byte_perm(__float2int_rn(q[2]), __float2int_rn(q[3]), 0x0040), 0x5410);
+}
+
+// One CTA quantizes variant m of row b. Thread t holds the 8-element chunks
+// t, t + blockDim.x, ... (E/8 of them) of the row: x (and xx or mul) as
+// loaded, then xs in registers between the row statistics and the codes.
+// MODE 0: x; 1: x + xx * mu[m]; 2: x * mul.
+template <typename T, int E, int MODE>
+__global__ void __launch_bounds__(E <= 16 ? 1024 : 512) quant_rows_kernel(
+    const T* __restrict__ x, const T* __restrict__ aux, const T* __restrict__ mu,
+    const float* __restrict__ ry, const float* __restrict__ my, int8_t* __restrict__ x8,
+    float* __restrict__ stats, int B, int K) {
+  constexpr int J = E / 8;
+  __shared__ float4 red[32];
+  __shared__ float4 total;
+  const int m = blockIdx.x, b = blockIdx.y, chunks = K / 8;
+
+  Raw8<T> xr[J], ar[J];
+  int kk[J];
+#pragma unroll
+  for (int j = 0; j < J; ++j) {
+    const int c = threadIdx.x + j * blockDim.x;
+    kk[j] = c < chunks ? 8 * c : -1;
+    if (kk[j] < 0) continue;
+    xr[j] = load_raw8(x + (size_t)b * K + kk[j]);
+    if (MODE != 0) ar[j] = load_raw8(aux + (size_t)b * K + kk[j]);
+  }
+  float xs[J][8];
+  float4 st = make_float4(0.f, 0.f, 0.f, 0.f);
+#pragma unroll
+  for (int j = 0; j < J; ++j) {
+    if (kk[j] < 0) continue;
+    float xf[8], r8[8], m8[8];
+    to_floats(xr[j], xf);
+    load8(ry + (size_t)m * K + kk[j], r8);
+    load8(my + (size_t)m * K + kk[j], m8);
+    if (MODE != 0) {
+      float af[8];
+      to_floats(ar[j], af);
+      if (MODE == 1) {
+        float u8[8];
+        to_floats(load_raw8(mu + (size_t)m * K + kk[j]), u8);
+#pragma unroll
+        for (int e = 0; e < 8; ++e) xf[e] = __fadd_rn(xf[e], __fmul_rn(af[e], u8[e]));
+      } else {
+#pragma unroll
+        for (int e = 0; e < 8; ++e) xf[e] = __fmul_rn(xf[e], af[e]);
+      }
+    }
+#pragma unroll
+    for (int e = 0; e < 8; ++e) {
+      const float v = __fmul_rn(xf[e], __fmul_rn(r8[e], 16.0f));
+      xs[j][e] = v;
+      st.x = fmaxf(st.x, fabsf(v));
+      st.y += v;
+      st.z += xf[e];
+      st.w += __fmul_rn(xf[e], m8[e]);
+    }
+  }
+  st = block_stats(st, red, &total);
+  const float s = fmaxf(__fdiv_rn(st.x, 127.0f), 1e-20f), inv = __frcp_rn(s);
+  if (threadIdx.x == 0)
+    *reinterpret_cast<float4*>(stats + ((size_t)m * B + b) * 4) = make_float4(s, st.y, st.z, st.w);
+  int8_t* out = x8 + ((size_t)m * B + b) * K;
+#pragma unroll
+  for (int j = 0; j < J; ++j)
+    if (kk[j] >= 0)
+      *reinterpret_cast<uint2*>(out + kk[j]) =
+          make_uint2(codes4(xs[j], s, inv), codes4(xs[j] + 4, s, inv));
+}
+
+template <typename T, int E, int MODE>
+int launch_quant(const void* x, const void* aux, const void* mu, const void* ry, const void* my,
+                 void* x8, void* stats, int B, int K, int n_var, int threads,
+                 cudaStream_t stream) {
+  quant_rows_kernel<T, E, MODE><<<dim3(n_var, B, 1), threads, 0, stream>>>(
+      (const T*)x, (const T*)aux, (const T*)mu, (const float*)ry, (const float*)my, (int8_t*)x8,
+      (float*)stats, B, K);
+  return (int)cudaGetLastError();
 }
 
 template <typename T>
-__global__ void __launch_bounds__(QT) quant_rows_kernel(
-    const T* __restrict__ x, const T* __restrict__ aux, const T* __restrict__ mu,
-    const float* __restrict__ ry, const float* __restrict__ my, int8_t* __restrict__ x8,
-    float* __restrict__ stats, int B, int K, int mode) {
-  __shared__ float red[4][QT / 32];
-  __shared__ float s_scale;
-  const int b = blockIdx.x, m = blockIdx.y;
-  const T* xr = x + (size_t)b * K;
-  const T* ar = aux ? aux + (size_t)b * K : nullptr;
-  const T* mur = mode == 1 ? mu + (size_t)m * K : nullptr;
-  const float* ryr = ry + (size_t)m * K;
-  const float* myr = my + (size_t)m * K;
-
-  float amax = 0.0f, sxs = 0.0f, sx = 0.0f, sxmy = 0.0f;
-  for (int kk = threadIdx.x; kk < K; kk += QT) {
-    const float xf = mixed(xr, ar, mur, kk, mode);
-    const float xs = __fmul_rn(xf, __fmul_rn(ryr[kk], 16.0f));
-    amax = fmaxf(amax, fabsf(xs));
-    sxs += xs;
-    sx += xf;
-    sxmy += __fmul_rn(xf, myr[kk]);
-  }
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) {
-    amax = fmaxf(amax, __shfl_xor_sync(0xffffffffu, amax, o));
-    sxs += __shfl_xor_sync(0xffffffffu, sxs, o);
-    sx += __shfl_xor_sync(0xffffffffu, sx, o);
-    sxmy += __shfl_xor_sync(0xffffffffu, sxmy, o);
-  }
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  if (lane == 0) {
-    red[0][warp] = amax; red[1][warp] = sxs; red[2][warp] = sx; red[3][warp] = sxmy;
-  }
-  __syncthreads();
-  if (threadIdx.x == 0) {
-    float a = 0.0f, p = 0.0f, q = 0.0f, r = 0.0f;
-    for (int i = 0; i < QT / 32; ++i) {
-      a = fmaxf(a, red[0][i]); p += red[1][i]; q += red[2][i]; r += red[3][i];
-    }
-    const float s = fmaxf(__fdiv_rn(a, 127.0f), 1e-20f);
-    s_scale = s;
-    float* st = stats + ((size_t)m * B + b) * 4;
-    st[0] = s; st[1] = p; st[2] = q; st[3] = r;
-  }
-  __syncthreads();
-  const float s = s_scale;
-  int8_t* out = x8 + ((size_t)m * B + b) * K;
-  for (int kk = threadIdx.x; kk < K; kk += QT) {
-    const float xs = __fmul_rn(mixed(xr, ar, mur, kk, mode), __fmul_rn(ryr[kk], 16.0f));
-    out[kk] = (int8_t)__float2int_rn(__fdiv_rn(xs, s));
-  }
+int dispatch_quant(int elems, int mode, const void* x, const void* aux, const void* mu,
+                   const void* ry, const void* my, void* x8, void* stats, int B, int K,
+                   int n_var, int threads, cudaStream_t stream) {
+#define MM8_A8_QUANT(E, MODE)                                                                \
+  if (elems == E && mode == MODE)                                                            \
+    return launch_quant<T, E, MODE>(x, aux, mu, ry, my, x8, stats, B, K, n_var, threads, stream);
+#define MM8_A8_QUANT_E(E) MM8_A8_QUANT(E, 0) MM8_A8_QUANT(E, 1) MM8_A8_QUANT(E, 2)
+  MM8_A8_QUANT_E(8) MM8_A8_QUANT_E(16) MM8_A8_QUANT_E(32)
+#undef MM8_A8_QUANT_E
+#undef MM8_A8_QUANT
+  return ERR_PLAN;
 }
 
 // ---------------------------------------------------------------------- GEMM
@@ -415,21 +547,19 @@ int launch(const CUtensorMap& xmap, const CUtensorMap& qmap, const float* stats,
 
 // x, aux, mu: dtype code 0 = float32, 1 = bfloat16 (all three alike).
 // aux is xx (mode 1) or mul (mode 2), null in mode 0; mu is null unless mode 1.
+// The launch shape from the wrapper's plan (mm8_cuda.quant_plan): `threads`
+// a CTA, each holding `elems` (8, 16 or 32) elements of a row. Rows 16-byte
+// aligned.
 extern "C" int mm8_a8_quant_rows(const void* x, const void* aux, const void* mu,
                                  const void* ry, const void* my, void* x8, void* stats,
-                                 int B, int K, int n_var, int mode, int dtype,
-                                 void* stream) {
-  const dim3 grid(B, n_var);
+                                 int B, int K, int n_var, int mode, int dtype, int threads,
+                                 int elems, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
   if (dtype == 1)
-    quant_rows_kernel<__nv_bfloat16><<<grid, QT, 0, s>>>(
-        (const __nv_bfloat16*)x, (const __nv_bfloat16*)aux, (const __nv_bfloat16*)mu,
-        (const float*)ry, (const float*)my, (int8_t*)x8, (float*)stats, B, K, mode);
-  else
-    quant_rows_kernel<float><<<grid, QT, 0, s>>>(
-        (const float*)x, (const float*)aux, (const float*)mu, (const float*)ry,
-        (const float*)my, (int8_t*)x8, (float*)stats, B, K, mode);
-  return (int)cudaGetLastError();
+    return dispatch_quant<__nv_bfloat16>(elems, mode, x, aux, mu, ry, my, x8, stats, B, K,
+                                         n_var, threads, s);
+  return dispatch_quant<float>(elems, mode, x, aux, mu, ry, my, x8, stats, B, K, n_var,
+                               threads, s);
 }
 
 // The tensor map of stacked K-major codes: q points at L layers of (M, K)

@@ -20,170 +20,391 @@
 // state element (64 * C per request), 4.8 GFLOP for a layer of 2,048 prompt
 // tokens at C 4096, ~0.07 ms at 67 TFLOP/s; its bytes (the state slab once
 // each way, five input rows and one output row per token) take about half
-// that. What the recurrence adds is latency: each token depends on the last.
+// that. What the recurrence adds is latency: each token depends on the last,
+// so a chunk cannot take less than its longest row's tokens times the time
+// of one token of the chain (the serial floor, which chip_smoke.py measures).
+// At 8 requests and more the card runs several blocks an SM, and what limits
+// a token is its traffic through shared memory: every thread reads the
+// token's row vectors for its columns, so the reads a token scale with the
+// threads that share a column (measured on the H100 with launch shapes that
+// split the state differently).
 //
-// Design: one block of 64 threads per (head, request), as the decode step.
-// Thread i keeps state row i in registers for the whole chunk, so the slab
-// crosses device memory once each way. The chunk goes in tiles of TT tokens,
-// each in three phases split by __syncthreads:
-//   A. everything that does not depend on S, for the tile's tokens at once:
-//      each warp takes every other token, each lane two channels, and the
-//      per-head sums (the kk norm, the bonus) are warp shuffles. The rows the
-//      recurrence reads (d1, k~, -kk, kk*a, r, v) land in shared memory.
-//   B. the serial recurrence: per token, thread i updates its row from
-//      shared-memory broadcasts (16-byte reads) and leaves raw y_i there.
-//   C. GroupNorm and the bonus, token-parallel again as in A, and the store.
-// So only the S update and y = S r are serial; the block synchronises three
-// times per tile instead of several times per token.
+// Design: one block of 128 threads per (head, request): RI = 4 state rows a
+// thread and P = 8 threads a row (wkv7_cuda.chunk_plan describes the launch;
+// of nine shapes with 1-4 rows a thread, 2-8 threads a row and 8-32 tokens a
+// tile, this one was the fastest or within the spread at every prefill
+// variant on the H100). A row's P threads are neighbouring lanes, each
+// holding 64 / P of its columns (float4 groups p, p + P, ... so that they
+// read neighbouring banks) for RI rows, in registers for the whole chunk, so
+// the slab crosses device memory once each way and each vector element read
+// from shared memory serves RI rows. The chunk goes in tiles of TT = 16
+// tokens (a shorter chunk leaves the tile part empty):
+//   copies. A tile's inputs (each token's 64-element head segment of r, w,
+//      k, a and v; r, k, v are strided views of the merged R/K/V output)
+//      arrive by 16-byte cp.async copies, spread over every thread, into a
+//      double-buffered shared-memory ring. Tile t + 2's copies go out as
+//      soon as tile t's phase A has read its stage, so they overlap tile t's
+//      recurrence. (1-D cp.async.bulk copies of the 128-byte rows, issued by
+//      one warp, serialised in the copy unit and held that warp up.)
+//   A. everything that does not depend on S, from shared memory, eight lanes
+//      a token (8 channels each, 4 tokens a warp at once); the per-head sums
+//      (the kk norm, the bonus) are shuffles within the eight. The rows the
+//      recurrence reads (d1, k~, -kk, kk*a, r, v) are stored as float32.
+//   B. the serial recurrence: per token, each thread takes its part of
+//      sa_i = sum_j -kk_j S_ij for its rows, the row's P threads join it
+//      with __shfl_xor (every one gets the same bits), update their columns
+//      and join y_i the same way.
+//   C. GroupNorm and the bonus, token-parallel again as in A, 8 channels a
+//      lane stored at once.
+// The block synchronises three times per tile. Shared memory: 7 float32
+// arrays of (TT, 64), TT bonus values, the head's 5 parameter vectors, a ring
+// of 2 x 5 x (TT, 64) inputs (50,496 bytes with bf16 inputs, 70,976 with
+// float32: dynamic, above the 48 KB default, allowed at every launch).
 
+#include "hopper_common.cuh"
 #include "wkv7_common.cuh"
 
 namespace {
 
 using namespace wkv7;
+using hopper::smem_u32;
 
-constexpr int TT = 16;  // tokens per tile: 7 arrays of (TT, 64) floats, 28 KiB
+// 16 bytes global -> shared without going through registers (cp.async, L2
+// only); each thread's copies form one group per tile
+__device__ __forceinline__ void copy16(uint32_t dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(dst), "l"(src) : "memory");
+}
+__device__ __forceinline__ void copy_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+// wait until at most one group (the next tile's) is in flight
+__device__ __forceinline__ void copy_wait_all_but_one() {
+  asm volatile("cp.async.wait_group 1;\n" ::: "memory");
+}
 
-// element strides of the five (B, T, C) input rows r, w, k, a, v (columns
-// contiguous): per request and per token
-struct RowStrides {
+// the five (B, T, C) input rows r, w, k, a, v (columns contiguous): base
+// pointers and element strides per request and per token
+struct Rows {
+  const void* p[5];
   int b[5], t[5];
 };
 
-template <typename TA, typename TS>
-__global__ void __launch_bounds__(N) wkv7_chunk_fused_kernel(
-    TS* __restrict__ state, const TA* __restrict__ r, const TA* __restrict__ w,
-    const TA* __restrict__ k, const TA* __restrict__ a, const TA* __restrict__ v,
-    const TA* __restrict__ k_k, const TA* __restrict__ k_a, const TA* __restrict__ r_k,
-    const TA* __restrict__ ln_w, const TA* __restrict__ ln_b,
-    const int32_t* __restrict__ elapsed, const int32_t* __restrict__ lengths,
-    TA* __restrict__ y, int B, int T, int C, int layer, int use_dither, RowStrides ld) {
-  __shared__ __align__(16) float s_d1[TT][N], s_k[TT][N], s_a[TT][N], s_b[TT][N];
-  __shared__ __align__(16) float s_r[TT][N], s_v[TT][N], s_y[TT][N];
-  __shared__ float s_bonus[TT];
+// the four columns 4g..4g+3 of a state row
+__device__ __forceinline__ float4 load4(const float* p) {
+  return *reinterpret_cast<const float4*>(p);
+}
+__device__ __forceinline__ float4 load4(const __nv_bfloat16* p) {
+  const uint2 u = *reinterpret_cast<const uint2*>(p);
+  const float2 lo = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.x));
+  const float2 hi = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.y));
+  return make_float4(lo.x, lo.y, hi.x, hi.y);
+}
+__device__ __forceinline__ void store4(float* p, float4 v) {
+  *reinterpret_cast<float4*>(p) = v;
+}
+__device__ __forceinline__ void store4(__nv_bfloat16* p, float4 v) {
+  const __nv_bfloat162 lo = __floats2bfloat162_rn(v.x, v.y), hi = __floats2bfloat162_rn(v.z, v.w);
+  uint2 u;
+  u.x = *reinterpret_cast<const uint32_t*>(&lo);
+  u.y = *reinterpret_cast<const uint32_t*>(&hi);
+  *reinterpret_cast<uint2*>(p) = u;
+}
 
-  const int h = blockIdx.x, b = blockIdx.y, i = threadIdx.x;
-  const int lane = i & 31, warp = i >> 5;
-  const int n_tok = min(max(lengths[b], 0), T);
-  // phases A and C: lane `lane` of a warp owns channels c0 and c1 of the head
-  const int c0 = h * N + lane, c1 = c0 + 32;
-  const float kkp0 = to_f32(k_k[c0]), kkp1 = to_f32(k_k[c1]);
-  const float kap0 = to_f32(k_a[c0]), kap1 = to_f32(k_a[c1]);
-  const float rkp0 = to_f32(r_k[c0]), rkp1 = to_f32(r_k[c1]);
-  const float lw0 = to_f32(ln_w[c0]), lw1 = to_f32(ln_w[c1]);
-  const float lb0 = to_f32(ln_b[c0]), lb1 = to_f32(ln_b[c1]);
-  const unsigned int el = (unsigned int)elapsed[b];
+// the launch: RI state rows a thread, P threads a state row, TT tokens a
+// tile, NT threads a block
+constexpr int RI = 4, P = 8, TT = 16, NT = N / RI * P;
 
-  TS* srow = state + (((size_t)layer * B + b) * N + i) * C + h * N;
-  float S[N];
-  if (n_tok > 0) load_row(srow, S);
+// shared-memory bytes of a block: 7 float32 (TT, 64) arrays, TT bonus
+// values, the head's 5 parameter vectors in float32, the ring of 2 x 5 x
+// (TT, 64) inputs (every array a multiple of 16 bytes: the ring's 16-byte
+// copies)
+template <typename TA>
+constexpr int smem_bytes() {
+  return (7 * TT * N + TT + 5 * N) * 4 + 10 * TT * N * (int)sizeof(TA);
+}
 
-  for (int t0 = 0; t0 < n_tok; t0 += TT) {
-    const int nt = min(TT, n_tok - t0);
-
-    // A: the S-independent prologue, one token per warp at a time
-    for (int tt = warp; tt < nt; tt += 2) {
-      const int t = t0 + tt;
-      auto row = [&](const TA* p, int q) { return p + (size_t)b * ld.b[q] + (size_t)t * ld.t[q]; };
-      const TA *rr = row(r, 0), *wr = row(w, 1), *kr = row(k, 2), *ar = row(a, 3),
-               *vr = row(v, 4);
-      const float r0 = to_f32(rr[c0]), r1 = to_f32(rr[c1]);
-      const float k0 = to_f32(kr[c0]), k1 = to_f32(kr[c1]);
-      const float a0 = to_f32(ar[c0]), a1 = to_f32(ar[c1]);
-      const float kp0 = k0 * kkp0, kp1 = k1 * kkp1;
-      const float inv = 1.0f / fmaxf(sqrtf(warp_sum(kp0 * kp0 + kp1 * kp1)), 1e-12f);
-      const float kk0 = kp0 * inv, kk1 = kp1 * inv;
-      const float kt0 = k0 * (1.0f + (a0 - 1.0f) * kap0);
-      const float kt1 = k1 * (1.0f + (a1 - 1.0f) * kap1);
-      const float bonus = warp_sum(r0 * kt0 * rkp0 + r1 * kt1 * rkp1);
-      const unsigned int step = el + (unsigned int)t;
-      s_d1[tt][lane] = 1.0f + decay(to_f32(wr[c0]), step, use_dither);
-      s_d1[tt][lane + 32] = 1.0f + decay(to_f32(wr[c1]), step, use_dither);
-      s_k[tt][lane] = kt0;
-      s_k[tt][lane + 32] = kt1;
-      s_a[tt][lane] = -kk0;
-      s_a[tt][lane + 32] = -kk1;
-      s_b[tt][lane] = kk0 * a0;
-      s_b[tt][lane + 32] = kk1 * a1;
-      s_r[tt][lane] = r0;
-      s_r[tt][lane + 32] = r1;
-      s_v[tt][lane] = to_f32(vr[c0]);
-      s_v[tt][lane + 32] = to_f32(vr[c1]);
-      if (lane == 0) s_bonus[tt] = bonus;
-    }
-    __syncthreads();
-
-    // B: the recurrence, state row i per thread
-    for (int tt = 0; tt < nt; ++tt) {
-      const float4* a4 = reinterpret_cast<const float4*>(s_a[tt]);
-      float p0 = 0.0f, p1 = 0.0f, p2 = 0.0f, p3 = 0.0f;
+// 8 consecutive elements as floats
+__device__ __forceinline__ void load8(const float* p, float (&v)[8]) {
+  const float4 a = reinterpret_cast<const float4*>(p)[0], b = reinterpret_cast<const float4*>(p)[1];
+  v[0] = a.x; v[1] = a.y; v[2] = a.z; v[3] = a.w;
+  v[4] = b.x; v[5] = b.y; v[6] = b.z; v[7] = b.w;
+}
+__device__ __forceinline__ void load8(const __nv_bfloat16* p, float (&v)[8]) {
+  const uint4 u = *reinterpret_cast<const uint4*>(p);
+  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&u);
 #pragma unroll
-      for (int q = 0; q < N / 4; ++q) {
-        const float4 f = a4[q];
-        p0 += f.x * S[4 * q];
-        p1 += f.y * S[4 * q + 1];
-        p2 += f.z * S[4 * q + 2];
-        p3 += f.w * S[4 * q + 3];
-      }
-      const float sa = (p0 + p1) + (p2 + p3);
-      const float vi = s_v[tt][i];
-      const float4 *d4 = reinterpret_cast<const float4*>(s_d1[tt]),
-                   *k4 = reinterpret_cast<const float4*>(s_k[tt]),
-                   *b4 = reinterpret_cast<const float4*>(s_b[tt]),
-                   *r4 = reinterpret_cast<const float4*>(s_r[tt]);
-      p0 = p1 = p2 = p3 = 0.0f;
-#pragma unroll
-      for (int q = 0; q < N / 4; ++q) {
-        const float4 fd = d4[q], fk = k4[q], fb = b4[q], fr = r4[q];
-        S[4 * q] = S[4 * q] * fd.x + vi * fk.x + sa * fb.x;
-        S[4 * q + 1] = S[4 * q + 1] * fd.y + vi * fk.y + sa * fb.y;
-        S[4 * q + 2] = S[4 * q + 2] * fd.z + vi * fk.z + sa * fb.z;
-        S[4 * q + 3] = S[4 * q + 3] * fd.w + vi * fk.w + sa * fb.w;
-        p0 += S[4 * q] * fr.x;
-        p1 += S[4 * q + 1] * fr.y;
-        p2 += S[4 * q + 2] * fr.z;
-        p3 += S[4 * q + 3] * fr.w;
-      }
-      s_y[tt][i] = (p0 + p1) + (p2 + p3);
-    }
-    __syncthreads();
-
-    // C: per-head GroupNorm (eps 64e-5) and the bonus, one token per warp
-    for (int tt = warp; tt < nt; tt += 2) {
-      const float y0 = s_y[tt][lane], y1 = s_y[tt][lane + 32];
-      const float mu = warp_sum(y0 + y1) * (1.0f / N);
-      const float dy0 = y0 - mu, dy1 = y1 - mu;
-      const float rs = rsqrtf(warp_sum(dy0 * dy0 + dy1 * dy1) * (1.0f / N) + 64e-5f);
-      const float bonus = s_bonus[tt];
-      TA* out = y + ((size_t)b * T + t0 + tt) * C;
-      out[c0] = from_f32<TA>(dy0 * rs * lw0 + lb0 + bonus * s_v[tt][lane]);
-      out[c1] = from_f32<TA>(dy1 * rs * lw1 + lb1 + bonus * s_v[tt][lane + 32]);
-    }
-    __syncthreads();  // the next tile's phase A overwrites what C read
+  for (int e = 0; e < 4; ++e) {
+    const float2 f = __bfloat1622float2(h[e]);
+    v[2 * e] = f.x;
+    v[2 * e + 1] = f.y;
   }
-  if (n_tok > 0) store_row(srow, S);
-  for (int t = n_tok; t < T; ++t) y[((size_t)b * T + t) * C + h * N + i] = from_f32<TA>(0.0f);
+}
+__device__ __forceinline__ void store8(float* p, const float (&v)[8]) {
+  reinterpret_cast<float4*>(p)[0] = make_float4(v[0], v[1], v[2], v[3]);
+  reinterpret_cast<float4*>(p)[1] = make_float4(v[4], v[5], v[6], v[7]);
+}
+__device__ __forceinline__ void store8(__nv_bfloat16* p, const float (&v)[8]) {
+  uint4 u;
+  __nv_bfloat162* h = reinterpret_cast<__nv_bfloat162*>(&u);
+#pragma unroll
+  for (int e = 0; e < 4; ++e) h[e] = __floats2bfloat162_rn(v[2 * e], v[2 * e + 1]);
+  *reinterpret_cast<uint4*>(p) = u;
+}
+
+// phases A and C: a token's 64 channels on LG lanes of 8 channels each, 32 /
+// LG tokens a warp at once; the per-head sums over the LG lanes
+constexpr int LG = 8;
+__device__ __forceinline__ float group_sum(float v) {
+#pragma unroll
+  for (int o = 1; o < LG; o <<= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  return v;
+}
+
+// the sum over the P neighbouring lanes that hold one state row's columns;
+// every one of them gets the same bits (a butterfly of commutative adds)
+__device__ __forceinline__ float row_sum(float v) {
+#pragma unroll
+  for (int o = 1; o < P; o <<= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  return v;
 }
 
 template <typename TA, typename TS>
-void launch(void* state, const void* r, const void* w, const void* k, const void* a,
-            const void* v, const void* k_k, const void* k_a, const void* r_k,
-            const void* ln_w, const void* ln_b, const void* elapsed, const void* lengths,
-            void* y, int B, int T, int C, int layer, int use_dither, const RowStrides& ld,
-            cudaStream_t stream) {
-  const dim3 grid(C / N, B);
-  wkv7_chunk_fused_kernel<TA, TS><<<grid, N, 0, stream>>>(
-      (TS*)state, (const TA*)r, (const TA*)w, (const TA*)k, (const TA*)a, (const TA*)v,
-      (const TA*)k_k, (const TA*)k_a, (const TA*)r_k, (const TA*)ln_w, (const TA*)ln_b,
-      (const int32_t*)elapsed, (const int32_t*)lengths, (TA*)y, B, T, C, layer, use_dither,
-      ld);
+__global__ void __launch_bounds__(NT) wkv7_chunk_fused_kernel(
+    TS* __restrict__ state, const Rows rows, const TA* __restrict__ k_k,
+    const TA* __restrict__ k_a, const TA* __restrict__ r_k, const TA* __restrict__ ln_w,
+    const TA* __restrict__ ln_b, const int32_t* __restrict__ elapsed,
+    const int32_t* __restrict__ lengths, TA* __restrict__ y, int B, int T, int C, int layer,
+    int use_dither) {
+  constexpr int NW = NT / 32;   // warps
+  constexpr int G = N / 4 / P;  // float4 column groups a thread holds of each of its rows
+  static_assert(NT % 32 == 0 && 32 % P == 0 && N % RI == 0 && TT % 4 == 0, "launch shape");
+  extern __shared__ __align__(16) uint8_t smem[];
+  float* s_d1 = reinterpret_cast<float*>(smem);
+  float *s_k = s_d1 + TT * N, *s_a = s_k + TT * N, *s_b = s_a + TT * N;
+  float *s_r = s_b + TT * N, *s_v = s_r + TT * N, *s_y = s_v + TT * N;
+  float* s_bonus = s_y + TT * N;
+  float* s_par = s_bonus + TT;  // k_k, k_a, r_k, ln_w, ln_b of the head
+  TA* ring = reinterpret_cast<TA*>(s_par + 5 * N);
+
+  const int h = blockIdx.x, b = blockIdx.y, tid = threadIdx.x;
+  const int lane = tid & 31, warp = tid >> 5;
+  const int i0 = tid / P * RI, part = tid % P;  // rows i0 .. i0 + RI - 1
+  const int n_tok = min(max(lengths[b], 0), T);
+  const int n_tiles = (n_tok + TT - 1) / TT;
+  // phases A and C: lane group `grp` of a warp takes a token, each lane
+  // channels ch .. ch + 7 of the head
+  constexpr int TPW = 32 / LG;
+  const int grp = lane / LG, ch = lane % LG * 8;
+  const unsigned int el = (unsigned int)elapsed[b];
+  for (int q = tid; q < N; q += NT) {  // read after the first tile's barrier
+    s_par[q] = to_f32(k_k[h * N + q]);
+    s_par[N + q] = to_f32(k_a[h * N + q]);
+    s_par[2 * N + q] = to_f32(r_k[h * N + q]);
+    s_par[3 * N + q] = to_f32(ln_w[h * N + q]);
+    s_par[4 * N + q] = to_f32(ln_b[h * N + q]);
+  }
+
+  // tile `tile`'s rows of r, w, k, a, v into ring stage tile & 1, 16 bytes
+  // a copy spread over every thread; one group per tile in every thread
+  // (empty past the last tile), so "all but one" is always this tile's
+  auto issue = [&](int tile) {
+    constexpr int PIECES = N * sizeof(TA) / 16;  // copies a 64-element row
+    const int s = tile & 1, t0 = tile * TT, n = max(min(TT, n_tok - t0), 0) * PIECES;
+#pragma unroll
+    for (int in = 0; in < 5; ++in) {
+      const uint8_t* src = static_cast<const uint8_t*>(rows.p[in]) +
+                           ((size_t)b * rows.b[in] + (size_t)t0 * rows.t[in] + h * N) * sizeof(TA);
+      const uint32_t dst = smem_u32(ring + (s * 5 + in) * TT * N);
+      for (int q = tid; q < n; q += NT) {
+        const int tt = q / PIECES, piece = q % PIECES;
+        copy16(dst + (tt * N * sizeof(TA) + 16 * piece),
+               src + ((size_t)tt * rows.t[in] * sizeof(TA) + 16 * piece));
+      }
+    }
+    copy_commit();
+  };
+  issue(0);
+  issue(1);
+
+  TS* srow = state + (((size_t)layer * B + b) * N + i0) * C + h * N;
+  float4 S[RI][G];
+  if (n_tok > 0) {
+#pragma unroll
+    for (int r = 0; r < RI; ++r)
+#pragma unroll
+      for (int g = 0; g < G; ++g) S[r][g] = load4(srow + (size_t)r * C + 4 * (g * P + part));
+  }
+
+  for (int tile = 0; tile < n_tiles; ++tile) {
+    const int s = tile & 1, t0 = tile * TT, nt = min(TT, n_tok - t0);
+    copy_wait_all_but_one();
+    __syncthreads();  // this tile's rows from every thread; C of the last is done
+
+    // A: the S-independent prologue from the staged rows, TPW tokens a warp
+    // at once (every lane takes part in the group sums; a group past nt
+    // reads a valid token and stores nothing)
+    const TA* st = ring + s * 5 * TT * N + ch;
+    for (int base = warp * TPW; base < nt; base += NW * TPW) {
+      const int tt = base + grp, tq = tt < nt ? tt : base;
+      float rr[8], wr[8], kr[8], ar[8], vr[8], kkp[8], kap[8], rkp[8];
+      load8(st + tq * N, rr);
+      load8(st + (TT + tq) * N, wr);
+      load8(st + (2 * TT + tq) * N, kr);
+      load8(st + (3 * TT + tq) * N, ar);
+      load8(st + (4 * TT + tq) * N, vr);
+      load8(s_par + ch, kkp);
+      load8(s_par + N + ch, kap);
+      load8(s_par + 2 * N + ch, rkp);
+      float kp[8], kt[8], ss = 0.0f, bs = 0.0f;
+#pragma unroll
+      for (int e = 0; e < 8; ++e) {
+        kp[e] = kr[e] * kkp[e];
+        ss += kp[e] * kp[e];
+        kt[e] = kr[e] * (1.0f + (ar[e] - 1.0f) * kap[e]);
+        bs += rr[e] * kt[e] * rkp[e];
+      }
+      const float inv = 1.0f / fmaxf(sqrtf(group_sum(ss)), 1e-12f);
+      const float bonus = group_sum(bs);
+      if (tt < nt) {
+        const unsigned int step = el + (unsigned int)(t0 + tt);
+        const int o = tt * N + ch;
+        float d1[8], na[8], nb[8];
+#pragma unroll
+        for (int e = 0; e < 8; ++e) {
+          d1[e] = 1.0f + decay(wr[e], step, use_dither);
+          na[e] = -(kp[e] * inv);
+          nb[e] = kp[e] * inv * ar[e];
+        }
+        store8(s_d1 + o, d1);
+        store8(s_k + o, kt);
+        store8(s_a + o, na);
+        store8(s_b + o, nb);
+        store8(s_r + o, rr);
+        store8(s_v + o, vr);
+        if (ch == 0) s_bonus[tt] = bonus;
+      }
+    }
+    __syncthreads();
+    // stage s is read: tile + 2's copies overlap this tile's recurrence
+    issue(tile + 2);
+
+    // B: the recurrence; each thread holds G column groups of RI rows, the
+    // row's P threads join its sums
+    for (int tt = 0; tt < nt; ++tt) {
+      const float4* a4 = reinterpret_cast<const float4*>(s_a + tt * N) + part;
+      float4 f[G];
+#pragma unroll
+      for (int g = 0; g < G; ++g) f[g] = a4[g * P];
+      float sa[RI];
+#pragma unroll
+      for (int r = 0; r < RI; ++r) {
+        float p0 = 0.0f, p1 = 0.0f, p2 = 0.0f, p3 = 0.0f;
+#pragma unroll
+        for (int g = 0; g < G; ++g) {
+          p0 += f[g].x * S[r][g].x;
+          p1 += f[g].y * S[r][g].y;
+          p2 += f[g].z * S[r][g].z;
+          p3 += f[g].w * S[r][g].w;
+        }
+        sa[r] = (p0 + p1) + (p2 + p3);
+      }
+#pragma unroll
+      for (int r = 0; r < RI; ++r) sa[r] = row_sum(sa[r]);
+      float vi[RI];
+#pragma unroll
+      for (int r = 0; r < RI; ++r) vi[r] = s_v[tt * N + i0 + r];
+      const float4 *d4 = reinterpret_cast<const float4*>(s_d1 + tt * N) + part,
+                   *k4 = reinterpret_cast<const float4*>(s_k + tt * N) + part,
+                   *b4 = reinterpret_cast<const float4*>(s_b + tt * N) + part,
+                   *r4 = reinterpret_cast<const float4*>(s_r + tt * N) + part;
+      float y0[RI], y1[RI];
+#pragma unroll
+      for (int r = 0; r < RI; ++r) y0[r] = y1[r] = 0.0f;
+#pragma unroll
+      for (int g = 0; g < G; ++g) {
+        const float4 fd = d4[g * P], fk = k4[g * P], fb = b4[g * P], fr = r4[g * P];
+#pragma unroll
+        for (int r = 0; r < RI; ++r) {
+          float4& q = S[r][g];
+          q.x = q.x * fd.x + vi[r] * fk.x + sa[r] * fb.x;
+          q.y = q.y * fd.y + vi[r] * fk.y + sa[r] * fb.y;
+          q.z = q.z * fd.z + vi[r] * fk.z + sa[r] * fb.z;
+          q.w = q.w * fd.w + vi[r] * fk.w + sa[r] * fb.w;
+          y0[r] += q.x * fr.x + q.z * fr.z;
+          y1[r] += q.y * fr.y + q.w * fr.w;
+        }
+      }
+#pragma unroll
+      for (int r = 0; r < RI; ++r) {
+        const float yi = row_sum(y0[r] + y1[r]);
+        if (part == 0) s_y[tt * N + i0 + r] = yi;
+      }
+    }
+    __syncthreads();
+
+    // C: per-head GroupNorm (eps 64e-5) and the bonus, TPW tokens a warp at
+    // once as in A, 8 channels a lane stored at once
+    for (int base = warp * TPW; base < nt; base += NW * TPW) {
+      const int tt = base + grp, tq = tt < nt ? tt : base;
+      float yv[8], vv[8], lw[8], lb[8];
+      load8(s_y + tq * N + ch, yv);
+      load8(s_v + tq * N + ch, vv);
+      load8(s_par + 3 * N + ch, lw);
+      load8(s_par + 4 * N + ch, lb);
+      float sy = 0.0f;
+#pragma unroll
+      for (int e = 0; e < 8; ++e) sy += yv[e];
+      const float mu = group_sum(sy) * (1.0f / N);
+      float sd = 0.0f;
+#pragma unroll
+      for (int e = 0; e < 8; ++e) {
+        yv[e] -= mu;
+        sd += yv[e] * yv[e];
+      }
+      const float rs = rsqrtf(group_sum(sd) * (1.0f / N) + 64e-5f);
+      const float bonus = s_bonus[tq];
+#pragma unroll
+      for (int e = 0; e < 8; ++e) yv[e] = yv[e] * rs * lw[e] + lb[e] + bonus * vv[e];
+      if (tt < nt) store8(y + ((size_t)b * T + t0 + tt) * C + h * N + ch, yv);
+    }
+  }
+  if (n_tok > 0) {
+#pragma unroll
+    for (int r = 0; r < RI; ++r)
+#pragma unroll
+      for (int g = 0; g < G; ++g) store4(srow + (size_t)r * C + 4 * (g * P + part), S[r][g]);
+  }
+  // zeros past the row's length, 16 bytes a store
+  constexpr int PER = N * sizeof(TA) / 16;
+  for (int q = tid; q < (T - n_tok) * PER; q += NT) {
+    const int t = n_tok + q / PER;
+    *reinterpret_cast<uint4*>(y + ((size_t)b * T + t) * C + h * N + (q % PER) * (16 / sizeof(TA))) =
+        make_uint4(0u, 0u, 0u, 0u);
+  }
+}
+
+template <typename TA, typename TS>
+int launch(void* state, const Rows& rows, const void* k_k, const void* k_a, const void* r_k,
+           const void* ln_w, const void* ln_b, const void* elapsed, const void* lengths,
+           void* y, int B, int T, int C, int layer, int use_dither, cudaStream_t stream) {
+  const auto kernel = wkv7_chunk_fused_kernel<TA, TS>;
+  // per device, and cheap beside a launch: set before every one
+  const cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                             smem_bytes<TA>());
+  if (e != cudaSuccess) return (int)e;
+  kernel<<<dim3(C / N, B), NT, smem_bytes<TA>(), stream>>>(
+      (TS*)state, rows, (const TA*)k_k, (const TA*)k_a, (const TA*)r_k, (const TA*)ln_w,
+      (const TA*)ln_b, (const int32_t*)elapsed, (const int32_t*)lengths, (TA*)y, B, T, C,
+      layer, use_dither);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
 
 // dtype codes: 0 = float32, 1 = bfloat16. sb_*, st_*: element strides per
 // request and per token of the (B, T, C) inputs r, w, k, a, v, whose columns
-// are contiguous; y is a contiguous (B, T, C). Returns cudaGetLastError().
+// are contiguous and whose rows start on 16-byte boundaries; y is a
+// contiguous (B, T, C). Returns cudaGetLastError().
 extern "C" int wkv7_chunk_fused(void* state, const void* r, const void* w, const void* k,
                                 const void* a, const void* v, const void* k_k,
                                 const void* k_a, const void* r_k, const void* ln_w,
@@ -193,22 +414,17 @@ extern "C" int wkv7_chunk_fused(void* state, const void* r, const void* w, const
                                 int sb_a, int st_a, int sb_v, int st_v, int act_dtype,
                                 int state_dtype, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
-  const RowStrides ld = {{sb_r, sb_w, sb_k, sb_a, sb_v}, {st_r, st_w, st_k, st_a, st_v}};
-  if (act_dtype == 1 && state_dtype == 1)
-    launch<__nv_bfloat16, __nv_bfloat16>(state, r, w, k, a, v, k_k, k_a, r_k, ln_w, ln_b,
-                                         elapsed, lengths, y, B, T, C, layer, use_dither, ld, s);
-  else if (act_dtype == 1 && state_dtype == 0)
-    launch<__nv_bfloat16, float>(state, r, w, k, a, v, k_k, k_a, r_k, ln_w, ln_b, elapsed,
-                                 lengths, y, B, T, C, layer, use_dither, ld, s);
-  else if (act_dtype == 0 && state_dtype == 1)
-    launch<float, __nv_bfloat16>(state, r, w, k, a, v, k_k, k_a, r_k, ln_w, ln_b, elapsed,
-                                 lengths, y, B, T, C, layer, use_dither, ld, s);
-  else
-    launch<float, float>(state, r, w, k, a, v, k_k, k_a, r_k, ln_w, ln_b, elapsed, lengths,
-                         y, B, T, C, layer, use_dither, ld, s);
-  return (int)cudaGetLastError();
+  const Rows rows = {{r, w, k, a, v},
+                     {sb_r, sb_w, sb_k, sb_a, sb_v},
+                     {st_r, st_w, st_k, st_a, st_v}};
+#define WKV7_CHUNK_DISPATCH(TA, TS)                                                         \
+  return launch<TA, TS>(state, rows, k_k, k_a, r_k, ln_w, ln_b, elapsed, lengths, y, B, T, C, \
+                        layer, use_dither, s)
+  if (act_dtype == 1 && state_dtype == 1) WKV7_CHUNK_DISPATCH(__nv_bfloat16, __nv_bfloat16);
+  if (act_dtype == 1 && state_dtype == 0) WKV7_CHUNK_DISPATCH(__nv_bfloat16, float);
+  if (act_dtype == 0 && state_dtype == 1) WKV7_CHUNK_DISPATCH(float, __nv_bfloat16);
+  WKV7_CHUNK_DISPATCH(float, float);
+#undef WKV7_CHUNK_DISPATCH
 }
 
-extern "C" const char* wkv7_chunk_error_string(int code) {
-  return cudaGetErrorString((cudaError_t)code);
-}
+extern "C" const char* wkv7_chunk_error_string(int code) { return hopper::error_string(code); }

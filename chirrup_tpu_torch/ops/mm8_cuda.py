@@ -5,7 +5,9 @@ Two kernels carry every int8 matmul of the w8a8 scheme (mm8_core "pallas_a8"):
 
 - ``quant_rows``: per-row int8 quantization of x*ry*16 (x optionally mixed as
   x + xx*mu[m] for each of n variants, or gated as x*mul) plus the four row
-  statistics [s, sum xs, sum x, sum x*my] of the decomposed dequantization;
+  statistics [s, sum xs, sum x, sum x*my] of the decomposed dequantization,
+  in one pass with the row in registers; ``quant_plan`` picks its launch
+  shape (threads and elements a thread);
 - ``gemm``: int8 x int8 -> int32 on the tensor cores (TMA-fed wgmma), then
   y = rx*16/256 * (s*acc + 128.5*sum xs) + sum x*my + mx*sum x, with an optional
   relu^2, written in bfloat16 or float32 (or acc itself, for exactness checks).
@@ -37,7 +39,7 @@ from chirrup_tpu_torch.ops import _kernels
 _SOURCE = "mm8_a8"
 _P, _I = _kernels.P, _kernels.I
 _SIGNATURES = {
-    "mm8_a8_quant_rows": [_P] * 7 + [_I] * 5 + [_P],
+    "mm8_a8_quant_rows": [_P] * 7 + [_I] * 7 + [_P],
     "mm8_a8_codes_map": [_P] + [_I] * 4 + [_P],
     "mm8_a8_gemm": [_P] * 6 + [_I] * 11 + [_P],
 }
@@ -137,38 +139,104 @@ def gemm_reference(x8, stats, q, mx, rx, *, relu2=False, out_dtype=torch.bfloat1
 
 # ------------------------------------------------------------------ wrappers
 
-def quant_rows(x, ry, my, *, xx=None, mu=None, mul=None):
-    """See quant_rows_reference. The kernel on CUDA tensors, the plain version
-    on CPU tensors."""
-    if x.device.type == "cpu":
-        return quant_rows_reference(x, ry, my, xx=xx, mu=mu, mul=mul)
-    if not x.is_cuda:
-        raise ValueError(f"quant_rows: no kernel for device {x.device}")
+class QuantPlan(NamedTuple):
+    """The quantizer's launch: one CTA per (variant, row), grid (n, B, 1), of
+    `threads` threads, each holding `elems` (8, 16 or 32) elements of the row
+    in registers (8-element chunks t, t + threads, ...)."""
+    threads: int
+    elems: int
+    grid: Tuple[int, int, int]
+
+
+QUANT_MAX_THREADS = {8: 1024, 16: 1024, 32: 512}  # the kernel's launch bounds by elems
+QUANT_PREFILL_ROWS = 256  # from here up a thread holds 32 elements
+
+
+def quant_shape(n: int, B: int, K: int, elems: int) -> QuantPlan:
+    """The launch that quantizes n variants of B rows of K at `elems`
+    elements a thread: each row in 8-element chunks, in whole warps. Raises
+    ValueError where the kernel has no such launch."""
+    if n < 1 or B < 1 or K < 1 or K % 8:
+        raise ValueError(f"quant_rows: unsupported shapes n {n}, B {B}, K {K} "
+                         f"(K % 8 == 0 required: 16-byte row loads)")
+    if elems not in QUANT_MAX_THREADS:
+        raise ValueError(f"quant_rows: no launch with {elems} elements a thread")
+    threads = -(-(K // 8) // (32 * (elems // 8))) * 32  # whole warps
+    if threads > QUANT_MAX_THREADS[elems]:
+        raise ValueError(f"quant_rows: {K} elements at {elems} a thread take more "
+                         f"than {QUANT_MAX_THREADS[elems]} threads")
+    return QuantPlan(threads=threads, elems=elems, grid=(n, B, 1))
+
+
+@functools.lru_cache(maxsize=None)
+def quant_plan(n: int, B: int, K: int) -> QuantPlan:
+    """The quantizer's launch for n variants of B rows of K, the fastest
+    measured on the H100: below QUANT_PREFILL_ROWS rows (decode) 8 elements
+    a thread, 16 for the merged R/K/V and above K = 4,096; from there up
+    (prefill) 32, so that one block reduction serves 32 codes a thread."""
+    elems = 32 if B >= QUANT_PREFILL_ROWS else 16 if K > 4096 or n == 3 else 8
+    return quant_shape(n, B, K, elems)
+
+
+def check_quant_operands(x, ry, my, *, xx=None, mu=None, mul=None):
+    """What the quantizer kernel takes, checked on x's device: x (B, K) float32
+    or bfloat16; ry, my (n, K) float32; xx with mu (n, K), or mul (n = 1), in
+    x's dtype; every tensor contiguous and 16-byte aligned. Returns (mode,
+    aux): mode 0 plain, 1 mixed, 2 gated; aux the xx or mul tensor, or None.
+    Raises TypeError or ValueError on anything else."""
+    if x.dim() != 2:
+        raise ValueError(f"quant_rows: x must be (B, K), got {tuple(x.shape)}")
     B, K = x.shape
-    n = ry.shape[0]
+    n = ry.shape[0] if ry.dim() == 2 else -1
     dev = x.device
-    _kernels.require(x, "x", device=dev)
-    code = _kernels.dtype_code(x, "x")
-    _kernels.require(ry, "ry", dtype=torch.float32, shape=(n, K), device=dev)
-    _kernels.require(my, "my", dtype=torch.float32, shape=(n, K), device=dev)
-    mode, aux, mu_ptr = 0, None, None
+    _kernels.dtype_code(x, "x")
+    _kernels.require(x, "x", device=dev, align=16)
+    _kernels.require(ry, "ry", dtype=torch.float32, shape=(n, K), device=dev, align=16)
+    _kernels.require(my, "my", dtype=torch.float32, shape=(n, K), device=dev, align=16)
+    mode, aux = 0, None
     if xx is not None:
         mode, aux = 1, xx
-        _kernels.require(mu, "mu", dtype=x.dtype, shape=(n, K), device=dev)
-        mu_ptr = mu.data_ptr()
+        if mu is None:
+            raise ValueError("quant_rows: xx needs mu")
+        _kernels.require(mu, "mu", dtype=x.dtype, shape=(n, K), device=dev, align=16)
     elif mul is not None:
         if n != 1:
             raise ValueError("quant_rows: mul takes one variant")
         mode, aux = 2, mul
     if aux is not None:
-        _kernels.require(aux, "xx/mul", dtype=x.dtype, shape=(B, K), device=dev)
+        _kernels.require(aux, "xx/mul", dtype=x.dtype, shape=(B, K), device=dev, align=16)
+    return mode, aux
+
+
+def quant_rows(x, ry, my, *, xx=None, mu=None, mul=None):
+    """See quant_rows_reference. The kernel on CUDA tensors (launched as
+    quant_plan says), the plain version on CPU tensors."""
+    if x.device.type == "cpu":
+        return quant_rows_reference(x, ry, my, xx=xx, mu=mu, mul=mul)
+    if not x.is_cuda:
+        raise ValueError(f"quant_rows: no kernel for device {x.device}")
+    return quant_rows_planned(None, x, ry, my, xx=xx, mu=mu, mul=mul)
+
+
+def quant_rows_planned(plan: Optional[QuantPlan], x, ry, my, *, xx=None, mu=None,
+                       mul=None):
+    """quant_rows' kernel on CUDA tensors with a given launch (quant_shape),
+    or quant_plan's when `plan` is None; any launch gives the same codes and
+    s, and sums within their reordering bound."""
+    mode, aux = check_quant_operands(x, ry, my, xx=xx, mu=mu, mul=mul)
+    B, K = x.shape
+    n = ry.shape[0]
+    dev = x.device
+    if plan is None:
+        plan = quant_plan(n, B, K)
     x8 = torch.empty((n, B, K), dtype=torch.int8, device=dev)
     stats = torch.empty((n, B, 4), dtype=torch.float32, device=dev)
     lib = _kernels.library(_SOURCE, _SIGNATURES)
     err = lib.mm8_a8_quant_rows(
-        x.data_ptr(), None if aux is None else aux.data_ptr(), mu_ptr, ry.data_ptr(),
-        my.data_ptr(), x8.data_ptr(), stats.data_ptr(), B, K, n, mode, code,
-        _kernels.stream_of(x))
+        x.data_ptr(), None if aux is None else aux.data_ptr(),
+        mu.data_ptr() if mode == 1 else None, ry.data_ptr(), my.data_ptr(), x8.data_ptr(),
+        stats.data_ptr(), B, K, n, mode, _kernels.dtype_code(x, "x"), plan.threads,
+        plan.elems, _kernels.stream_of(x))
     _kernels.LAUNCHES["mm8_a8_quant_rows"] += 1
     _kernels.check(lib, _SOURCE, "mm8_a8_quant_rows", err)
     return x8, stats

@@ -9,9 +9,16 @@ k~ = k*(1+(a-1)*k_a)) and epilogue (per-head GroupNorm, eps 64e-5,
 precomputed and returns raw y. Positions at or past a row's length output
 zeros and leave its state alone; a row with length 0 keeps its state bit for
 bit.
+
+The chunk kernel's launch (state rows a thread, threads a row, tokens a
+tile) is fixed in csrc/wkv7_chunk.cu and described by ``chunk_plan``; its
+inputs arrive by 16-byte asynchronous copies, so each row of r, w, k, a and v
+must start on a 16-byte boundary (``check_chunk_operands``).
 """
 
 from __future__ import annotations
+
+from typing import NamedTuple, Tuple
 
 import torch
 
@@ -164,13 +171,75 @@ def wkv7_step_fused(state, layer: int, r, w_raw, k_raw, a_iclr, v, k_k, k_a, r_k
     return y
 
 
+class ChunkPlan(NamedTuple):
+    """The chunk kernel's launch: one block of `threads` = 64 /
+    rows_per_thread * threads_per_row per (head, request); each thread holds
+    64 / threads_per_row columns of `rows_per_thread` state rows, and a row's
+    threads join its sums with shuffles; the chunk in tiles of `tile_tokens`
+    tokens, double-buffered in shared memory."""
+    rows_per_thread: int
+    threads_per_row: int
+    threads: int
+    tile_tokens: int
+    grid: Tuple[int, int, int]
+
+
+def chunk_plan(P: int, T: int, C: int) -> ChunkPlan:
+    """The launch of the chunk kernel for P requests of up to T tokens at
+    width C, as csrc/wkv7_chunk.cu fixes it: four
+    state rows a thread and eight threads a row (128 threads; each token's
+    row vectors are read from shared memory once for four rows) and 16-token
+    tiles (a chunk shorter than 16 fills part of one). On the H100 it was
+    the fastest launch or within the run-to-run spread of it at every
+    prefill variant (8, 64), (8, 256) and (32, 64) against other splits of
+    the state and other tiles (PERF.md), so it depends on neither P nor the
+    card's SM count. Raises ValueError for shapes the kernel does not take."""
+    if P < 1 or T < 1 or C < HEAD_SIZE or C % HEAD_SIZE:
+        raise ValueError(f"wkv7_chunk_fused: unsupported shapes P {P}, T {T}, C {C}")
+    return ChunkPlan(rows_per_thread=4, threads_per_row=8, threads=128, tile_tokens=16,
+                     grid=(C // HEAD_SIZE, P, 1))
+
+
+def check_chunk_operands(state, layer, r, w_raw, k_raw, a_iclr, v, k_k, k_a, r_k, ln_w,
+                         ln_b, elapsed, lengths):
+    """What the chunk kernel takes, checked on the state's device: state (L,
+    B, 64, H*64), 16-byte aligned; r..v (B, T, C) in one float dtype with unit
+    column stride and every (request, token) row on a 16-byte boundary (its
+    16-byte copies), strides below 2^31; k_k..ln_b (C,) in that dtype; elapsed,
+    lengths (B,) int32. Returns the ten request and token strides. Raises
+    TypeError, ValueError or IndexError on anything else."""
+    B, T, C = r.shape
+    dev, act = state.device, r.dtype
+    _kernels.dtype_code(r, "r")
+    if state.dim() != 4 or state.shape[1] != B or state.shape[3] != C:
+        raise ValueError(f"wkv7_chunk_fused: state {tuple(state.shape)} does not hold "
+                         f"{B} rows of width {C}")
+    _check_common("wkv7_chunk_fused", state, layer, act, dev, (k_k, k_a, r_k, ln_w, ln_b),
+                  B, elapsed, lengths)
+    strides = []
+    align = 16 // r.element_size()
+    for name, t in zip(("r", "w_raw", "k_raw", "a_iclr", "v"), (r, w_raw, k_raw, a_iclr, v)):
+        if t.dtype != act or t.device != dev or tuple(t.shape) != (B, T, C) \
+                or t.stride(2) != 1 or max(t.stride(0), t.stride(1)) >= 2 ** 31:
+            raise ValueError(f"wkv7_chunk_fused: {name} must be ({B}, {T}, {C}) {act} on "
+                             f"{dev} with unit column stride, got "
+                             f"{tuple(t.shape)} {t.dtype} {t.device} {t.stride()}")
+        if t.data_ptr() % 16 or t.stride(0) % align or t.stride(1) % align:
+            raise ValueError(f"wkv7_chunk_fused: every row of {name} must start on a "
+                             f"16-byte boundary (strides {t.stride()})")
+        strides += [t.stride(0), t.stride(1)]
+    return strides
+
+
 def wkv7_chunk_fused(state, layer: int, r, w_raw, k_raw, a_iclr, v, k_k, k_a, r_k,
                      ln_w, ln_b, elapsed, lengths, *, use_dither: bool = True):
     """Advance layer `layer` of the stacked state (L, B, N, C) by up to T tokens
     per row, in place; returns y (B, T, C) in r.dtype, zero at t >= lengths.
     r/w_raw/k_raw/a_iclr/v: (B, T, C) with unit column stride (request and token
     strides may differ: r, k, v are views of the merged R/K/V output); k_k, k_a,
-    r_k, ln_w, ln_b: (C,) in r.dtype; elapsed, lengths: (B,) int32."""
+    r_k, ln_w, ln_b: (C,) in r.dtype; elapsed, lengths: (B,) int32. The kernel
+    (launched as chunk_plan says) on CUDA tensors, the plain version on CPU
+    tensors."""
     if state.device.type == "cpu":
         y, new = wkv7_chunk_fused_reference(
             state[layer], r, w_raw, k_raw, a_iclr, v, k_k, k_a, r_k, ln_w, ln_b,
@@ -179,27 +248,15 @@ def wkv7_chunk_fused(state, layer: int, r, w_raw, k_raw, a_iclr, v, k_k, k_a, r_
         return y
     if not state.is_cuda:
         raise ValueError(f"wkv7_chunk_fused: no kernel for device {state.device}")
+    strides = check_chunk_operands(state, layer, r, w_raw, k_raw, a_iclr, v, k_k, k_a, r_k,
+                                   ln_w, ln_b, elapsed, lengths)
     B, T, C = r.shape
-    dev, act = state.device, r.dtype
-    if state.shape[1] != B or state.shape[3] != C:
-        raise ValueError(f"wkv7_chunk_fused: state {tuple(state.shape)} does not hold "
-                         f"{B} rows of width {C}")
-    _check_common("wkv7_chunk_fused", state, layer, act, dev, (k_k, k_a, r_k, ln_w, ln_b),
-                  B, elapsed, lengths)
-    rows = (r, w_raw, k_raw, a_iclr, v)
-    strides = []
-    for name, t in zip(("r", "w_raw", "k_raw", "a_iclr", "v"), rows):
-        if t.dtype != act or t.device != dev or tuple(t.shape) != (B, T, C) \
-                or t.stride(2) != 1 or max(t.stride(0), t.stride(1)) >= 2 ** 31:
-            raise ValueError(f"wkv7_chunk_fused: {name} must be ({B}, {T}, {C}) {act} on "
-                             f"{dev} with unit column stride, got "
-                             f"{tuple(t.shape)} {t.dtype} {t.device} {t.stride()}")
-        strides += [t.stride(0), t.stride(1)]
-    y = torch.empty((B, T, C), dtype=act, device=dev)
+    chunk_plan(B, T, C)  # raises for shapes the kernel does not take
+    y = torch.empty((B, T, C), dtype=r.dtype, device=state.device)
     lib = _kernels.library("wkv7_chunk", _SIGNATURES["wkv7_chunk"])
     code = lib.wkv7_chunk_fused(
-        state.data_ptr(), *(t.data_ptr() for t in rows), k_k.data_ptr(),
-        k_a.data_ptr(), r_k.data_ptr(), ln_w.data_ptr(), ln_b.data_ptr(),
+        state.data_ptr(), *(t.data_ptr() for t in (r, w_raw, k_raw, a_iclr, v)),
+        k_k.data_ptr(), k_a.data_ptr(), r_k.data_ptr(), ln_w.data_ptr(), ln_b.data_ptr(),
         elapsed.data_ptr(), lengths.data_ptr(), y.data_ptr(), B, T, C, layer,
         int(use_dither), *strides, _kernels.dtype_code(r, "r"),
         _kernels.dtype_code(state, "state"), _kernels.stream_of(state))
