@@ -13,7 +13,10 @@ Phases, in order; any failure ends the run with a non-zero exit:
    16384, V 65536) against its plain PyTorch version on the same inputs, with
    its time, its bound, the plain version's time and, where one PyTorch call
    computes the same function, that call's time: the decode kernels at batch
-   64, the WKV chunk kernel at the prefill variants (P, T) = (8, 64), (8, 256)
+   64 (the WKV step timed with cold state, its launches rotating over the 32
+   layers, and warm on one layer; the penalty tail at batch 64 and 512, with
+   a tie within a chunk and one across the CTAs of a row), the WKV chunk
+   kernel at the prefill variants (P, T) = (8, 64), (8, 256)
    and (32, 64) (against a planted fault that ignores lengths, a second run
    bit-equal, timed with full rows too, and its serial floor: the longest
    row's tokens times one token of the chain), the bare
@@ -26,9 +29,9 @@ Phases, in order; any failure ends the run with a non-zero exit:
    counts, both at 1 and 37 rows too, all at prefill row counts 512, 2048
    and 1000 as well, then the quantizer's time over a decode step and its
    share of the bytes bound at 2,048 rows; before them, the registers and
-   spills (ptxas -v) of both TMA GEMMs, the quantizer and the WKV chunk
-   kernel, and the GEMMs' wgmma and TMA instructions (cuobjdump, where
-   present);
+   spills (ptxas -v) of both TMA GEMMs, the quantizer, the WKV chunk and
+   step kernels and the penalty tail, and the GEMMs' wgmma and TMA
+   instructions (cuobjdump, where present);
 4. the decode path and the compact prefill on a small model, kernels (GPU)
    against plain versions (CPU), and chunked prefill against token-by-token
    feeding on the GPU; the same for the w8a16 configuration (mm8_core
@@ -42,8 +45,9 @@ Phases, in order; any failure ends the run with a non-zero exit:
    torch.cuda.set_sync_debug_mode("error"), with the launches per step counted
    over it; the steady decode rate at batch 64 over 8 blocks, with each
    block's host dispatch, CPU and wall time; and the device busy time of one
-   block from torch.profiler (its table goes to chiprun_out/chip_smoke_profile.txt;
-   --profile prints it as well);
+   block from torch.profiler, with each kernel's ms and launches a step,
+   also summed by group (STEP_GROUPS) (its table goes to
+   chiprun_out/chip_smoke_profile.txt; --profile prints it as well);
 6. chunked prefill at 7.2B width on a batch-256 ServingModel sharing the
    engine's weights, both variants (8, 256) and (32, 64): launches per chunk
    (one chunk under sync debug mode "error"), prompt tok/s, host dispatch per
@@ -67,6 +71,7 @@ from __future__ import annotations
 
 import argparse
 import asyncio
+import itertools
 import json
 import os
 import statistics
@@ -143,28 +148,54 @@ def bf16_excess(got: torch.Tensor, ref: torch.Tensor) -> float:
     return float(((g - r).abs() / limit).max())
 
 
-def check_wkv(dev, gen, B=64, C=4096, L=32, li=17):
-    """The kernel against its plain version twice: with the bonus term on
-    (r_k random), where (r*k~*r_k)*v dominates |y|; and with r_k = 0, where
-    the GroupNorm*ln_w + ln_b branch alone sets y and its limit. In the second,
-    the comparison must reject a planted fault: the plain version without ln_b."""
-    from chirrup_tpu_torch.ops.wkv7_cuda import wkv7_step_fused, wkv7_step_fused_reference
-
-    bf = torch.bfloat16
-    H = C // 64
+def step_inputs(dev, gen, B=64, C=4096, L=32, act=torch.bfloat16, state_dtype=torch.bfloat16):
+    """Random step-kernel inputs: a state of L layers, rows and parameters
+    (bf16 unless `state_dtype`, `act` say otherwise), dither counters, and
+    lengths with every ninth row idle. Returns (state, args) with args in the
+    wrappers' order after `layer`."""
     rnd = lambda *s: torch.randn(s, generator=gen, device=dev)
-    r, w, k, v = (rnd(B, C).to(bf) for _ in range(4))
-    a = torch.sigmoid(rnd(B, C)).to(bf)
-    k_k, k_a, r_k = ((rnd(C) * 0.5 + 1.0).to(bf) for _ in range(3))
-    ln_w, ln_b = (rnd(C) * 0.1 + 1.0).to(bf), (rnd(C) * 0.1).to(bf)
-    state = (rnd(L, B, 64, C) * 0.3).to(bf)
+    r, w, k, v = (rnd(B, C).to(act) for _ in range(4))
+    a = torch.sigmoid(rnd(B, C)).to(act)
+    k_k, k_a, r_k = ((rnd(C) * 0.5 + 1.0).to(act) for _ in range(3))
+    ln_w, ln_b = (rnd(C) * 0.1 + 1.0).to(act), (rnd(C) * 0.1).to(act)
+    state = (rnd(L, B, 64, C) * 0.3).to(state_dtype)
     elapsed = torch.randint(0, 2 ** 31 - 1, (B,), generator=gen, device=dev,
                             dtype=torch.int64).to(torch.int32)
     lengths = torch.ones(B, dtype=torch.int32, device=dev)
     lengths[::9] = 0
+    return state, (r, w, k, a, v, k_k, k_a, r_k, ln_w, ln_b, elapsed, lengths)
+
+
+def step_ms(state, args, li):
+    """The step kernel's time (device_ms) warm, on layer li every launch, and
+    cold, the launches rotating over
+    every layer of the stacked state (1 GiB at batch 64, 20x the L2) as a
+    decode step walks them: (cold, warm)."""
+    from chirrup_tpu_torch.ops.wkv7_cuda import wkv7_step_fused
+
+    warm = device_ms(lambda: wkv7_step_fused(state, li, *args))
+    layers = itertools.cycle(range(state.shape[0]))
+    cold = device_ms(lambda: wkv7_step_fused(state, next(layers), *args))
+    return cold, warm
+
+
+def check_wkv(dev, gen, B=64, C=4096, L=32, li=17):
+    """The kernel against its plain version twice: with the bonus term on
+    (r_k random), where (r*k~*r_k)*v dominates |y|; and with r_k = 0, where
+    the GroupNorm*ln_w + ln_b branch alone sets y and its limit. In the second,
+    the comparison must reject a planted fault: the plain version without ln_b.
+    Timed cold and warm (step_ms), beside a torch copy_ of the same state
+    bytes, cold; the bound counts the state and the five activation rows and
+    dither counter of the rows that are not idle, the only ones the function
+    must read (an idle row's block reads its length and writes zeros to y)."""
+    from chirrup_tpu_torch.ops.wkv7_cuda import (step_plan, wkv7_step_fused,
+                                                 wkv7_step_fused_reference)
+
+    H = C // 64
+    state, args = step_inputs(dev, gen, B, C, L)
+    r_k, lengths = args[7], args[11]
     idle = lengths == 0
-    args = (r, w, k, a, v, k_k, k_a, r_k, ln_w, ln_b, elapsed, lengths)
-    no_bonus = (r, w, k, a, v, k_k, k_a, torch.zeros_like(r_k), ln_w, ln_b, elapsed, lengths)
+    no_bonus = (*args[:7], torch.zeros_like(r_k), *args[8:])
 
     errs = []
     for label, case in (("bonus on", args), ("r_k = 0", no_bonus)):
@@ -180,7 +211,7 @@ def check_wkv(dev, gen, B=64, C=4096, L=32, li=17):
         require(torch.equal(state[li - 1], neighbour), "wkv7_step_fused touched another layer")
         require(torch.equal(state[li][idle], before[idle]) and bool((y[idle] == 0).all()),
                 "wkv7_step_fused: length-0 rows changed")
-        y_fault, _ = wkv7_step_fused_reference(before, *case[:9], torch.zeros_like(ln_b),
+        y_fault, _ = wkv7_step_fused_reference(before, *case[:9], torch.zeros_like(case[9]),
                                                *case[10:])
         ex_fault = bf16_excess(y_fault, y_ref)
         log(f"wkv7_step_fused {label}: max |y| {float(y_ref.float().abs().max()):.3g}, "
@@ -191,16 +222,36 @@ def check_wkv(dev, gen, B=64, C=4096, L=32, li=17):
             require(ex_fault > 1, f"wkv7_step_fused: the check passes a kernel without ln_b "
                                   f"(worst |err|/limit {ex_fault})")
     err_y, err_s = max(errs[0::2]), max(errs[1::2])
-    ms = device_ms(lambda: wkv7_step_fused(state, li, *args))
+    ms, warm = step_ms(state, args, li)
     plain = device_ms(lambda: wkv7_step_fused_reference(state[li], *args), iters=5)
-    moved = 2 * nbytes(state[li]) + nbytes(*args) + nbytes(y)
-    b, by = bound_ms(moved, 9 * B * 64 * C, "fp32")
-    log(f"wkv7_step_fused B{B} C{C} H{H} bf16: y err {err_y:.3e}, state err {err_s:.3e}; "
-        f"{ms:.4f} ms, plain {plain:.4f} ms, bound {b:.4f} ms ({by})")
+    active = int((~idle).sum())
+    moved = ((2 * nbytes(state[li]) + nbytes(*args[:5], args[10])) * active // B
+             + nbytes(*args[5:10], args[11], y))
+    b, by = bound_ms(moved, 9 * active * 64 * C, "fp32")
+    # the state bytes of the rows that are not idle, copied between layers
+    # in turn (half the stack each side, cold as the kernel's)
+    src, dst = state[L // 2:, :active], torch.empty_like(state[:L // 2, :active])
+    layers = itertools.cycle(range(L // 2))
+
+    def copy_layer():
+        i = next(layers)
+        dst[i].copy_(src[i])
+
+    copy = device_ms(copy_layer)
+    del dst
+    plan = step_plan(B, C)
+    log(f"wkv7_step_fused B{B} C{C} H{H} bf16 ({active} rows not idle; {plan}): y err "
+        f"{err_y:.3e}, state err {err_s:.3e}; {ms:.4f} ms cold, {warm:.4f} ms warm, plain "
+        f"{plain:.4f} ms, bound {b:.4f} ms ({by}; {100 * b / ms:.1f}% of it cold); torch "
+        f"copy_ of the {active} rows' state between layers, cold, {copy:.4f} ms "
+        f"({2 * nbytes(src[0]) / copy / 1e9:.2f} TB/s; the kernel at "
+        f"{100 * copy / ms:.1f}% of its rate)")
     return dict(name="wkv7_step_fused", route="cuda", source="chirrup_tpu_torch/csrc/wkv7_step.cu",
                 replaces="chirrup_tpu/ops/wkv7_pallas.py:644", max_abs_err=max(err_y, err_s),
-                ms=ms, plain_ms=plain, bound_ms=b, bound_by=by, library_ms=None,
-                shape=f"state ({L}, {B}, 64, {C}) bf16, one layer",
+                ms=ms, plain_ms=plain, bound_ms=b, bound_by=by, library_ms=None, warm_ms=warm,
+                copy_ms=copy,
+                shape=f"state ({L}, {B}, 64, {C}) bf16, one layer a launch; ms cold (the "
+                      f"launches rotate over the {L} layers), warm_ms on one layer",
                 tolerance="per element 2^-7 |ref| + 2^-8 rms(ref), y and state")
 
 
@@ -557,8 +608,9 @@ def check_mm8(dev, gen, B=64, shapes=MM8_SHAPES):
 # for the w8a8 GEMM, floating point for the w8a16 one)
 GEMM_SOURCES = {"mm8_a8": "IGMMA", "mm8_w16": "HGMMA"}
 # the sources whose registers and spills the run reports (ptxas -v): the
-# GEMMs (mm8_a8 holds the quantizer too) and the WKV chunk kernel
-PTXAS_SOURCES = (*GEMM_SOURCES, "wkv7_chunk")
+# GEMMs (mm8_a8 holds the quantizer too), the WKV chunk and step kernels and
+# the penalty tail
+PTXAS_SOURCES = (*GEMM_SOURCES, "wkv7_chunk", "wkv7_step", "penalty_tail")
 
 
 def _tile_name(fn):
@@ -573,7 +625,8 @@ def _tile_name(fn):
 def _kernel_name(fn):
     """A readable name for a kernel's mangled name: the GEMM tiles
     (_tile_name), the quantizer's <dtype, elements a thread, mode>, the chunk
-    kernel's <activation dtype, state dtype>."""
+    and step kernels' <activation dtype, state dtype>, the tail's <logits
+    dtype, vector loads>."""
     import re
 
     name = _tile_name(fn)
@@ -583,10 +636,13 @@ def _kernel_name(fn):
     m = re.search(r"quant_rows_kernelI(\w+?)Li(\d+)ELi(\d)EE", fn)
     if m:
         return f"quant_rows {dt(m.group(1))} E{m.group(2)} mode {m.group(3)}"
-    m = re.search(r"wkv7_chunk_fused_kernelI(13__nv_bfloat16|f)(13__nv_bfloat16|S\d*_|f)E",
+    m = re.search(r"wkv7_(chunk|step)_fused_kernelI(13__nv_bfloat16|f)(13__nv_bfloat16|S\d*_|f)E",
                   fn)
     if m:
-        return f"chunk {dt(m.group(1))} state {dt(m.group(2))}"
+        return f"{m.group(1)} {dt(m.group(2))} state {dt(m.group(3))}"
+    m = re.search(r"penalty_tail_kernelI(13__nv_bfloat16|f)Lb([01])E", fn)
+    if m:
+        return f"tail {dt(m.group(1))} logits, vector loads {m.group(2)}"
     return next((k for k in ("w16_f32",) if k in fn), fn)
 
 
@@ -839,42 +895,112 @@ def check_wkv_batch(dev, gen, variants=((64, 1), (8, 64), (8, 256), (32, 64)), C
                 sites=sites)
 
 
+def tail_inputs(dev, gen, B, V=65536):
+    """Random penalty-tail inputs: bf16 logits with a tie planted at columns
+    643 and 730 of row 1 (one chunk; batches above 1), sparse occurrence and presence, ~90%
+    decaying rows and ~63% with a sample to record. Returns (logits, occ,
+    pres, rest) with rest in the wrappers' order."""
+    u = lambda *s: torch.rand(s, generator=gen, device=dev)
+    logits = (torch.randn((B, V), generator=gen, device=dev) * 3).to(torch.bfloat16)
+    occ = (u(B, V) < 0.001).float() * u(B, V)
+    pres = (u(B, V) < 0.001).float() * 0.5
+    decay, freq, pp = 0.99 + 0.01 * u(B), u(B), u(B)
+    last = torch.randint(-1, V, (B,), generator=gen, device=dev, dtype=torch.int32)
+    dec = u(B) < 0.9
+    upd = (u(B) < 0.7) & (last >= 0) & dec
+    if B > 1:
+        logits[1, 640 + 3] = logits[1, 640 + 90] = 60.0  # a tie: the lower column wins
+    return logits, occ, pres, (decay, freq, pp, last, upd, dec)
+
+
+# the batches at which every split of a row is timed: one request, a few,
+# the engine's default 32, chip_smoke's 64, and the prefill batches
+TAIL_SWEEP = (1, 8, 32, 64, 128, 256, 512)
+
+
+def tail_splits_ms(dev, gen, V=65536, batches=TAIL_SWEEP, splits=(1, 2, 4, 8)):
+    """The tail at each split of a row over a cluster (tail_shape) at each
+    batch, each launch checked against the plain version (occ, pres, cval,
+    cidx bit-equal, lse within 1e-4): {B: {split: ms}}."""
+    from chirrup_tpu_torch.ops.sampling_cuda import (penalty_tail_planned,
+                                                     penalty_tail_reference, tail_plan,
+                                                     tail_shape)
+
+    out = {}
+    for B in batches:
+        logits, occ, pres, rest = tail_inputs(dev, gen, B, V)
+        ref = penalty_tail_reference(logits, occ, pres, *rest)
+        out[B] = {}
+        for split in splits:
+            plan = tail_shape(B, V, split)
+            o2, p2 = occ.clone(), pres.clone()
+            got = penalty_tail_planned(plan, logits, o2, p2, *rest)
+            torch.cuda.synchronize()
+            exact = all(torch.equal(g, r) for g, r in zip(got[:4], ref[:4]))
+            require(exact and max_abs(got[4], ref[4]) <= 1e-4,
+                    f"penalty_tail B{B} at {split} CTAs a row disagrees with its plain version")
+            out[B][split] = device_ms(lambda: penalty_tail_planned(plan, logits, o2, p2, *rest))
+        log(f"penalty_tail B{B} V{V} by CTAs a row: "
+            + ", ".join(f"{k} {ms:.4f} ms" for k, ms in out[B].items())
+            + f" (tail_plan: {tail_plan(B, V).split})")
+        del logits, occ, pres, rest, ref
+    torch.cuda.empty_cache()
+    return out
+
+
 def check_penalty_tail(dev, gen, V=65536, batches=(64, 512)):
-    from chirrup_tpu_torch.ops.sampling_cuda import penalty_tail, penalty_tail_reference
+    """The tail against its plain version at each batch: occ, pres, cval and
+    cidx bit-equal, lse within 1e-4, the tie within a chunk (row 1) resolved
+    to its lower column, and a tie planted across the first and the last CTA
+    of row 2 resolved to the lower column by the sampler's greedy path. The
+    bound counts what the function must move with this run's data: logits,
+    occ and pres read, occ written on decaying rows, pres at each hit
+    column, and cval, cidx and lse. Then every split of a row, timed at the
+    batches of TAIL_SWEEP (tail_splits_ms)."""
+    from chirrup_tpu_torch.ops.sampling_cuda import (penalty_tail, penalty_tail_reference,
+                                                     tail_plan)
 
     result = None
     for B in batches:
-        u = lambda *s: torch.rand(s, generator=gen, device=dev)
-        logits = (torch.randn((B, V), generator=gen, device=dev) * 3).to(torch.bfloat16)
-        occ = (u(B, V) < 0.001).float() * u(B, V)
-        pres = (u(B, V) < 0.001).float() * 0.5
-        decay, freq, pp = 0.99 + 0.01 * u(B), u(B), u(B)
-        last = torch.randint(-1, V, (B,), generator=gen, device=dev, dtype=torch.int32)
-        dec = u(B) < 0.9
-        upd = (u(B) < 0.7) & (last >= 0) & dec
-        logits[1, 640 + 3] = logits[1, 640 + 90] = 60.0  # a tie: the lower column wins
-        rest = (decay, freq, pp, last, upd, dec)
+        logits, occ, pres, rest = tail_inputs(dev, gen, B, V)
+        plan = tail_plan(B, V)
+        far = V - 1 - 60  # in the last CTA's chunks when the row is split
+        logits[2, 100] = logits[2, far] = 70.0
+        occ[2, [100, far]] = 0.0
+        pres[2, [100, far]] = 0.0
+        rest[3][2], rest[4][2] = -1, False
         ref = penalty_tail_reference(logits, occ, pres, *rest)
         o2, p2 = occ.clone(), pres.clone()
         got = penalty_tail(logits, o2, p2, *rest)
         torch.cuda.synchronize()
         exact = all(torch.equal(g, r) for g, r in zip(got[:4], ref[:4]))
         lse_err = max_abs(got[4], ref[4])
-        require(exact and lse_err <= 1e-4 and int(got[3][1, 5]) == 643,
-                f"penalty_tail B{B}: occ/pres/cval/cidx exact {exact}, lse err {lse_err}")
+        greedy = int(got[3][2, torch.argmax(got[2][2])])
+        require(exact and lse_err <= 1e-4 and int(got[3][1, 5]) == 643 and greedy == 100,
+                f"penalty_tail B{B}: occ/pres/cval/cidx exact {exact}, lse err {lse_err}, "
+                f"tie in a chunk -> {int(got[3][1, 5])} (643), across CTAs -> {greedy} (100)")
         ms = device_ms(lambda: penalty_tail(logits, o2, p2, *rest))
         plain = device_ms(lambda: penalty_tail_reference(logits, occ, pres, *rest), iters=5)
-        moved = nbytes(logits, *rest) + 2 * nbytes(occ, pres) + nbytes(*got[2:])
+        decay_rows, hits = int(rest[5].sum()), int(rest[4].sum())
+        moved = (nbytes(logits, *rest) + nbytes(occ, pres) + 4 * V * decay_rows + 4 * hits
+                 + nbytes(*got[2:]))
         b, by = bound_ms(moved, 10 * B * V, "fp32")
-        log(f"penalty_tail B{B} V{V}: occ/pres/cval/cidx exact {exact}, lse err "
-            f"{lse_err:.3e} (tol 1e-4); {ms:.4f} ms, plain {plain:.4f} ms, bound {b:.4f} ms ({by})")
+        log(f"penalty_tail B{B} V{V} ({plan}): occ/pres/cval/cidx exact {exact}, lse err "
+            f"{lse_err:.3e} (tol 1e-4), ties -> 643 and {greedy}; {ms:.4f} ms, plain "
+            f"{plain:.4f} ms, bound {b:.4f} ms ({by}; {decay_rows} of {B} rows decay; "
+            f"{100 * b / ms:.1f}% of it)")
+        site = dict(batch=B, ms=ms, plain_ms=plain, bound_ms=b, bound_by=by, split=plan.split)
         if result is None:
             result = dict(name="penalty_tail", route="cuda",
                           source="chirrup_tpu_torch/csrc/penalty_tail.cu",
                           replaces="chirrup_tpu/ops/sampling_pallas.py:124", max_abs_err=lse_err,
                           ms=ms, plain_ms=plain, bound_ms=b, bound_by=by, library_ms=None,
                           shape=f"({B}, {V}) bf16 logits, f32 penalty state",
-                          tolerance="occ, pres, cval, cidx exact; lse 1e-4")
+                          tolerance="occ, pres, cval, cidx exact; lse 1e-4", sites=[])
+        result["sites"].append(site)
+        result["max_abs_err"] = max(result["max_abs_err"], lse_err)
+        del logits, occ, pres, rest, ref, o2, p2, got
+    result["splits_ms"] = tail_splits_ms(dev, gen, V)
     return result
 
 
@@ -1168,6 +1294,42 @@ def write_vocab(path: str, size: int = 65536) -> None:
         f.write("\n".join(lines))
 
 
+# groups of a decode step's kernels by name (group_kernels): the port's own
+# kernels, then PyTorch's glue by what it does; a kernel joins the first
+# group whose pattern its name matches
+STEP_GROUPS = [
+    ("mm8_a8_gemm", r"gemm_kernel<"),
+    ("mm8_w16_gemm", r"w16_bf16_kernel|w16_f32"),
+    ("wkv7_step_fused", r"wkv7_step_fused_kernel"),
+    ("mm8_a8_quant_rows", r"quant_rows_kernel"),
+    ("penalty_tail", r"penalty_tail_kernel"),
+    ("sampler: the exact path's (B, V) sort", r"RadixSort|radixSort|sort_postprocess|"
+                                              r"fill_index_and_segment"),
+    ("sampler: cumsum, softmax, gathers, noise", r"scan_innermost|SoftMax|scatter_gather|"
+                                                 r"distribution_|vectorized_gather"),
+    ("copies and casts", r"direct_copy|Memcpy|bfloat16_copy|CatArray|Memset"),
+    ("adds", r"CUDAFunctor_add"),
+    ("layer norms", r"layer_norm"),
+    ("cuBLAS products (the LoRA chains)", r"nvjet|gemv|gemm|cutlass|xmma"),
+    ("reductions (sums, argmax)", r"reduce_kernel"),
+    ("where", r"where_kernel"),
+    ("other elementwise (mul, sigmoid, tanh, compares, fills)", r"."),
+]
+
+
+def group_kernels(by_kernel):
+    """[(group, ms, launches)] of profiler rows (name, ms, launches) summed
+    by STEP_GROUPS, in that order, groups without a kernel left out."""
+    import re
+
+    sums = {g: [0.0, 0.0] for g, _ in STEP_GROUPS}
+    for name, ms, n in by_kernel:
+        g = next(g for g, pat in STEP_GROUPS if re.search(pat, name))
+        sums[g][0] += ms
+        sums[g][1] += n
+    return [(g, ms, n) for g, (ms, n) in sums.items() if n > 0]
+
+
 def run_engine(dev, profile: bool, B=64, L=32, C=4096, V=65536, n_tok=32, blocks=8,
                long_prompt=1024, mm8_core="auto", tag=""):
     """The engine phase under mm8 core `mm8_core` ("auto": w8a8; "pallas":
@@ -1335,6 +1497,12 @@ def run_engine(dev, profile: bool, B=64, L=32, C=4096, V=65536, n_tok=32, blocks
     busy_ms = sum(e.self_device_time_total for e in averages
                   if e.device_type.name == "CUDA") / 1e3
     busy = busy_ms / K if busy_ms > 0 else None
+    # device ms a step by kernel name, with launches a step
+    by_kernel = sorted(((e.key, e.self_device_time_total / 1e3 / K, e.count / K)
+                        for e in averages
+                        if e.device_type.name == "CUDA" and e.self_device_time_total > 0),
+                       key=lambda kv: -kv[1])
+    groups = group_kernels(by_kernel)
     os.makedirs(OUT_DIR, exist_ok=True)
     with open(os.path.join(OUT_DIR, f"chip_smoke{tag}_profile.txt"), "w") as f:
         f.write(averages.table(sort_by="self_cuda_time_total", row_limit=40))
@@ -1343,14 +1511,18 @@ def run_engine(dev, profile: bool, B=64, L=32, C=4096, V=65536, n_tok=32, blocks
     else:
         log(f"device busy per step {busy:.3f} ms (profiler, one block of {K}); against the "
             f"steady wall {step_ms:.3f} ms the device is idle "
-            f"{100 * (1 - busy / step_ms):.1f}% of the time")
+            f"{100 * (1 - busy / step_ms):.1f}% of the time; a step by kernel (ms, launches): "
+            + "; ".join(f"{name[:60]} {ms:.4f} ({n:g})" for name, ms, n in by_kernel[:16])
+            + "; by group: " + "; ".join(f"{g} {ms:.4f} ({n:g})" for g, ms, n in groups))
     if profile:
         log(averages.table(sort_by="self_cuda_time_total", row_limit=30))
     return model, launches, per_step, dict(
         engine_tok_s=n_gen / wall, ttft_s=ttft, compact_chunks=len(compact_calls),
         step_ms=step_ms, decode_tok_s=tok_s, blocks=blocks,
         block_steps=K, host_dispatch_ms=host_ms, host_cpu_ms=cpu_ms, block_wall_ms=wall_ms,
-        device_busy_step_ms=busy, load_average=[load_before[0], load_after[0]],
+        device_busy_step_ms=busy, device_ms_by_kernel_step=by_kernel,
+        device_ms_by_group_step=groups,
+        load_average=[load_before[0], load_after[0]],
         peak_gib=peak / 2 ** 30)
 
 
@@ -1594,35 +1766,92 @@ def unfused_layer0_float32(dev, m, B, P, T):
 
 # ------------------------------------------------------- two trees compared
 
+# the step kernel's dtype pairs (rows, state) timed by compare_step_tail:
+# the served pair first, then a float32 state (RuntimeConfig's
+# wkv_state_dtype) under bf16 and float32 rows, and float32 rows on a bf16
+# state
+STEP_PAIRS = ((torch.bfloat16, torch.bfloat16), (torch.bfloat16, torch.float32),
+              (torch.float32, torch.float32), (torch.float32, torch.bfloat16))
+TAIL_BATCHES = (32, 64, 128, 256, 512)
+
+
+def compare_step_tail(dev, L=32, V=65536):
+    """The step kernel at batch 64 (cold and warm, step_ms) in each dtype
+    pair of STEP_PAIRS and the penalty tail at each batch of TAIL_BATCHES,
+    through the public wrappers of whichever chirrup_tpu_torch is imported,
+    on inputs drawn here from seed 2: the same inputs in any tree whose
+    wrappers take these arguments."""
+    from chirrup_tpu_torch.ops.sampling_cuda import penalty_tail
+
+    gen = torch.Generator(device=dev).manual_seed(2)
+    step = {}
+    for act, sdt in STEP_PAIRS:
+        state, args = step_inputs(dev, gen, L=L, act=act, state_dtype=sdt)
+        cold, warm = step_ms(state, args, L // 2 + 1)
+        step[f"{str(act)[6:]}/{str(sdt)[6:]}"] = dict(cold_ms=cold, warm_ms=warm)
+        del state, args
+        torch.cuda.empty_cache()
+    tail = {}
+    for B in TAIL_BATCHES:
+        logits, occ, pres, rest = tail_inputs(dev, gen, B, V)
+        tail[B] = device_ms(lambda: penalty_tail(logits, occ, pres, *rest))
+    torch.cuda.empty_cache()
+    return dict(step_ms=step, tail_ms=tail)
+
+
+def compare_engine(dev, tag):
+    """The w8a8 engine phase (run_engine, two steady blocks) on whichever
+    chirrup_tpu_torch is imported: the decode step's device busy time and
+    its kernels by group, from the profiler."""
+    model, _, _, path = run_engine(dev, False, blocks=2, tag=tag)
+    del model
+    torch.cuda.empty_cache()
+    return {k: path[k] for k in ("device_busy_step_ms", "device_ms_by_group_step", "step_ms",
+                                 "decode_tok_s")}
+
+
 # one tree's run of the comparison, in a process of its own started in that
 # tree's root: the chunk kernel after check_wkv from seed 0 (so its inputs are
 # a full run's), the quantizer (with its GEMM) at batch 64 and at 2,048 rows
-# from seed 1; the sites' numbers go to the JSON file named by argv[1]
+# from seed 1, each from that tree's chip_smoke.py; then the step kernel and
+# the penalty tail timed by this script's compare_step_tail (argv[2]) on
+# that tree's kernels, and this script's engine phase (compare_engine, its
+# profile file tagged argv[3]); the numbers go to the JSON file named by
+# argv[1]
 _COMPARE_RUN = """
-import json, sys, torch
+import importlib.util, json, sys, torch
 import chip_smoke as cs
 from chirrup_tpu_torch.ops import _kernels
 dev = torch.device("cuda", 0)
 torch.backends.cuda.matmul.allow_tf32 = False
-_kernels.build(("wkv7_step", "wkv7_chunk", "mm8_a8"))
+_kernels.build()
 gen = torch.Generator(device=dev).manual_seed(0)
 cs.check_wkv(dev, gen)
 out = {"chunk": cs.check_chunk(dev, gen)["sites"]}
 for rows, shapes in ((64, cs.MM8_SHAPES), (2048, cs.MM8_SHAPES[:4])):
     gen = torch.Generator(device=dev).manual_seed(1)
     out[f"quant_{rows}"] = cs.check_mm8(dev, gen, B=rows, shapes=shapes)[0]["sites"]
+spec = importlib.util.spec_from_file_location("compare_here", sys.argv[2])
+here = importlib.util.module_from_spec(spec)
+spec.loader.exec_module(here)
+out["step_tail"] = here.compare_step_tail(dev)
+out["engine"] = here.compare_engine(dev, sys.argv[3])
 json.dump(out, open(sys.argv[1], "w"))
 """
 
 
 def compare_trees(parent: str) -> int:
-    """The WKV chunk kernel and the activation quantizer of this tree against
+    """The WKV step and chunk kernels, the activation quantizer, the
+    penalty tail and the w8a8 engine's decode step of this tree against
     those of another checkout `parent` (a `git archive` of another commit
-    unpacked into a gitignored directory), each tree in a process of its own,
-    in turns parent, change, change, parent, on the same inputs (_COMPARE_RUN).
-    Prints each run's chunk times (with its valid tokens: the same in every
-    run) and the quantizer's time over a decode step and at 2,048 rows;
-    writes every site's numbers to chiprun_out/compare.json."""
+    unpacked into a gitignored directory), each tree in a process of its
+    own, in turns parent, change, change, parent, on the same inputs
+    (_COMPARE_RUN). Prints each run's step kernel times (cold and warm, each
+    dtype pair), chunk times (with its valid tokens: the same in every run),
+    the quantizer's time over a decode step and at 2,048 rows, the tail's
+    times at each batch, and the engine's device busy time a decode step
+    with its step kernel's and tail's shares; writes every site's numbers to
+    chiprun_out/compare.json."""
     here = os.path.dirname(os.path.abspath(__file__))
     trees = {"parent": os.path.abspath(parent), "change": here}
     os.makedirs(OUT_DIR, exist_ok=True)
@@ -1630,7 +1859,9 @@ def compare_trees(parent: str) -> int:
     for i, label in enumerate(("parent", "change", "change", "parent"), 1):
         path = os.path.join(OUT_DIR, f"compare_{i}_{label}.json")
         with open(os.path.join(OUT_DIR, f"compare_{i}_{label}.log"), "w") as out:
-            rc = subprocess.run([sys.executable, "-c", _COMPARE_RUN, path], cwd=trees[label],
+            rc = subprocess.run([sys.executable, "-c", _COMPARE_RUN, path,
+                                 os.path.abspath(__file__), f"_compare_{i}_{label}"],
+                                cwd=trees[label],
                                 stdout=out, stderr=subprocess.STDOUT).returncode
         require(rc == 0, f"compare run {i} ({label}) exited {rc}: see "
                          f"chiprun_out/compare_{i}_{label}.log")
@@ -1639,13 +1870,22 @@ def compare_trees(parent: str) -> int:
         quant = {q["site"]: q["ms"] for q in res["quant_64"]}
         step = 32 * sum(quant[s] for s in ("att R/K/V", "att Wo", "ffn Wk", "ffn Wv")) \
             + quant["head"]
-        runs.append(dict(run=i, tree=label, chunk=[
+        st, eng = res["step_tail"], res["engine"]
+        groups = {g: (ms, n) for g, ms, n in eng["device_ms_by_group_step"]}
+        runs.append(dict(run=i, tree=label, engine=eng, chunk=[
             dict(variant=x["variant"], valid_tokens=x["valid_tokens"], ms=x["ms"],
                  bound_ms=x["bound_ms"]) for x in res["chunk"]],
             quant_decode_step_ms=step, quant_64_ms=quant,
             quant_2048=[dict(site=q["site"], ms=q["ms"], bound_ms=q["bound_ms"])
-                        for q in res["quant_2048"]]))
-        log(f"run {i} ({label}): wkv7_chunk_fused " + "; ".join(
+                        for q in res["quant_2048"]], **st))
+        log(f"run {i} ({label}): wkv7_step_fused B64 (rows/state) " + ", ".join(
+            f"{pair} {t['cold_ms']:.4f} ms cold, {t['warm_ms']:.4f} warm"
+            for pair, t in st["step_ms"].items()) + "; penalty_tail "
+            + ", ".join(f"B{b} {ms:.4f} ms" for b, ms in st["tail_ms"].items())
+            + f"; w8a8 engine decode step: device busy {eng['device_busy_step_ms']:.4f} ms, "
+            + ", ".join(f"{g} {groups[g][0]:.4f} ms ({groups[g][1]:g} launches)"
+                        for g in ("wkv7_step_fused", "penalty_tail"))
+            + "; wkv7_chunk_fused " + "; ".join(
             f"{tuple(x['variant'])} {x['ms']:.4f} ms ({x['valid_tokens']} valid tokens)"
             for x in runs[-1]["chunk"])
             + f"; mm8_a8_quant_rows over a decode step {step:.4f} ms (batch 64, per site "
@@ -1668,9 +1908,9 @@ def main(argv=None) -> int:
     parser.add_argument("--profile", action="store_true",
                         help="also print a torch.profiler table of one decode block")
     parser.add_argument("--compare", metavar="DIR",
-                        help="instead of the smoke run, time the WKV chunk kernel and the "
-                             "quantizer of the checkout in DIR against this tree's "
-                             "(compare_trees)")
+                        help="instead of the smoke run, time the WKV step and chunk "
+                             "kernels, the quantizer and the penalty tail of the checkout "
+                             "in DIR against this tree's (compare_trees)")
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the GPU only", file=sys.stderr)
@@ -1754,7 +1994,7 @@ def main(argv=None) -> int:
     os.makedirs(OUT_DIR, exist_ok=True)
     with open(os.path.join(OUT_DIR, "chip_smoke.json"), "w") as f:
         json.dump(dict(card=smi[0], path=path, **summary), f, indent=1)
-    log(json.dumps({"kernels": [{k: v for k, v in kern.items() if k != "sites"}
+    log(json.dumps({"kernels": [{k: v for k, v in kern.items() if k not in ("sites", "splits_ms")}
                                 for kern in kernels]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -123,34 +123,6 @@ constexpr int smem_bytes() {
   return (7 * TT * N + TT + 5 * N) * 4 + 10 * TT * N * (int)sizeof(TA);
 }
 
-// 8 consecutive elements as floats
-__device__ __forceinline__ void load8(const float* p, float (&v)[8]) {
-  const float4 a = reinterpret_cast<const float4*>(p)[0], b = reinterpret_cast<const float4*>(p)[1];
-  v[0] = a.x; v[1] = a.y; v[2] = a.z; v[3] = a.w;
-  v[4] = b.x; v[5] = b.y; v[6] = b.z; v[7] = b.w;
-}
-__device__ __forceinline__ void load8(const __nv_bfloat16* p, float (&v)[8]) {
-  const uint4 u = *reinterpret_cast<const uint4*>(p);
-  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&u);
-#pragma unroll
-  for (int e = 0; e < 4; ++e) {
-    const float2 f = __bfloat1622float2(h[e]);
-    v[2 * e] = f.x;
-    v[2 * e + 1] = f.y;
-  }
-}
-__device__ __forceinline__ void store8(float* p, const float (&v)[8]) {
-  reinterpret_cast<float4*>(p)[0] = make_float4(v[0], v[1], v[2], v[3]);
-  reinterpret_cast<float4*>(p)[1] = make_float4(v[4], v[5], v[6], v[7]);
-}
-__device__ __forceinline__ void store8(__nv_bfloat16* p, const float (&v)[8]) {
-  uint4 u;
-  __nv_bfloat162* h = reinterpret_cast<__nv_bfloat162*>(&u);
-#pragma unroll
-  for (int e = 0; e < 4; ++e) h[e] = __floats2bfloat162_rn(v[2 * e], v[2 * e + 1]);
-  *reinterpret_cast<uint4*>(p) = u;
-}
-
 // phases A and C: a token's 64 channels on LG lanes of 8 channels each, 32 /
 // LG tokens a warp at once; the per-head sums over the LG lanes
 constexpr int LG = 8;

@@ -1,6 +1,6 @@
 // Helpers shared by the WKV7 kernels (wkv7_step.cu, wkv7_chunk.cu,
 // wkv7_batch.cu): dtype conversion, 16-byte loads and stores of one 64-wide
-// state row, the 64-thread block sum and the decay with its dither.
+// state row and of 8 consecutive elements, and the decay with its dither.
 
 #pragma once
 
@@ -65,20 +65,32 @@ __device__ __forceinline__ void store_row(__nv_bfloat16* p, const float* s) {
   }
 }
 
-// Sum over one warp; every lane gets the same value.
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
+// 8 consecutive elements as floats (16-byte aligned), and back
+__device__ __forceinline__ void load8(const float* p, float (&v)[8]) {
+  const float4 a = reinterpret_cast<const float4*>(p)[0], b = reinterpret_cast<const float4*>(p)[1];
+  v[0] = a.x; v[1] = a.y; v[2] = a.z; v[3] = a.w;
+  v[4] = b.x; v[5] = b.y; v[6] = b.z; v[7] = b.w;
 }
-
-// Sum over the block's 64 threads; every thread gets the same value.
-__device__ __forceinline__ float block_sum64(float v, float* red) {
-  v = warp_sum(v);
-  __syncthreads();  // red may still be read from the previous call
-  if ((threadIdx.x & 31) == 0) red[threadIdx.x >> 5] = v;
-  __syncthreads();
-  return red[0] + red[1];
+__device__ __forceinline__ void load8(const __nv_bfloat16* p, float (&v)[8]) {
+  const uint4 u = *reinterpret_cast<const uint4*>(p);
+  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&u);
+#pragma unroll
+  for (int e = 0; e < 4; ++e) {
+    const float2 f = __bfloat1622float2(h[e]);
+    v[2 * e] = f.x;
+    v[2 * e + 1] = f.y;
+  }
+}
+__device__ __forceinline__ void store8(float* p, const float (&v)[8]) {
+  reinterpret_cast<float4*>(p)[0] = make_float4(v[0], v[1], v[2], v[3]);
+  reinterpret_cast<float4*>(p)[1] = make_float4(v[4], v[5], v[6], v[7]);
+}
+__device__ __forceinline__ void store8(__nv_bfloat16* p, const float (&v)[8]) {
+  uint4 u;
+  __nv_bfloat162* h = reinterpret_cast<__nv_bfloat162*>(&u);
+#pragma unroll
+  for (int e = 0; e < 4; ++e) h[e] = __floats2bfloat162_rn(v[2 * e], v[2 * e + 1]);
+  *reinterpret_cast<uint4*>(p) = u;
 }
 
 // d = exp(-e^-1/2 * sigmoid(w)) - 1, plus rotator1's dither of the token

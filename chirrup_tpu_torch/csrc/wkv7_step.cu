@@ -12,28 +12,128 @@
 //   S_ij <- S_ij * d1_j + v_i * k~_j + (sum_j' -kk_j' S_ij') * (kk_j * a_j)
 //   y_i   = sum_j S_ij r_j
 //   out_i = GroupNorm_head(y)_i * ln_w + ln_b + (sum_j r_j k~_j r_k_j) * v_i
-// Rows with lengths[b] == 0 keep S bit-unchanged and output 0.
+// Rows with lengths[b] == 0 keep S bit-unchanged (it is neither read nor
+// written) and output 0.
 //
 // Bound on the H100: device memory. Each call reads and writes layer
 // `layer`'s state slab once (2 * B * 64 * C * sizeof(state) bytes, 64 MiB at
-// B=64, C=4096, bf16); the arithmetic is ~10 flops per state element.
+// B=64, C=4096, bf16); the arithmetic is ~10 flops per state element. In a
+// decode step every call finds its slab cold: the step walks all the layers
+// (1 GiB of state at B=64) and the weights between two calls on one layer.
 //
-// Design: one block of 64 threads per (head, request). Thread i keeps state
-// row i (64 floats) in registers for the whole token, so the slab crosses
-// device memory exactly once each way; the head's r, d1, k~, -kk, kk*a rows
-// sit in shared memory and are read as broadcasts. The per-head reductions
-// (the kk norm, the bonus sum and the GroupNorm statistics) are 64-thread
-// block sums. Everything is head-local, so there is no cross-block step.
-// Loads and stores of a state row are 16-byte vectors.
+// Design: one block of NT = HB * 64 / RI * P = 128 threads per HB = 4
+// neighbouring heads of one request, RI = 16 state rows a thread and P = 8
+// threads a row (wkv7_cuda.step_plan describes the launch). Lane group g of
+// warp w (8 neighbouring lanes) holds rows 16w .. 16w + 15 of head g, each
+// lane 8 consecutive columns, so one warp load instruction reads one state
+// row of four heads: 512 contiguous bytes in bf16 (16 bytes a lane). Every
+// thread issues the loads of its RI rows first, into registers (bf16 kept
+// packed, 4 registers a row), so that their DRAM latency overlaps the
+// prologue; a warp has 8 KiB in flight and an SM runs 12 warps. The loads
+// and stores of the state are evict-first (ld/st .cs): the slab is not
+// touched again before the next token. The prologue (kk norm, k~, decay,
+// bonus) needs no state: each thread computes it for its own 8 columns, the
+// head's sums joined over the row's P lanes with __shfl_xor (every lane gets
+// the same bits), with no shared memory and no barrier. Then row by row:
+// sa_i and y_i are P-lane shuffle sums, the row is updated and stored at
+// once. The GroupNorm over a head's 64 rows sums its four warps' partial
+// sums in shared memory. A head never spans blocks; a head slot past the
+// last head (H not a multiple of HB) computes on a valid head and stores
+// nothing. Of the launch shapes timed with cold state at batch 64 on the
+// H100 (1, 2 or 4 heads a block, 8 or 16 rows a thread, with and without
+// the evict-first hints, with register caps that allow more warps an SM),
+// this one was the fastest (PERF.md).
 
+#include "hopper_common.cuh"
 #include "wkv7_common.cuh"
 
 namespace {
 
 using namespace wkv7;
 
+// the launch: HB heads a block, RI state rows a thread, P threads a row (G
+// row groups of P lanes a warp), NT threads a block
+constexpr int HB = 4, RI = 16, P = 8, G = 32 / P, NT = HB * N / RI * P, NW = NT / 32;
+static_assert(P * 8 == N && G % HB == 0 && NT % 32 == 0, "launch shape");
+
+// 8 consecutive state elements as loaded: bf16 stays packed (4 registers a
+// row) until its row's turn. Loads and stores are evict-first (.cs).
+template <typename TS> struct Raw8;
+template <> struct Raw8<__nv_bfloat16> { uint4 u; };
+template <> struct Raw8<float> { float4 lo, hi; };
+
+__device__ __forceinline__ void load_raw(const __nv_bfloat16* p, Raw8<__nv_bfloat16>& r) {
+  r.u = __ldcs(reinterpret_cast<const uint4*>(p));
+}
+__device__ __forceinline__ void load_raw(const float* p, Raw8<float>& r) {
+  r.lo = __ldcs(reinterpret_cast<const float4*>(p));
+  r.hi = __ldcs(reinterpret_cast<const float4*>(p) + 1);
+}
+__device__ __forceinline__ void store_cs(__nv_bfloat16* p, const float (&v)[8]) {
+  uint4 u;
+  __nv_bfloat162* h = reinterpret_cast<__nv_bfloat162*>(&u);
+#pragma unroll
+  for (int e = 0; e < 4; ++e) h[e] = __floats2bfloat162_rn(v[2 * e], v[2 * e + 1]);
+  __stcs(reinterpret_cast<uint4*>(p), u);
+}
+__device__ __forceinline__ void store_cs(float* p, const float (&v)[8]) {
+  __stcs(reinterpret_cast<float4*>(p), make_float4(v[0], v[1], v[2], v[3]));
+  __stcs(reinterpret_cast<float4*>(p) + 1, make_float4(v[4], v[5], v[6], v[7]));
+}
+__device__ __forceinline__ void unpack(const Raw8<__nv_bfloat16>& r, float (&v)[8]) {
+  const uint32_t w[4] = {r.u.x, r.u.y, r.u.z, r.u.w};
+#pragma unroll
+  for (int e = 0; e < 4; ++e) {
+    const float2 f = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&w[e]));
+    v[2 * e] = f.x;
+    v[2 * e + 1] = f.y;
+  }
+}
+__device__ __forceinline__ void unpack(const Raw8<float>& r, float (&v)[8]) {
+  v[0] = r.lo.x; v[1] = r.lo.y; v[2] = r.lo.z; v[3] = r.lo.w;
+  v[4] = r.hi.x; v[5] = r.hi.y; v[6] = r.hi.z; v[7] = r.hi.w;
+}
+
+// 8 consecutive activations as floats: one vector load where p is 16-byte
+// aligned (the rows of the merged R/K/V output are), else one at a time
+template <typename T>
+__device__ __forceinline__ void load8_any(const T* p, float (&v)[8]) {
+  if ((reinterpret_cast<uintptr_t>(p) & 15) == 0) {
+    load8(p, v);
+  } else {
+#pragma unroll
+    for (int e = 0; e < 8; ++e) v[e] = to_f32(p[e]);
+  }
+}
+
+// the sum over the P neighbouring lanes that hold one state row's columns;
+// every one of them gets the same bits (a butterfly of commutative adds)
+__device__ __forceinline__ float row_sum(float v) {
+#pragma unroll
+  for (int o = 1; o < P; o <<= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  return v;
+}
+
+// the sum over a head's row groups of a value that each group's P lanes
+// hold alike: the warp's groups of that head (lane group g holds head g % HB)
+// by shuffles, then the block's warps through shared memory
+__device__ __forceinline__ float head_sum(float v, float* red) {
+#pragma unroll
+  for (int o = P * HB; o < 32; o <<= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  if constexpr (NW > 1) {
+    const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+    __syncthreads();  // red may still be read from the previous call
+    if (lane % P == 0 && lane / P < HB) red[warp * HB + lane / P] = v;
+    __syncthreads();
+    v = 0.0f;
+#pragma unroll
+    for (int q = 0; q < NW; ++q) v += red[q * HB + lane / P % HB];
+  }
+  return v;
+}
+
 template <typename TA, typename TS>
-__global__ void __launch_bounds__(N) wkv7_step_fused_kernel(
+__global__ void __launch_bounds__(NT) wkv7_step_fused_kernel(
     TS* __restrict__ state, const TA* __restrict__ r, const TA* __restrict__ w,
     const TA* __restrict__ k, const TA* __restrict__ a, const TA* __restrict__ v,
     const TA* __restrict__ k_k, const TA* __restrict__ k_a, const TA* __restrict__ r_k,
@@ -41,100 +141,151 @@ __global__ void __launch_bounds__(N) wkv7_step_fused_kernel(
     const int32_t* __restrict__ elapsed, const int32_t* __restrict__ lengths,
     TA* __restrict__ y, int B, int C, int layer, int use_dither, int ld_r, int ld_w,
     int ld_k, int ld_a, int ld_v) {
-  __shared__ float s_r[N], s_d1[N], s_k[N], s_a[N], s_b[N];
-  __shared__ float red[2];
-
-  const int h = blockIdx.x, b = blockIdx.y, t = threadIdx.x;
-  const int c = h * N + t;                  // channel of lane j = t (and of row i = t)
-  const size_t row = (size_t)b * C + c;     // offset into the (B, C) output rows
-  const bool active = lengths[b] > 0;
-
-  // prologue, lane j = t
-  const float kr = to_f32(k[(size_t)b * ld_k + c]);
-  const float ai = to_f32(a[(size_t)b * ld_a + c]);
-  const float rr = to_f32(r[(size_t)b * ld_r + c]);
-  const float kk_pre = kr * to_f32(k_k[c]);
-  const float norm2 = block_sum64(kk_pre * kk_pre, red);
-  const float kk = kk_pre * (1.0f / fmaxf(sqrtf(norm2), 1e-12f));
-  const float kt = kr * (1.0f + (ai - 1.0f) * to_f32(k_a[c]));
-  const float bonus = block_sum64(rr * kt * to_f32(r_k[c]), red);
-
-  const float d = decay(to_f32(w[(size_t)b * ld_w + c]), (unsigned int)elapsed[b], use_dither);
-  // row-folded activity mask: d1 = 1, k~ = 0, b = 0 leave S unchanged
-  s_r[t] = rr;
-  s_d1[t] = active ? 1.0f + d : 1.0f;
-  s_k[t] = active ? kt : 0.0f;
-  s_a[t] = -kk;
-  s_b[t] = active ? kk * ai : 0.0f;
-  __syncthreads();
-
-  // recurrence, row i = t
-  TS* srow = state + (((size_t)layer * B + b) * N + t) * C + h * N;
-  float S[N];
-  load_row(srow, S);
-  float sa = 0.0f;
-#pragma unroll
-  for (int j = 0; j < N; ++j) sa += s_a[j] * S[j];
-  const float vi = to_f32(v[(size_t)b * ld_v + c]);
-  float yi = 0.0f;
-#pragma unroll
-  for (int j = 0; j < N; ++j) {
-    S[j] = S[j] * s_d1[j] + vi * s_k[j] + sa * s_b[j];
-    yi += S[j] * s_r[j];
+  __shared__ float red[NW * HB];
+  const int b = blockIdx.y, tid = threadIdx.x;
+  // lane group gi of the block: head slot gi % HB, rows i0 .. i0 + RI - 1;
+  // each lane columns 8 part .. 8 part + 7
+  const int gi = tid / P, part = tid % P, i0 = gi / HB * RI;
+  const int h = blockIdx.x * HB + gi % HB, H = C / N;
+  const bool hv = h < H;  // a slot past the last head computes, stores nothing
+  const int c0 = (hv ? h : H - 1) * N;  // the head's first channel
+  TA* yh = y + (size_t)b * C + c0;
+  if (lengths[b] <= 0) {  // an idle row: its state is neither read nor written
+    const int first = blockIdx.x * HB * N;  // the block's first channel
+    for (int q = tid; q < HB * N && first + q < C; q += NT)
+      y[(size_t)b * C + first + q] = from_f32<TA>(0.0f);
+    return;
   }
-  if (active) store_row(srow, S);
+
+  // the state rows first: their DRAM latency overlaps the prologue
+  TS* srow = state + (((size_t)layer * B + b) * N + i0) * C + c0 + 8 * part;
+  Raw8<TS> raw[RI];
+#pragma unroll
+  for (int q = 0; q < RI; ++q) load_raw(srow + (size_t)q * C, raw[q]);
+
+  // prologue on this thread's 8 columns j (the row's P lanes hold the head)
+  const int cj = c0 + 8 * part;
+  float rr[8], wr[8], kr[8], ar[8], kkp[8], kap[8], rkp[8], vv[RI];
+  load8_any(r + (size_t)b * ld_r + cj, rr);
+  load8_any(w + (size_t)b * ld_w + cj, wr);
+  load8_any(k + (size_t)b * ld_k + cj, kr);
+  load8_any(a + (size_t)b * ld_a + cj, ar);
+  load8_any(k_k + cj, kkp);
+  load8_any(k_a + cj, kap);
+  load8_any(r_k + cj, rkp);
+  const TA* vh = v + (size_t)b * ld_v + c0 + i0;  // v_i of this thread's rows
+  if constexpr (RI % 8 == 0) {
+#pragma unroll
+    for (int q = 0; q < RI; q += 8) load8_any(vh + q, *reinterpret_cast<float(*)[8]>(vv + q));
+  } else {
+#pragma unroll
+    for (int q = 0; q < RI; ++q) vv[q] = to_f32(vh[q]);
+  }
+  const unsigned int step = (unsigned int)elapsed[b];
+
+  float kp[8], kt[8], ss = 0.0f, bs = 0.0f;
+#pragma unroll
+  for (int e = 0; e < 8; ++e) {
+    kp[e] = kr[e] * kkp[e];
+    ss += kp[e] * kp[e];
+    kt[e] = kr[e] * (1.0f + (ar[e] - 1.0f) * kap[e]);
+    bs += rr[e] * kt[e] * rkp[e];
+  }
+  const float inv = 1.0f / fmaxf(sqrtf(row_sum(ss)), 1e-12f);
+  const float bonus = row_sum(bs);
+  float d1[8], na[8], nb[8];
+#pragma unroll
+  for (int e = 0; e < 8; ++e) {
+    d1[e] = 1.0f + decay(wr[e], step, use_dither);
+    na[e] = -(kp[e] * inv);
+    nb[e] = kp[e] * inv * ar[e];
+  }
+
+  // recurrence, one row at a time: sa_i and y_i joined over the row's lanes
+  float yv[RI];
+#pragma unroll
+  for (int q = 0; q < RI; ++q) {
+    float s[8];
+    unpack(raw[q], s);
+    float p0 = 0.0f, p1 = 0.0f;
+#pragma unroll
+    for (int e = 0; e < 8; e += 2) {
+      p0 += na[e] * s[e];
+      p1 += na[e + 1] * s[e + 1];
+    }
+    const float sa = row_sum(p0 + p1);
+    p0 = p1 = 0.0f;
+#pragma unroll
+    for (int e = 0; e < 8; e += 2) {
+      s[e] = s[e] * d1[e] + vv[q] * kt[e] + sa * nb[e];
+      s[e + 1] = s[e + 1] * d1[e + 1] + vv[q] * kt[e + 1] + sa * nb[e + 1];
+      p0 += s[e] * rr[e];
+      p1 += s[e + 1] * rr[e + 1];
+    }
+    yv[q] = row_sum(p0 + p1);
+    if (hv) store_cs(srow + (size_t)q * C, s);
+  }
 
   // epilogue: per-head GroupNorm (eps 64e-5) over the 64 rows, plus the bonus
-  const float mu = block_sum64(yi, red) * (1.0f / N);
-  const float dy = yi - mu;
-  const float var = block_sum64(dy * dy, red) * (1.0f / N);
-  const float out = dy * rsqrtf(var + 64e-5f) * to_f32(ln_w[c]) + to_f32(ln_b[c]) + bonus * vi;
-  y[row] = from_f32<TA>(active ? out : 0.0f);
+  float sy = 0.0f;
+#pragma unroll
+  for (int q = 0; q < RI; ++q) sy += yv[q];
+  const float mu = head_sum(sy, red) * (1.0f / N);
+  float sd = 0.0f;
+#pragma unroll
+  for (int q = 0; q < RI; ++q) sd += (yv[q] - mu) * (yv[q] - mu);
+  const float rs = rsqrtf(head_sum(sd, red) * (1.0f / N) + 64e-5f);
+  // lane `part` of a row group writes its rows i0 + q with q % P == part
+#pragma unroll
+  for (int q = 0; q < RI; ++q) {
+    if (q % P != part || !hv) continue;
+    const int i = i0 + q;
+    yh[i] = from_f32<TA>((yv[q] - mu) * rs * to_f32(ln_w[c0 + i]) + to_f32(ln_b[c0 + i]) +
+                         bonus * vv[q]);
+  }
 }
 
 template <typename TA, typename TS>
-void launch(void* state, const void* r, const void* w, const void* k, const void* a,
-            const void* v, const void* k_k, const void* k_a, const void* r_k,
-            const void* ln_w, const void* ln_b, const void* elapsed, const void* lengths,
-            void* y, int B, int C, int layer, int use_dither, const int* ld,
-            cudaStream_t stream) {
-  const dim3 grid(C / N, B);
-  wkv7_step_fused_kernel<TA, TS><<<grid, N, 0, stream>>>(
+int launch(void* state, const void* r, const void* w, const void* k, const void* a,
+           const void* v, const void* k_k, const void* k_a, const void* r_k,
+           const void* ln_w, const void* ln_b, const void* elapsed, const void* lengths,
+           void* y, int B, int C, int layer, int use_dither, const int* ld,
+           cudaStream_t stream) {
+  wkv7_step_fused_kernel<TA, TS><<<dim3((C / N + HB - 1) / HB, B), NT, 0, stream>>>(
       (TS*)state, (const TA*)r, (const TA*)w, (const TA*)k, (const TA*)a, (const TA*)v,
       (const TA*)k_k, (const TA*)k_a, (const TA*)r_k, (const TA*)ln_w, (const TA*)ln_b,
       (const int32_t*)elapsed, (const int32_t*)lengths, (TA*)y, B, C, layer, use_dither, ld[0],
       ld[1], ld[2], ld[3], ld[4]);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
 
 // dtype codes: 0 = float32, 1 = bfloat16. ld_*: row strides (elements) of the
-// (B, C) inputs r, w, k, a, v, whose columns are contiguous. Returns
-// cudaGetLastError().
+// (B, C) inputs r, w, k, a, v, whose columns are contiguous; the state is
+// 16-byte aligned. heads_per_block .. threads: the launch the wrapper's plan
+// (wkv7_cuda.step_plan) describes, refused with ERR_PLAN unless it is this
+// file's. Returns the launch's error code.
 extern "C" int wkv7_step_fused(void* state, const void* r, const void* w, const void* k,
                                const void* a, const void* v, const void* k_k,
                                const void* k_a, const void* r_k, const void* ln_w,
                                const void* ln_b, const void* elapsed, const void* lengths,
                                void* y, int B, int C, int layer, int use_dither, int ld_r,
                                int ld_w, int ld_k, int ld_a, int ld_v, int act_dtype,
-                               int state_dtype, void* stream) {
+                               int state_dtype, int heads_per_block, int rows_per_thread,
+                               int threads_per_row, int threads, void* stream) {
+  if (heads_per_block != HB || rows_per_thread != RI || threads_per_row != P || threads != NT)
+    return hopper::ERR_PLAN;
   cudaStream_t s = (cudaStream_t)stream;
   const int ld[5] = {ld_r, ld_w, ld_k, ld_a, ld_v};
-  if (act_dtype == 1 && state_dtype == 1)
-    launch<__nv_bfloat16, __nv_bfloat16>(state, r, w, k, a, v, k_k, k_a, r_k, ln_w, ln_b,
-                                         elapsed, lengths, y, B, C, layer, use_dither, ld, s);
-  else if (act_dtype == 1 && state_dtype == 0)
-    launch<__nv_bfloat16, float>(state, r, w, k, a, v, k_k, k_a, r_k, ln_w, ln_b, elapsed,
-                                 lengths, y, B, C, layer, use_dither, ld, s);
-  else if (act_dtype == 0 && state_dtype == 1)
-    launch<float, __nv_bfloat16>(state, r, w, k, a, v, k_k, k_a, r_k, ln_w, ln_b, elapsed,
-                                 lengths, y, B, C, layer, use_dither, ld, s);
-  else
-    launch<float, float>(state, r, w, k, a, v, k_k, k_a, r_k, ln_w, ln_b, elapsed, lengths,
-                         y, B, C, layer, use_dither, ld, s);
-  return (int)cudaGetLastError();
+#define WKV7_STEP_DISPATCH(TA, TS)                                                          \
+  return launch<TA, TS>(state, r, w, k, a, v, k_k, k_a, r_k, ln_w, ln_b, elapsed, lengths, y, \
+                        B, C, layer, use_dither, ld, s)
+  if (act_dtype == 1 && state_dtype == 1) WKV7_STEP_DISPATCH(__nv_bfloat16, __nv_bfloat16);
+  if (act_dtype == 1 && state_dtype == 0) WKV7_STEP_DISPATCH(__nv_bfloat16, float);
+  if (act_dtype == 0 && state_dtype == 1) WKV7_STEP_DISPATCH(float, __nv_bfloat16);
+  WKV7_STEP_DISPATCH(float, float);
+#undef WKV7_STEP_DISPATCH
 }
 
-extern "C" const char* wkv7_step_error_string(int code) {
-  return cudaGetErrorString((cudaError_t)code);
-}
+extern "C" const char* wkv7_step_error_string(int code) { return hopper::error_string(code); }

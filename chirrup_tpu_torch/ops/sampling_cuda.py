@@ -12,11 +12,14 @@ per-128-column maxima that form the candidate set of the sampler:
 The record of step t's sample is deferred to step t+1 through the carried
 last_sampled: recording at the end of step t and decaying at the start of t+1
 (the reference scheduler's order) gives the same sequence for every token.
+
+The kernel splits each row's vocabulary over the CTAs of a thread-block
+cluster, each owning whole 128-column chunks; ``tail_plan`` gives the split.
 """
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
@@ -27,7 +30,54 @@ CHUNK = 128  # candidate bucket width
 
 _SOURCE = "penalty_tail"
 _P, _I = _kernels.P, _kernels.I
-_SIGNATURES = {"penalty_tail": [_P] * 12 + [_I] * 3 + [_P]}
+_SIGNATURES = {"penalty_tail": [_P] * 12 + [_I] * 7 + [_P]}
+MAX_SPLIT = 8  # CTAs a row: the portable thread-block cluster size
+
+
+class TailPlan(NamedTuple):
+    """The penalty tail's launch: each row on the `split` CTAs of one
+    cluster of `threads` threads; CTA r owns chunks [r * chunks_per_cta,
+    min((r + 1) * chunks_per_cta, n_chunks)) of 128 columns, every CTA at
+    least one; warp w of a CTA takes `chunks_in_flight` consecutive chunks
+    from the CTA's first + w * chunks_in_flight on, then steps by warps *
+    chunks_in_flight; grid and cluster as launched (1-D, `split` CTAs a
+    row). The wrapper hands the plan to the kernel's entry, which refuses
+    threads or chunks in flight other than its own."""
+    split: int
+    threads: int
+    chunks_per_cta: int
+    chunks_in_flight: int
+    grid: Tuple[int, int, int]
+    cluster: Tuple[int, int, int]
+
+
+def tail_shape(B: int, V: int, split: int) -> TailPlan:
+    """The penalty tail's launch for B rows of V columns with a row on up to
+    `split` CTAs (never more than the row has chunks, and none without one)
+    of 256 threads each, 4 chunks in flight a warp: any split of 1 to 8
+    gives the same results. Raises ValueError for shapes or splits the
+    kernel does not take."""
+    if B < 1 or V < 1 or V >= 2 ** 31 - CHUNK or B * MAX_SPLIT >= 2 ** 31:
+        raise ValueError(f"penalty_tail: unsupported shapes B {B}, V {V}")
+    if not 1 <= split <= MAX_SPLIT:
+        raise ValueError(f"penalty_tail: a row splits over 1 to {MAX_SPLIT} CTAs, not {split}")
+    n_chunks = -(-V // CHUNK)
+    per_cta = -(-n_chunks // min(split, n_chunks))
+    split = -(-n_chunks // per_cta)  # no CTA without a chunk
+    return TailPlan(split=split, threads=256, chunks_per_cta=per_cta, chunks_in_flight=4,
+                    grid=(split * B, 1, 1), cluster=(split, 1, 1))
+
+
+def tail_plan(B: int, V: int) -> TailPlan:
+    """The penalty tail's launch for B rows of V columns: above batch 128 a
+    row on one CTA; up to 128, the largest power of two of CTAs a row that
+    keeps B times it at most 128 (one CTA an SM), but 2 to 8. On the H100,
+    at V 65536, that was the fastest split of 1, 2, 4 and 8 at each batch
+    timed: 1, 8, 32, 64, 128, 256 and 512 (chip_smoke.py, tail_splits_ms;
+    PERF.md). Raises ValueError for shapes the kernel does not take."""
+    if B > 128:
+        return tail_shape(B, V, 1)
+    return tail_shape(B, V, min(MAX_SPLIT, max(2, 1 << ((128 // max(B, 1)).bit_length() - 1))))
 
 
 def penalty_tail_reference(logits, occurrence, presence_vec, penalty_decay,
@@ -61,7 +111,8 @@ def penalty_tail_reference(logits, occurrence, presence_vec, penalty_decay,
 def penalty_tail(logits, occurrence, presence_vec, penalty_decay, frequency_penalty,
                  presence_penalty, last_tok, upd_mask, decode_mask):
     """See penalty_tail_reference; occurrence and presence_vec are updated IN
-    PLACE and returned. The kernel on CUDA tensors, the plain version on CPU."""
+    PLACE and returned. The kernel (launched as tail_plan says) on CUDA
+    tensors, the plain version on CPU."""
     if logits.device.type == "cpu":
         occ2, pres2, cval, cidx, lse = penalty_tail_reference(
             logits, occurrence, presence_vec, penalty_decay, frequency_penalty,
@@ -69,6 +120,17 @@ def penalty_tail(logits, occurrence, presence_vec, penalty_decay, frequency_pena
         occurrence.copy_(occ2)
         presence_vec.copy_(pres2)
         return occurrence, presence_vec, cval, cidx, lse
+    return penalty_tail_planned(None, logits, occurrence, presence_vec, penalty_decay,
+                                frequency_penalty, presence_penalty, last_tok, upd_mask,
+                                decode_mask)
+
+
+def penalty_tail_planned(plan: Optional[TailPlan], logits, occurrence, presence_vec,
+                         penalty_decay, frequency_penalty, presence_penalty, last_tok,
+                         upd_mask, decode_mask):
+    """penalty_tail's kernel on CUDA tensors with a given launch
+    (tail_shape), or tail_plan's when `plan` is None: any launch gives the
+    same occ, pres, cval and cidx, and lse within its reordering bound."""
     if not logits.is_cuda:
         raise ValueError(f"penalty_tail: no kernel for device {logits.device}")
     B, V = logits.shape
@@ -84,6 +146,8 @@ def penalty_tail(logits, occurrence, presence_vec, penalty_decay, frequency_pena
     _kernels.require(last_tok, "last_tok", dtype=torch.int32, shape=(B,), device=dev)
     for name, t in (("upd_mask", upd_mask), ("decode_mask", decode_mask)):
         _kernels.require(t, name, dtype=torch.bool, shape=(B,), device=dev)
+    if plan is None:
+        plan = tail_plan(B, V)
     n_chunks = -(-V // CHUNK)
     cval = torch.empty((B, n_chunks), dtype=torch.float32, device=dev)
     cidx = torch.empty((B, n_chunks), dtype=torch.int32, device=dev)
@@ -94,7 +158,8 @@ def penalty_tail(logits, occurrence, presence_vec, penalty_decay, frequency_pena
         penalty_decay.data_ptr(), frequency_penalty.data_ptr(),
         presence_penalty.data_ptr(), last_tok.data_ptr(), upd_mask.data_ptr(),
         decode_mask.data_ptr(), cval.data_ptr(), cidx.data_ptr(), lse.data_ptr(),
-        B, V, code, _kernels.stream_of(logits))
+        B, V, code, plan.split, plan.chunks_per_cta, plan.threads, plan.chunks_in_flight,
+        _kernels.stream_of(logits))
     _kernels.LAUNCHES["penalty_tail"] += 1
     _kernels.check(lib, _SOURCE, "penalty_tail", err)
     return occurrence, presence_vec, cval, cidx, lse

@@ -10,10 +10,12 @@ precomputed and returns raw y. Positions at or past a row's length output
 zeros and leave its state alone; a row with length 0 keeps its state bit for
 bit.
 
-The chunk kernel's launch (state rows a thread, threads a row, tokens a
-tile) is fixed in csrc/wkv7_chunk.cu and described by ``chunk_plan``; its
-inputs arrive by 16-byte asynchronous copies, so each row of r, w, k, a and v
-must start on a 16-byte boundary (``check_chunk_operands``).
+The step kernel's launch (state rows a thread, threads a row) is fixed in
+csrc/wkv7_step.cu and described by ``step_plan``. The chunk kernel's launch
+(state rows a thread, threads a row, tokens a tile) is fixed in
+csrc/wkv7_chunk.cu and described by ``chunk_plan``; its inputs arrive by
+16-byte asynchronous copies, so each row of r, w, k, a and v must start on a
+16-byte boundary (``check_chunk_operands``).
 """
 
 from __future__ import annotations
@@ -27,7 +29,7 @@ from chirrup_tpu_torch.ops.wkv7 import HEAD_SIZE, decay_from_raw, wkv7_reference
 
 _P, _I = _kernels.P, _kernels.I
 _SIGNATURES = {
-    "wkv7_step": {"wkv7_step_fused": [_P] * 14 + [_I] * 11 + [_P]},
+    "wkv7_step": {"wkv7_step_fused": [_P] * 14 + [_I] * 15 + [_P]},
     "wkv7_chunk": {"wkv7_chunk_fused": [_P] * 14 + [_I] * 17 + [_P]},
     "wkv7_batch": {"wkv7_batch": [_P] * 10 + [_I] * 19 + [_P]},
 }
@@ -133,12 +135,47 @@ def _check_common(fn, state, layer, act, dev, params, B, elapsed, lengths):
         _kernels.require(t, name, dtype=torch.int32, shape=(B,), device=dev)
 
 
+class StepPlan(NamedTuple):
+    """The step kernel's launch: one block of `threads` = heads_per_block *
+    64 / rows_per_thread * threads_per_row per `heads_per_block` neighbouring
+    heads of one request. Thread t of a block is in lane group t //
+    threads_per_row, which holds head slot (t // threads_per_row) %
+    heads_per_block and rows rows_per_thread * (t // threads_per_row //
+    heads_per_block) onwards; each thread 64 / threads_per_row consecutive
+    columns of its rows, a row's threads (neighbouring lanes) joining its
+    sums with shuffles. Slots past the last head store nothing. The wrapper
+    hands the plan to the kernel's entry, which refuses any launch shape but
+    its own."""
+    heads_per_block: int
+    rows_per_thread: int
+    threads_per_row: int
+    threads: int
+    grid: Tuple[int, int, int]
+
+
+def step_plan(B: int, C: int) -> StepPlan:
+    """The launch of the step kernel for B requests at width C, as
+    csrc/wkv7_step.cu fixes it: four heads a block, sixteen state rows a
+    thread and eight threads a row (128 threads), so a warp load instruction
+    reads one bf16 state row of four heads, 512 contiguous bytes. On the H100
+    it was the fastest of the launch shapes timed with cold state at batch 64
+    (PERF.md); it depends on neither B nor the card's SM count. Raises
+    ValueError for shapes the kernel does not take (B is a grid dimension of
+    at most 65,535)."""
+    if not 1 <= B <= 65535 or C < HEAD_SIZE or C % HEAD_SIZE:
+        raise ValueError(f"wkv7_step_fused: unsupported shapes B {B}, C {C}")
+    heads = C // HEAD_SIZE
+    return StepPlan(heads_per_block=4, rows_per_thread=16, threads_per_row=8, threads=128,
+                    grid=(-(-heads // 4), B, 1))
+
+
 def wkv7_step_fused(state, layer: int, r, w_raw, k_raw, a_iclr, v, k_k, k_a, r_k,
                     ln_w, ln_b, elapsed, lengths, *, use_dither: bool = True):
     """Advance layer `layer` of the stacked state (L, B, N, C) by one token, in
     place; returns y (B, C) in r.dtype. r/w_raw/k_raw/a_iclr/v: (B, C) rows with
     unit column stride (row strides may differ); k_k, k_a, r_k, ln_w, ln_b: (C,)
-    in r.dtype; elapsed, lengths: (B,) int32."""
+    in r.dtype; elapsed, lengths: (B,) int32. The kernel (launched as
+    step_plan says) on CUDA tensors, the plain version on CPU tensors."""
     if state.device.type == "cpu":
         y, new = wkv7_step_fused_reference(
             state[layer], r, w_raw, k_raw, a_iclr, v, k_k, k_a, r_k, ln_w, ln_b,
@@ -151,6 +188,7 @@ def wkv7_step_fused(state, layer: int, r, w_raw, k_raw, a_iclr, v, k_k, k_a, r_k
     dev, act = state.device, r.dtype
     _check_common("wkv7_step_fused", state, layer, act, dev, (k_k, k_a, r_k, ln_w, ln_b),
                   B, elapsed, lengths)
+    plan = step_plan(B, C)  # raises for shapes the kernel does not take
     rows = (r, w_raw, k_raw, a_iclr, v)
     for name, t in zip(("r", "w_raw", "k_raw", "a_iclr", "v"), rows):
         if t.dtype != act or t.device != dev or tuple(t.shape) != (B, C) \
@@ -165,7 +203,8 @@ def wkv7_step_fused(state, layer: int, r, w_raw, k_raw, a_iclr, v, k_k, k_a, r_k
         k_a.data_ptr(), r_k.data_ptr(), ln_w.data_ptr(), ln_b.data_ptr(),
         elapsed.data_ptr(), lengths.data_ptr(), y.data_ptr(), B, C, layer,
         int(use_dither), *(t.stride(0) for t in rows), _kernels.dtype_code(r, "r"),
-        _kernels.dtype_code(state, "state"), _kernels.stream_of(state))
+        _kernels.dtype_code(state, "state"), plan.heads_per_block, plan.rows_per_thread,
+        plan.threads_per_row, plan.threads, _kernels.stream_of(state))
     _kernels.LAUNCHES["wkv7_step_fused"] += 1
     _kernels.check(lib, "wkv7_step", "wkv7_step_fused", code)
     return y
