@@ -28,15 +28,20 @@ Phases, in order; any failure ends the run with a non-zero exit:
    sites, both on K-major codes and timed with cold weights at decode row
    counts, both at 1 and 37 rows too, all at prefill row counts 512, 2048
    and 1000 as well, then the quantizer's time over a decode step and its
-   share of the bytes bound at 2,048 rows; before them, the registers and
-   spills (ptxas -v) of both TMA GEMMs, the quantizer, the WKV chunk and
-   step kernels and the penalty tail, and the GEMMs' wgmma and TMA
+   share of the bytes bound at 2,048 rows; the three WKV kernels again in
+   their precision="bf16" instances (the delta form in the bf16 state) at
+   the same shapes, with a quarter of the decays near 0 and a planted fault
+   of their own, the product form S * bf16(1 + d); before them, the
+   registers and spills (ptxas -v) of both TMA GEMMs, the quantizer, the
+   three WKV kernels and the penalty tail, and the GEMMs' wgmma and TMA
    instructions (cuobjdump, where present);
 4. the decode path and the compact prefill on a small model, kernels (GPU)
    against plain versions (CPU), and chunked prefill against token-by-token
    feeding on the GPU; the same for the w8a16 configuration (mm8_core
    "pallas"); the unfused TMix (wkv_fn=wkv7_batch), GPU against CPU and
-   against the fused kernels;
+   against the fused kernels; the decode path and the compact prefill again
+   with RuntimeConfig(wkv_precision="bf16") on a bf16 state, GPU against
+   CPU;
 5. the port's AsyncEngineCore at the full width of the 7.2B model (32 layers,
    random INT8 weights from a seed), batch 64, serving five short requests
    (four through SEQ_PREFILL, one through ONE_PREFILL) and four ~1,024-token
@@ -52,7 +57,11 @@ Phases, in order; any failure ends the run with a non-zero exit:
    engine's weights, both variants (8, 256) and (32, 64): launches per chunk
    (one chunk under sync debug mode "error"), prompt tok/s, host dispatch per
    chunk and the device busy time per chunk by kernel (torch.profiler; table in
-   chiprun_out/chip_smoke_prefill_profile.txt);
+   chiprun_out/chip_smoke_prefill_profile.txt); then the same weights served
+   with RuntimeConfig(wkv_precision="bf16") (run_bf16_mode): the first
+   decode step against the default mode's from the same state, launches per
+   step over one decode block and per chunk at (8, 256) and (32, 64) at batch
+   256, and the device busy time and WKV kernels' ms in both modes;
 7. path A, the exact w8a16 configuration: phases 5 and 6 again with
    ModelLoadConfig(mm8_core="pallas") after the first engine is freed (4
    steady blocks; prefill on the batch-64 variant (8, 64)), every int8 product
@@ -60,7 +69,9 @@ Phases, in order; any failure ends the run with a non-zero exit:
 8. path B, the unfused TMix on that model: one forward_step at batch 64 and
    one forward_chunk at (8, 256) with wkv_fn=wkv7_batch, every WKV on the bare
    kernel, against the fused kernels from the same state; then both on layer 0
-   alone at float32, held per element to the WKV kernels' limit;
+   alone at float32, held per element to the WKV kernels' limit; then the
+   same two calls in the bf16 mode (functools.partial(wkv7_batch,
+   precision="bf16") against wkv_precision="bf16");
 9. one JSON line with every kernel's numbers, then the result line.
 
 Without a CUDA device, or without the chirrup_tpu_torch package beside it,
@@ -71,6 +82,7 @@ from __future__ import annotations
 
 import argparse
 import asyncio
+import contextlib
 import itertools
 import json
 import os
@@ -83,7 +95,9 @@ import time
 import torch
 
 HBM_BYTES_PER_S = 3.35e12    # H100 SXM device memory
-PEAK_OPS_PER_S = {"int8": 1979e12, "bf16": 989e12, "fp32": 67e12}   # dense, no sparsity
+# dense, no sparsity; "bf16x2" is packed bf16 outside the tensor cores, two
+# operations a lane where float32 does one: twice the float32 rate
+PEAK_OPS_PER_S = {"int8": 1979e12, "bf16": 989e12, "fp32": 67e12, "bf16x2": 134e12}
 OUT_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "chiprun_out")
 
 
@@ -148,6 +162,72 @@ def bf16_excess(got: torch.Tensor, ref: torch.Tensor) -> float:
     return float(((g - r).abs() / limit).max())
 
 
+# precision="bf16" (the WKV kernels' delta form in the bf16 state): operations
+# per state element per token, each a packed bf16 operation or a float32 one
+# of the two sums (sa and y: multiply, add; S*d, v*k, sa*b and three adds),
+# at the packed bf16 rate
+BF16_OPS = 10
+
+
+BF16_TOLERANCE = ("y per element 2^-7 |ref| + 2^-8 rms(ref); state: at most 1e-3 of the "
+                  "elements differ and the difference's norm at most 2^-10 of the state's")
+
+
+def chain_excess(got: torch.Tensor, ref: torch.Tensor) -> float:
+    """The bf16 mode's limit on a state: max(share of the elements that
+    differ / 1e-3, ||got - ref|| / ||ref|| / 2^-10), at most 1 within it. The
+    kernel and its plain version round the same bf16 operations, but a
+    float32 value that is rounded to bf16 (the kk norm, summed in another
+    order) may land one bf16 step apart, and the state, rounded every token,
+    carries that step on through the chain and spreads it along the row
+    through sa: a few elements then differ by a few steps, beyond the
+    per-element limit. (On the CPU, the plain version with the norm summed in
+    float64 differs from itself so in 4.6e-5 of the elements, by 3.5e-5 of
+    the norm, at (32, 64), C 1024; the product-form fault in 0.2 to 0.66, by
+    2.9e-3 to 6.2e-3.)"""
+    share = float((got != ref).float().mean())
+    norm = float((got.double() - ref.double()).norm() / ref.double().norm())
+    return max(share / 1e-3, norm / 2.0 ** -10)
+
+
+def with_slow_decays(w, gen, share=0.25):
+    """w (decay logits) with `share` of its elements set to logits in [-9, -5]:
+    decays d = exp(-e^-1/2 sigmoid(w)) - 1 of -7.5e-5 to -4e-3, near 0, where
+    an update S * bf16(1 + d) would round 1 + d to bf16's steps of 2^-8 below
+    1 (the bf16-mode checks' planted fault)."""
+    pick = torch.rand(w.shape, generator=gen, device=w.device) < share
+    slow = torch.rand(w.shape, generator=gen, device=w.device) * -4.0 - 5.0
+    return torch.where(pick, slow.to(w.dtype), w)
+
+
+def product_form_token(S, d1, r, k, a, b, v):
+    """The planted fault of the bf16-mode checks: wkv7_cuda._bf16_token with
+    its delta form S + ((S*d + v k^T) + sa b^T) replaced by the product form
+    (S * bf16(d1) + v k^T) + sa b^T."""
+    bf, f32 = torch.bfloat16, torch.float32
+    a_, b_, k_, v_ = (x.to(bf) for x in (a, b, k, v))
+    sa = (S * a_[..., None, :]).to(f32).sum(-1)
+    y1 = (S * (d1 * r).to(bf)[..., None, :]).to(f32).sum(-1)
+    S_new = ((S * d1.to(bf)[..., None, :] + v_[..., :, None] * k_[..., None, :])
+             + sa.to(bf)[..., None] * b_[..., None, :])
+    y = y1 + v * (r * k).sum(-1, keepdim=True) + sa * (r * b).sum(-1, keepdim=True)
+    return y, S_new
+
+
+@contextlib.contextmanager
+def planted_product_form():
+    """The WKV plain versions with product_form_token in place of the delta
+    form, for the length of the block."""
+    from chirrup_tpu_torch.ops import wkv7_cuda
+
+    token = wkv7_cuda._bf16_token
+    wkv7_cuda._bf16_token = product_form_token
+    try:
+        yield
+    finally:
+        wkv7_cuda._bf16_token = token
+
+
 def step_inputs(dev, gen, B=64, C=4096, L=32, act=torch.bfloat16, state_dtype=torch.bfloat16):
     """Random step-kernel inputs: a state of L layers, rows and parameters
     (bf16 unless `state_dtype`, `act` say otherwise), dither counters, and
@@ -166,20 +246,21 @@ def step_inputs(dev, gen, B=64, C=4096, L=32, act=torch.bfloat16, state_dtype=to
     return state, (r, w, k, a, v, k_k, k_a, r_k, ln_w, ln_b, elapsed, lengths)
 
 
-def step_ms(state, args, li):
+def step_ms(state, args, li, **kw):
     """The step kernel's time (device_ms) warm, on layer li every launch, and
     cold, the launches rotating over
     every layer of the stacked state (1 GiB at batch 64, 20x the L2) as a
-    decode step walks them: (cold, warm)."""
+    decode step walks them: (cold, warm). kw: the wrapper's precision, where
+    given."""
     from chirrup_tpu_torch.ops.wkv7_cuda import wkv7_step_fused
 
-    warm = device_ms(lambda: wkv7_step_fused(state, li, *args))
+    warm = device_ms(lambda: wkv7_step_fused(state, li, *args, **kw))
     layers = itertools.cycle(range(state.shape[0]))
-    cold = device_ms(lambda: wkv7_step_fused(state, next(layers), *args))
+    cold = device_ms(lambda: wkv7_step_fused(state, next(layers), *args, **kw))
     return cold, warm
 
 
-def check_wkv(dev, gen, B=64, C=4096, L=32, li=17):
+def check_wkv(dev, gen, B=64, C=4096, L=32, li=17, precision="default"):
     """The kernel against its plain version twice: with the bonus term on
     (r_k random), where (r*k~*r_k)*v dominates |y|; and with r_k = 0, where
     the GroupNorm*ln_w + ln_b branch alone sets y and its limit. In the second,
@@ -187,47 +268,85 @@ def check_wkv(dev, gen, B=64, C=4096, L=32, li=17):
     Timed cold and warm (step_ms), beside a torch copy_ of the same state
     bytes, cold; the bound counts the state and the five activation rows and
     dither counter of the rows that are not idle, the only ones the function
-    must read (an idle row's block reads its length and writes zeros to y)."""
+    must read (an idle row's block reads its length and writes zeros to y).
+    precision "bf16": the kernel's bf16-mode instance on the same draws with
+    a quarter of the decays near 0 (with_slow_decays), the bonus on, against
+    a planted fault of its own (product_form_token); timed alike, its
+    operations counted at the packed bf16 rate (BF16_OPS)."""
     from chirrup_tpu_torch.ops.wkv7_cuda import (step_plan, wkv7_step_fused,
                                                  wkv7_step_fused_reference)
 
+    bf16 = precision == "bf16"
+    kw = dict(precision=precision)
     H = C // 64
     state, args = step_inputs(dev, gen, B, C, L)
+    if bf16:
+        args = (args[0], with_slow_decays(args[1], gen), *args[2:])
     r_k, lengths = args[7], args[11]
     idle = lengths == 0
     no_bonus = (*args[:7], torch.zeros_like(r_k), *args[8:])
+    cases = (("bonus on", args),) if bf16 else (("bonus on", args), ("r_k = 0", no_bonus))
 
     errs = []
-    for label, case in (("bonus on", args), ("r_k = 0", no_bonus)):
+    for label, case in cases:
         before = state[li].clone()
         neighbour = state[li - 1].clone()
-        y_ref, s_ref = wkv7_step_fused_reference(before, *case)
-        y = wkv7_step_fused(state, li, *case)
+        y_ref, s_ref = wkv7_step_fused_reference(before, *case, **kw)
+        y = wkv7_step_fused(state, li, *case, **kw)
         torch.cuda.synchronize()
-        ex_y, ex_s = bf16_excess(y, y_ref), bf16_excess(state[li], s_ref)
+        state_excess = chain_excess if bf16 else bf16_excess
+        ex_y, ex_s = bf16_excess(y, y_ref), state_excess(state[li], s_ref)
         errs += [max_abs(y, y_ref), max_abs(state[li], s_ref)]
         require(ex_y <= 1 and ex_s <= 1,
-                f"wkv7_step_fused {label}: worst |err|/limit y {ex_y}, state {ex_s}")
+                f"wkv7_step_fused {precision} {label}: worst |err|/limit y {ex_y}, "
+                f"state {ex_s}")
         require(torch.equal(state[li - 1], neighbour), "wkv7_step_fused touched another layer")
         require(torch.equal(state[li][idle], before[idle]) and bool((y[idle] == 0).all()),
                 "wkv7_step_fused: length-0 rows changed")
-        y_fault, _ = wkv7_step_fused_reference(before, *case[:9], torch.zeros_like(case[9]),
-                                               *case[10:])
-        ex_fault = bf16_excess(y_fault, y_ref)
-        log(f"wkv7_step_fused {label}: max |y| {float(y_ref.float().abs().max()):.3g}, "
-            f"y err {errs[-2]:.3e}, state err {errs[-1]:.3e}; worst |err|/limit y "
-            f"{ex_y:.3f}, state {ex_s:.3f} (limit 2^-7|ref| + 2^-8 rms(ref)); "
-            f"planted fault (no ln_b) {ex_fault:.2f}")
-        if label == "r_k = 0":
-            require(ex_fault > 1, f"wkv7_step_fused: the check passes a kernel without ln_b "
-                                  f"(worst |err|/limit {ex_fault})")
+        if bf16:
+            fault = "product form S * bf16(1 + d)"
+            with planted_product_form():
+                y_fault, s_fault = wkv7_step_fused_reference(before, *case, **kw)
+            ex_fault = max(bf16_excess(y_fault, y_ref), chain_excess(s_fault, s_ref))
+        else:
+            fault = "no ln_b"
+            y_fault, _ = wkv7_step_fused_reference(before, *case[:9],
+                                                   torch.zeros_like(case[9]), *case[10:])
+            ex_fault = bf16_excess(y_fault, y_ref)
+        limit = ("y per element 2^-7|ref| + 2^-8 rms(ref), state chain_excess" if bf16
+                 else "limit 2^-7|ref| + 2^-8 rms(ref)")
+        log(f"wkv7_step_fused {precision} {label}: max |y| "
+            f"{float(y_ref.float().abs().max()):.3g}, y err {errs[-2]:.3e}, state err "
+            f"{errs[-1]:.3e}; worst |err|/limit y {ex_y:.3f}, state {ex_s:.3f} ({limit}); "
+            f"planted fault ({fault}) {ex_fault:.2f}")
+        if bf16 or label == "r_k = 0":
+            require(ex_fault > 1, f"wkv7_step_fused {precision}: the check passes a kernel "
+                                  f"with the fault {fault} (worst |err|/limit {ex_fault})")
     err_y, err_s = max(errs[0::2]), max(errs[1::2])
-    ms, warm = step_ms(state, args, li)
-    plain = device_ms(lambda: wkv7_step_fused_reference(state[li], *args), iters=5)
+    ms, warm = step_ms(state, args, li, **kw)
+    plain = device_ms(lambda: wkv7_step_fused_reference(state[li], *args, **kw), iters=5)
     active = int((~idle).sum())
     moved = ((2 * nbytes(state[li]) + nbytes(*args[:5], args[10])) * active // B
              + nbytes(*args[5:10], args[11], y))
-    b, by = bound_ms(moved, 9 * active * 64 * C, "fp32")
+    b, by = (bound_ms(moved, BF16_OPS * active * 64 * C, "bf16x2") if bf16
+             else bound_ms(moved, 9 * active * 64 * C, "fp32"))
+    plan = step_plan(B, C)
+    out = dict(name="wkv7_step_fused_bf16" if bf16 else "wkv7_step_fused", route="cuda",
+               source="chirrup_tpu_torch/csrc/wkv7_step.cu",
+               replaces="chirrup_tpu/ops/wkv7_pallas.py:644", precision=precision,
+               max_abs_err=max(err_y, err_s), ms=ms, plain_ms=plain, bound_ms=b, bound_by=by,
+               library_ms=None, warm_ms=warm,
+               shape=f"state ({L}, {B}, 64, {C}) bf16, one layer a launch; ms cold (the "
+                     f"launches rotate over the {L} layers), warm_ms on one layer",
+               tolerance=BF16_TOLERANCE if bf16 else "per element 2^-7 |ref| + 2^-8 "
+                                                     "rms(ref), y and state")
+    head = (f"wkv7_step_fused {precision} B{B} C{C} H{H} bf16 ({active} rows not idle; "
+            f"{plan}): y err {err_y:.3e}, state err {err_s:.3e}; {ms:.4f} ms cold, "
+            f"{warm:.4f} ms warm, plain {plain:.4f} ms, bound {b:.4f} ms ({by}; "
+            f"{100 * b / ms:.1f}% of it cold)")
+    if bf16:
+        log(head)
+        return out
     # the state bytes of the rows that are not idle, copied between layers
     # in turn (half the stack each side, cold as the kernel's)
     src, dst = state[L // 2:, :active], torch.empty_like(state[:L // 2, :active])
@@ -239,20 +358,11 @@ def check_wkv(dev, gen, B=64, C=4096, L=32, li=17):
 
     copy = device_ms(copy_layer)
     del dst
-    plan = step_plan(B, C)
-    log(f"wkv7_step_fused B{B} C{C} H{H} bf16 ({active} rows not idle; {plan}): y err "
-        f"{err_y:.3e}, state err {err_s:.3e}; {ms:.4f} ms cold, {warm:.4f} ms warm, plain "
-        f"{plain:.4f} ms, bound {b:.4f} ms ({by}; {100 * b / ms:.1f}% of it cold); torch "
-        f"copy_ of the {active} rows' state between layers, cold, {copy:.4f} ms "
-        f"({2 * nbytes(src[0]) / copy / 1e9:.2f} TB/s; the kernel at "
+    log(f"{head}; torch copy_ of the {active} rows' state between layers, cold, "
+        f"{copy:.4f} ms ({2 * nbytes(src[0]) / copy / 1e9:.2f} TB/s; the kernel at "
         f"{100 * copy / ms:.1f}% of its rate)")
-    return dict(name="wkv7_step_fused", route="cuda", source="chirrup_tpu_torch/csrc/wkv7_step.cu",
-                replaces="chirrup_tpu/ops/wkv7_pallas.py:644", max_abs_err=max(err_y, err_s),
-                ms=ms, plain_ms=plain, bound_ms=b, bound_by=by, library_ms=None, warm_ms=warm,
-                copy_ms=copy,
-                shape=f"state ({L}, {B}, 64, {C}) bf16, one layer a launch; ms cold (the "
-                      f"launches rotate over the {L} layers), warm_ms on one layer",
-                tolerance="per element 2^-7 |ref| + 2^-8 rms(ref), y and state")
+    out["copy_ms"] = copy
+    return out
 
 
 def chunk_params(dev, gen, C):
@@ -303,7 +413,8 @@ def chunk_token_us(dev, C=4096, T=(64, 256)):
     return 1e3 * (ms[1] - ms[0]) / (T[1] - T[0])
 
 
-def check_chunk(dev, gen, variants=((8, 64), (8, 256), (32, 64)), C=4096, L=32, li=9):
+def check_chunk(dev, gen, variants=((8, 64), (8, 256), (32, 64)), C=4096, L=32, li=9,
+                precision="default"):
     """The chunk kernel against its plain version at each prefill variant, with
     bf16 rows and state (chunk_inputs). The same per-element limit as the
     decode step, on y and on the state; the comparison must reject a planted
@@ -311,88 +422,110 @@ def check_chunk(dev, gen, variants=((8, 64), (8, 256), (32, 64)), C=4096, L=32, 
     state must give the same bits. Timed at its ragged lengths and with full
     rows; beside the bound, the serial floor: the longest row's tokens times
     one token of the chain (chunk_token_us). The first variant is the
-    headline of the JSON line."""
+    headline of the JSON line. precision "bf16": the kernel's bf16-mode
+    instance, a quarter of the decays near 0 (with_slow_decays), against a
+    planted fault of its own (product_form_token), its operations counted at
+    the packed bf16 rate; no serial floor."""
     from chirrup_tpu_torch.ops import wkv7_cuda
     from chirrup_tpu_torch.ops.wkv7_cuda import wkv7_chunk_fused, wkv7_chunk_fused_reference
 
+    bf16 = precision == "bf16"
+    kw = dict(precision=precision)
     params = chunk_params(dev, gen, C)
     sites = []
     for P, T in variants:
         state, args = chunk_inputs(dev, gen, P, T, C, L, params)
+        if bf16:
+            args = (args[0], with_slow_decays(args[1], gen), *args[2:])
         lengths = args[-1]
         before, neighbour = state[li].clone(), state[li - 1].clone()
-        y_ref, s_ref = wkv7_chunk_fused_reference(before, *args)
+        y_ref, s_ref = wkv7_chunk_fused_reference(before, *args, **kw)
 
         def agrees(y, s_new):
-            return bf16_excess(y, y_ref), bf16_excess(s_new, s_ref)
+            return bf16_excess(y, y_ref), (chain_excess if bf16 else bf16_excess)(s_new, s_ref)
 
-        y = wkv7_chunk_fused(state, li, *args)
+        y = wkv7_chunk_fused(state, li, *args, **kw)
         torch.cuda.synchronize()
         ex_y, ex_s = agrees(y, state[li])
         err = max(max_abs(y, y_ref), max_abs(state[li], s_ref))
         require(ex_y <= 1 and ex_s <= 1,
-                f"wkv7_chunk_fused P{P} T{T}: worst |err|/limit y {ex_y}, state {ex_s}")
+                f"wkv7_chunk_fused {precision} P{P} T{T}: worst |err|/limit y {ex_y}, "
+                f"state {ex_s}")
         require(torch.equal(state[li - 1], neighbour), "wkv7_chunk_fused touched another layer")
         idle = lengths == 0
         require(torch.equal(state[li][idle], before[idle]),
                 "wkv7_chunk_fused: length-0 rows changed")
         past = torch.arange(T, device=dev)[None, :] >= lengths[:, None]
         require(bool((y[past] == 0).all()), "wkv7_chunk_fused: output past a length")
-        y_fault, s_fault = wkv7_chunk_fused_reference(before, *args[:-1],
-                                                      torch.full_like(lengths, T))
+        if bf16:
+            fault = "product form S * bf16(1 + d)"
+            with planted_product_form():
+                y_fault, s_fault = wkv7_chunk_fused_reference(before, *args, **kw)
+        else:
+            fault = "lengths ignored"
+            y_fault, s_fault = wkv7_chunk_fused_reference(before, *args[:-1],
+                                                          torch.full_like(lengths, T))
         ex_fault = max(agrees(y_fault, s_fault))
-        require(ex_fault > 1, f"wkv7_chunk_fused: the check passes a kernel that ignores "
-                              f"lengths (worst |err|/limit {ex_fault})")
+        require(ex_fault > 1, f"wkv7_chunk_fused {precision}: the check passes a kernel with "
+                              f"the fault {fault} (worst |err|/limit {ex_fault})")
         s_first = state[li].clone()
         state[li].copy_(before)
-        y_again = wkv7_chunk_fused(state, li, *args)
+        y_again = wkv7_chunk_fused(state, li, *args, **kw)
         require(torch.equal(y_again, y) and torch.equal(state[li], s_first),
-                f"wkv7_chunk_fused P{P} T{T}: a second run differs")
+                f"wkv7_chunk_fused {precision} P{P} T{T}: a second run differs")
         plan = wkv7_cuda.chunk_plan(P, T, C)
-        ms = device_ms(lambda: wkv7_chunk_fused(state, li, *args))
+        ms = device_ms(lambda: wkv7_chunk_fused(state, li, *args, **kw))
         full = (*args[:-1], torch.full_like(lengths, T))
-        full_ms = device_ms(lambda: wkv7_chunk_fused(state, li, *full))
-        plain = device_ms(lambda: wkv7_chunk_fused_reference(state[li], *args), iters=1,
+        full_ms = device_ms(lambda: wkv7_chunk_fused(state, li, *full, **kw))
+        plain = device_ms(lambda: wkv7_chunk_fused_reference(state[li], *args, **kw), iters=1,
                           reps=3)
         # this run's work: the valid tokens, the slabs of rows that have any
         n_tok = int(lengths.sum())
         live = int((lengths > 0).sum())
         moved = (2 * live * 64 * C * state.element_size() + 5 * n_tok * C * 2
                  + nbytes(y, *args[5:]))
-        b, by = bound_ms(moved, 9 * n_tok * 64 * C, "fp32")
+        b, by = (bound_ms(moved, BF16_OPS * n_tok * 64 * C, "bf16x2") if bf16
+                 else bound_ms(moved, 9 * n_tok * 64 * C, "fp32"))
         sites.append(dict(variant=[P, T], valid_tokens=n_tok, longest=int(lengths.max()),
                           err=err, ex_y=ex_y, ex_s=ex_s, ms=ms, full_rows_ms=full_ms,
-                          plain_ms=plain, bound_ms=b, bound_by=by, fault_excess=ex_fault,
-                          plan=plan._asdict(), lengths=lengths[:4].tolist()))
+                          plain_ms=plain, bound_ms=b, bound_by=by, fault=fault,
+                          fault_excess=ex_fault, plan=plan._asdict(),
+                          lengths=lengths[:4].tolist()))
         del state, args, before, neighbour, y, y_ref, s_ref, y_fault, s_fault, s_first, y_again
         del full
         torch.cuda.empty_cache()
-    token_us = chunk_token_us(dev, C)
-    log(f"wkv7_chunk_fused: one token of the chain {token_us:.4f} us (one request, full rows, "
-        f"slope between T 64 and 256)")
+    token_us = None if bf16 else chunk_token_us(dev, C)
+    if token_us is not None:
+        log(f"wkv7_chunk_fused: one token of the chain {token_us:.4f} us (one request, full "
+            f"rows, slope between T 64 and 256)")
     for x in sites:
         P, T = x["variant"]
         plan = x["plan"]
         x["token_us"] = token_us
-        x["serial_floor_ms"] = x["longest"] * token_us / 1e3
-        log(f"wkv7_chunk_fused P{P} T{T} C{C} bf16 ({plan['threads']} threads, "
+        x["serial_floor_ms"] = None if bf16 else x["longest"] * token_us / 1e3
+        limit = ("y per element 2^-7|ref| + 2^-8 rms(ref), state chain_excess" if bf16
+                 else "limit 2^-7|ref| + 2^-8 rms(ref)")
+        floor = ("" if bf16 else f", serial floor {x['serial_floor_ms']:.4f} ms "
+                                 f"({x['longest']} tokens)")
+        log(f"wkv7_chunk_fused {precision} P{P} T{T} C{C} bf16 ({plan['threads']} threads, "
             f"{plan['rows_per_thread']} state rows a thread, {plan['threads_per_row']} threads "
             f"a row, {plan['tile_tokens']} tokens a tile), {x['valid_tokens']} valid tokens "
             f"(lengths {x['lengths']}...): y/state err {x['err']:.3e}; worst |err|/limit y "
-            f"{x['ex_y']:.3f}, state {x['ex_s']:.3f} (limit 2^-7|ref| + 2^-8 rms(ref)); "
-            f"planted fault (lengths ignored) {x['fault_excess']:.2f}; second run bit-equal; "
+            f"{x['ex_y']:.3f}, state {x['ex_s']:.3f} ({limit}); "
+            f"planted fault ({x['fault']}) {x['fault_excess']:.2f}; second run bit-equal; "
             f"{x['ms']:.4f} ms (full rows {x['full_rows_ms']:.4f}), plain {x['plain_ms']:.4f} "
-            f"ms, bound {x['bound_ms']:.4f} ms ({x['bound_by']}), serial floor "
-            f"{x['serial_floor_ms']:.4f} ms ({x['longest']} tokens)")
+            f"ms, bound {x['bound_ms']:.4f} ms ({x['bound_by']}){floor}")
     head = sites[0]
-    return dict(name="wkv7_chunk_fused", route="cuda", source="chirrup_tpu_torch/csrc/wkv7_chunk.cu",
+    return dict(name="wkv7_chunk_fused_bf16" if bf16 else "wkv7_chunk_fused", route="cuda",
+                source="chirrup_tpu_torch/csrc/wkv7_chunk.cu", precision=precision,
                 replaces="chirrup_tpu/ops/wkv7_pallas.py:714",
                 max_abs_err=max(x["err"] for x in sites), ms=head["ms"],
                 plain_ms=head["plain_ms"], bound_ms=head["bound_ms"], bound_by=head["bound_by"],
                 library_ms=None, serial_floor_ms=head["serial_floor_ms"],
                 shape=f"P{variants[0][0]} T{variants[0][1]} C{C}, state ({L}, P, 64, {C}) bf16, "
                       f"one layer",
-                tolerance="per element 2^-7 |ref| + 2^-8 rms(ref), y and state",
+                tolerance=BF16_TOLERANCE if bf16 else "per element 2^-7 |ref| + 2^-8 "
+                                                      "rms(ref), y and state",
                 sites=sites)
 
 
@@ -608,9 +741,9 @@ def check_mm8(dev, gen, B=64, shapes=MM8_SHAPES):
 # for the w8a8 GEMM, floating point for the w8a16 one)
 GEMM_SOURCES = {"mm8_a8": "IGMMA", "mm8_w16": "HGMMA"}
 # the sources whose registers and spills the run reports (ptxas -v): the
-# GEMMs (mm8_a8 holds the quantizer too), the WKV chunk and step kernels and
-# the penalty tail
-PTXAS_SOURCES = (*GEMM_SOURCES, "wkv7_chunk", "wkv7_step", "penalty_tail")
+# GEMMs (mm8_a8 holds the quantizer too), the three WKV kernels and the
+# penalty tail
+PTXAS_SOURCES = (*GEMM_SOURCES, "wkv7_chunk", "wkv7_step", "wkv7_batch", "penalty_tail")
 
 
 def _tile_name(fn):
@@ -624,9 +757,9 @@ def _tile_name(fn):
 
 def _kernel_name(fn):
     """A readable name for a kernel's mangled name: the GEMM tiles
-    (_tile_name), the quantizer's <dtype, elements a thread, mode>, the chunk
-    and step kernels' <activation dtype, state dtype>, the tail's <logits
-    dtype, vector loads>."""
+    (_tile_name), the quantizer's <dtype, elements a thread, mode>, the WKV
+    kernels' <activation dtype, state dtype, precision bf16>, the tail's
+    <logits dtype, vector loads>."""
     import re
 
     name = _tile_name(fn)
@@ -636,10 +769,11 @@ def _kernel_name(fn):
     m = re.search(r"quant_rows_kernelI(\w+?)Li(\d+)ELi(\d)EE", fn)
     if m:
         return f"quant_rows {dt(m.group(1))} E{m.group(2)} mode {m.group(3)}"
-    m = re.search(r"wkv7_(chunk|step)_fused_kernelI(13__nv_bfloat16|f)(13__nv_bfloat16|S\d*_|f)E",
-                  fn)
+    m = re.search(r"wkv7_(chunk|step|batch)(?:_fused)?_kernelI(13__nv_bfloat16|f)"
+                  r"(13__nv_bfloat16|S\d*_|f)Lb([01])E", fn)
     if m:
-        return f"{m.group(1)} {dt(m.group(2))} state {dt(m.group(3))}"
+        return (f"{m.group(1)} {dt(m.group(2))} state {dt(m.group(3))}"
+                + (" precision bf16" if m.group(4) == "1" else ""))
     m = re.search(r"penalty_tail_kernelI(13__nv_bfloat16|f)Lb([01])E", fn)
     if m:
         return f"tail {dt(m.group(1))} logits, vector loads {m.group(2)}"
@@ -819,16 +953,21 @@ def check_w16(dev, gen, B=64, sites=W16_SITES):
 
 
 def check_wkv_batch(dev, gen, variants=((64, 1), (8, 64), (8, 256), (32, 64)), C=4096,
-                    L=32, li=5):
+                    L=32, li=5, precision="default"):
     """The bare WKV kernel against its plain version at the decode step (T = 1,
     batch 64) and at each prefill variant, bf16 rows and state, r/k/v as views
     of one merged (P, T, 3C) projection output, a = -kk and b = kk*iclr from
     a per-head unit kk, lengths that include 0, 1, T-3 and T, and a dither
     counter that crosses 2^31 mid-chunk. The WKV chunk kernel's per-element
     limit on y and state; the comparison must reject a planted fault (a plain
-    version that ignores lengths). The first variant is the JSON headline."""
+    version that ignores lengths). The first variant is the JSON headline.
+    precision "bf16": the kernel's bf16-mode instance, a quarter of the decays
+    near 0 (with_slow_decays), against a planted fault of its own
+    (product_form_token), its operations counted at the packed bf16 rate."""
     from chirrup_tpu_torch.ops.wkv7_cuda import wkv7_batch, wkv7_batch_reference
 
+    bf16 = precision == "bf16"
+    kw = dict(precision=precision)
     bf = torch.bfloat16
     rnd = lambda *s: torch.randn(s, generator=gen, device=dev)
     sites = []
@@ -845,53 +984,67 @@ def check_wkv_batch(dev, gen, variants=((64, 1), (8, 64), (8, 256), (32, 64)), C
         lengths = torch.randint(0, T + 1, (P,), generator=gen, device=dev,
                                 dtype=torch.int64).to(torch.int32)
         lengths[:4] = torch.tensor([0, 1, max(T - 3, 0), T], dtype=torch.int32)
+        if bf16:
+            w = with_slow_decays(w, gen)
         args = (r, w, k, v, a, b, elapsed)
         before, neighbour = state[li].clone(), state[li - 1].clone()
-        y_ref, s_ref = wkv7_batch_reference(before, *args, lengths)
-        y = wkv7_batch(state, *args, lengths, li)
+        y_ref, s_ref = wkv7_batch_reference(before, *args, lengths, **kw)
+        y = wkv7_batch(state, *args, lengths, li, **kw)
         torch.cuda.synchronize()
         require(y.dtype == bf and tuple(y.shape) == (P, T, C), f"wkv7_batch: y {y.dtype}")
-        ex_y, ex_s = bf16_excess(y, y_ref), bf16_excess(state[li], s_ref)
+        state_excess = chain_excess if bf16 else bf16_excess
+        ex_y, ex_s = bf16_excess(y, y_ref), state_excess(state[li], s_ref)
         err = max(max_abs(y, y_ref), max_abs(state[li], s_ref))
         require(ex_y <= 1 and ex_s <= 1,
-                f"wkv7_batch P{P} T{T}: worst |err|/limit y {ex_y}, state {ex_s}")
+                f"wkv7_batch {precision} P{P} T{T}: worst |err|/limit y {ex_y}, "
+                f"state {ex_s}")
         require(torch.equal(state[li - 1], neighbour), "wkv7_batch touched another layer")
         idle = lengths == 0
         require(torch.equal(state[li][idle], before[idle]), "wkv7_batch: length-0 rows changed")
         past = torch.arange(T, device=dev)[None, :] >= lengths[:, None]
         require(bool((y[past] == 0).all()), "wkv7_batch: output past a length")
-        y_fault, s_fault = wkv7_batch_reference(before, *args, torch.full_like(lengths, T))
-        ex_fault = max(bf16_excess(y_fault, y_ref), bf16_excess(s_fault, s_ref))
-        require(ex_fault > 1, f"wkv7_batch: the check passes a kernel that ignores lengths "
-                              f"(worst |err|/limit {ex_fault})")
+        if bf16:
+            fault = "product form S * bf16(1 + d)"
+            with planted_product_form():
+                y_fault, s_fault = wkv7_batch_reference(before, *args, lengths, **kw)
+        else:
+            fault = "lengths ignored"
+            y_fault, s_fault = wkv7_batch_reference(before, *args, torch.full_like(lengths, T))
+        ex_fault = max(bf16_excess(y_fault, y_ref), state_excess(s_fault, s_ref))
+        require(ex_fault > 1, f"wkv7_batch {precision}: the check passes a kernel with the "
+                              f"fault {fault} (worst |err|/limit {ex_fault})")
         full = torch.full_like(lengths, T)   # timed with every row full, as path B runs
-        ms = device_ms(lambda: wkv7_batch(state, *args, full, li))
-        plain = device_ms(lambda: wkv7_batch_reference(state[li], *args, full), iters=1,
+        ms = device_ms(lambda: wkv7_batch(state, *args, full, li, **kw))
+        plain = device_ms(lambda: wkv7_batch_reference(state[li], *args, full, **kw), iters=1,
                           reps=3)
         # the timed work: every token valid, every slab live; 9 operations per
         # state element per token, as the fused kernels count: S*d is one
         # multiply (d once per column), a.S, v*k, sa*b and S.r one FMA each
         n_tok = P * T
         moved = 2 * nbytes(state[li]) + 6 * n_tok * C * 2 + nbytes(y, elapsed, full)
-        bnd, by = bound_ms(moved, 9 * n_tok * 64 * C, "fp32")
-        log(f"wkv7_batch P{P} T{T} C{C} bf16 (lengths {lengths[:4].tolist()}...): y/state "
-            f"err {err:.3e}; worst |err|/limit y {ex_y:.3f}, state {ex_s:.3f} (limit "
-            f"2^-7|ref| + 2^-8 rms(ref)); planted fault (lengths ignored) {ex_fault:.2f}; "
+        bnd, by = (bound_ms(moved, BF16_OPS * n_tok * 64 * C, "bf16x2") if bf16
+                   else bound_ms(moved, 9 * n_tok * 64 * C, "fp32"))
+        log(f"wkv7_batch {precision} P{P} T{T} C{C} bf16 (lengths {lengths[:4].tolist()}...): "
+            f"y/state err {err:.3e}; worst |err|/limit y {ex_y:.3f}, state {ex_s:.3f} ("
+            f"{'state chain_excess' if bf16 else 'limit 2^-7|ref| + 2^-8 rms(ref)'}); "
+            f"planted fault ({fault}) {ex_fault:.2f}; "
             f"full rows {ms:.4f} ms, plain {plain:.4f} ms, bound {bnd:.4f} ms ({by})")
         sites.append(dict(variant=[P, T], err=err, ms=ms, plain_ms=plain, bound_ms=bnd,
-                          bound_by=by, fault_excess=ex_fault))
+                          bound_by=by, fault=fault, fault_excess=ex_fault))
         del rkv, r, k, v, w, a, b, kk, state, before, neighbour, y, y_ref, s_ref, y_fault
         del s_fault
         torch.cuda.empty_cache()
     head = sites[0]
-    return dict(name="wkv7_batch", route="cuda", source="chirrup_tpu_torch/csrc/wkv7_batch.cu",
+    return dict(name="wkv7_batch_bf16" if bf16 else "wkv7_batch", route="cuda",
+                source="chirrup_tpu_torch/csrc/wkv7_batch.cu", precision=precision,
                 replaces="chirrup_tpu/ops/wkv7_pallas.py:863",
                 max_abs_err=max(x["err"] for x in sites), ms=head["ms"],
                 plain_ms=head["plain_ms"], bound_ms=head["bound_ms"], bound_by=head["bound_by"],
                 library_ms=None,
                 shape=f"P{variants[0][0]} T{variants[0][1]} C{C}, state ({L}, P, 64, {C}) bf16, "
                       f"one layer",
-                tolerance="per element 2^-7 |ref| + 2^-8 rms(ref), y and state",
+                tolerance=BF16_TOLERANCE if bf16 else "per element 2^-7 |ref| + 2^-8 "
+                                                      "rms(ref), y and state",
                 sites=sites)
 
 
@@ -1006,9 +1159,11 @@ def check_penalty_tail(dev, gen, V=65536, batches=(64, 512)):
 
 # ------------------------------------------------- small model, end to end
 
-def check_small_model(dev):
+def check_small_model(dev, wkv_precision="default"):
     """The decode path on a small INT8 model, kernels against plain versions:
-    the same weights and teacher-forced tokens on the GPU and on the CPU."""
+    the same weights and teacher-forced tokens on the GPU and on the CPU.
+    wkv_precision "bf16" runs the bf16 configuration alone (a bf16 state;
+    on a float32 one the mode is the default) with the bf16 tolerance."""
     import numpy as np
     from chirrup_tpu_torch.engine.serving import ServingModel
     from chirrup_tpu_torch.models.config import RWKV7Config, RuntimeConfig
@@ -1021,8 +1176,10 @@ def check_small_model(dev):
 
     cfg = RWKV7Config(n_layer=2, n_embd=256, vocab_size=16384)
     B, steps = 8, 6
-    for dtype, tol in ((torch.float32, 2e-3), (torch.bfloat16, 3e-2)):
-        rt = RuntimeConfig(activation_dtype=dtype, wkv_state_dtype=dtype, quantization="int8")
+    runs = ((torch.float32, 2e-3), (torch.bfloat16, 3e-2))
+    for dtype, tol in runs[1:] if wkv_precision == "bf16" else runs:
+        rt = RuntimeConfig(activation_dtype=dtype, wkv_state_dtype=dtype, quantization="int8",
+                           wkv_precision=wkv_precision)
         params = synthetic_params_int8(cfg, seed=5, dtype=dtype, device=dev)
         models = [ServingModel(cfg, params, rt, B, device=d) for d in (dev, "cpu")]
         carries = [m.init_carry() for m in models]
@@ -1048,17 +1205,18 @@ def check_small_model(dev):
             diff = s_gpu.cpu() != s_cpu
             flips += int(diff.sum())
             require(not bool((diff & clear).any()), f"small model {dtype}: greedy tokens differ")
-        log(f"small model L2 C256 V16384 B{B} {dtype}: logits err <= {worst:.3e} of scale "
-            f"(tol {tol}), greedy tokens differing on near-ties {flips}/{B * steps}")
+        log(f"small model L2 C256 V16384 B{B} {dtype}, wkv_precision {wkv_precision!r}: logits "
+            f"err <= {worst:.3e} of scale (tol {tol}), greedy tokens differing on near-ties "
+            f"{flips}/{B * steps}")
 
 
-def check_small_prefill(dev, chunk=16, mm8_core="auto"):
+def check_small_prefill(dev, chunk=16, mm8_core="auto", wkv_precision="default"):
     """The compact prefill, then greedy decode, on a small INT8 model with the
     given mm8 core: the same weights and prompts on the GPU (kernels) and the
     CPU (plain versions), at float32 and bf16. At float32 on the GPU, chunked prefill must also agree
     with feeding the same prompts token by token through the decode step. The
     tolerances and the clear-margin rule for greedy tokens are the decode
-    check's."""
+    check's. wkv_precision "bf16" runs the bf16 configuration alone."""
     import numpy as np
     from chirrup_tpu_torch.engine.serving import ServingModel
     from chirrup_tpu_torch.models.config import RWKV7Config, RuntimeConfig
@@ -1130,9 +1288,10 @@ def check_small_prefill(dev, chunk=16, mm8_core="auto"):
                 "small prefill: elapsed differs")
         return worst
 
-    for dtype, tol in ((torch.float32, 2e-3), (torch.bfloat16, 3e-2)):
+    runs = ((torch.float32, 2e-3), (torch.bfloat16, 3e-2))
+    for dtype, tol in runs[1:] if wkv_precision == "bf16" else runs:
         rt = RuntimeConfig(activation_dtype=dtype, wkv_state_dtype=dtype, quantization="int8",
-                           mm8_core=mm8_core)
+                           mm8_core=mm8_core, wkv_precision=wkv_precision)
         params = synthetic_params_int8(cfg, seed=5, dtype=dtype, device=dev)
         models = [ServingModel(cfg, params, rt, B, prefill_chunk=chunk, device=d)
                   for d in (dev, "cpu")]
@@ -1146,7 +1305,7 @@ def check_small_prefill(dev, chunk=16, mm8_core="auto"):
         gpu, cpu = (decode(m, c) for m, c in zip(models, carries))
         worst, flips = compare(f"small prefill {dtype}", gpu, cpu, tol)
         log(f"small model prefill (compact, chunk {chunk}) + decode, mm8_core {mm8_core!r}, "
-            f"L2 C256 B{B} {dtype}, "
+            f"wkv_precision {wkv_precision!r}, L2 C256 B{B} {dtype}, "
             f"GPU vs CPU: state err {s_err:.3e} of scale, logits err <= {worst:.3e} of scale "
             f"(tol {tol}), greedy tokens differing on near-ties {flips}/{B * steps}")
         if dtype == torch.float32:
@@ -1245,10 +1404,11 @@ def summarize_quant(kernels, mm8_prefill):
 
 # ------------------------------------------------------------- main path
 
-def expected_launches(L, core, kind):
+def expected_launches(L, core, kind, wkv_precision="default"):
     """Kernel launches per decode step (kind "step") or per prefill chunk
     ("chunk") of the serving path under mm8 core `core`: one fused WKV kernel
-    per layer; per layer the w8a8 core ("auto") runs quantize + GEMM for the
+    per layer (its bf16-mode instance under wkv_precision "bf16"); per layer
+    the w8a8 core ("auto") runs quantize + GEMM for the
     merged R/K/V, Wo, FFN k and FFN v, and the w8a16 core ("pallas") one GEMM
     for each of R, K, V, Wo, FFN k and FFN v; a step adds the head and one
     penalty tail."""
@@ -1256,7 +1416,8 @@ def expected_launches(L, core, kind):
 
     step = int(kind == "step")
     out = dict.fromkeys(_kernels.LAUNCHES, 0)
-    out["wkv7_step_fused" if step else "wkv7_chunk_fused"] = L
+    mode = "_bf16" if wkv_precision == "bf16" else ""
+    out[("wkv7_step_fused" if step else "wkv7_chunk_fused") + mode] = L
     if core == "pallas":
         out["mm8_w16_gemm"] = 6 * L + step
     else:
@@ -1611,7 +1772,185 @@ def run_prefill(dev, engine_model, profile: bool, B=256, chunks=4, tag=""):
     return results
 
 
-def run_unfused(dev, m, B=64, P=8, T=256, tol=3e-2):
+def run_bf16_mode(dev, engine_model, K, B=64, prefill_batch=256, tol=4e-2):
+    """The serving path in the WKV kernels' bf16 mode at 7.2B width:
+    ServingModels built with RuntimeConfig(wkv_precision="bf16") on the
+    engine model's prepared weights (batch B for decode, `prefill_batch` for
+    compact prefill), beside default-mode models on the same weights:
+    - the first decode step from the same random state and tokens in both
+      modes: the bf16 mode's logits within `tol` of the default mode's scale
+      and its new state within tol + tol |default| per element (the 4e-2 the
+      JAX package's tests/test_wkv7_pallas.py::test_bf16_compute_fused_step
+      allows its bf16-mode kernel against its default one);
+    - K-step decode blocks in each mode: one to warm up, in bf16 mode one
+      counted under sync debug mode "error" (launches per step), then one
+      profiled: device busy and the WKV step kernel's ms a step;
+    - compact prefill in each mode, each variant ((8, 256) and (32, 64) at
+      batch 256): a warm-up chunk, in bf16 mode one counted under sync debug
+      mode "error" (launches per chunk), then one profiled: device busy and
+      the WKV chunk kernel's ms a chunk.
+    The launch counters are reset at the start; the bf16-mode kernels'
+    counts over the run are returned with the numbers."""
+    import dataclasses
+    import re
+
+    import numpy as np
+    from chirrup_tpu_torch.engine.serving import ServingModel
+    from chirrup_tpu_torch.ops import _kernels
+    from torch.profiler import ProfilerActivity, profile as torch_profile
+
+    m0 = engine_model
+    require(m0.runtime.wkv_precision == "default", "the engine model is not in the default mode")
+    L, V, core = m0.config.n_layer, m0.config.vocab_size, m0.mm8_core
+    runtimes = {"default": m0.runtime,
+                "bf16": dataclasses.replace(m0.runtime, wkv_precision="bf16")}
+    ptr = lambda w: getattr(w, "q", w).data_ptr()
+
+    def model(mode, batch):
+        m = ServingModel(m0.config, m0.params, runtimes[mode], batch,
+                         prefill_chunk=m0.prefill_chunk, device=dev)
+        require(all(ptr(a) == ptr(b) for a, b in zip(m.params["blocks"]["att"].values(),
+                                                     m0.params["blocks"]["att"].values())),
+                "a bf16-mode model copied the weights")
+        return m
+
+    def profiled(fn, pattern):
+        """(device busy ms, ms and launches of the kernels matching pattern)
+        of one call of fn, from the profiler."""
+        with torch_profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        rows = [(e.key, e.self_device_time_total / 1e3, e.count) for e in prof.key_averages()
+                if e.device_type.name == "CUDA" and e.self_device_time_total > 0]
+        hits = [(ms, n) for key, ms, n in rows if re.search(pattern, key)]
+        return sum(ms for _, ms, _ in rows), sum(ms for ms, _ in hits), sum(n for _, n in hits)
+
+    def counted(fn):
+        """Launches of one call of fn, run under sync debug mode "error"."""
+        before = dict(_kernels.LAUNCHES)
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        torch.cuda.synchronize()
+        return {k: n - before[k] for k, n in _kernels.LAUNCHES.items()}
+
+    class Greedy:
+        temperature, top_p, top_k = 0.0, 0.3, 0
+        frequency_penalty, presence_penalty, penalty_decay = 0.5, 0.5, 0.996
+        forbidden_tokens = ()
+
+    _kernels.reset_launches()
+    out = {}
+    # the first decode step, both modes from the same random state and tokens
+    gen = torch.Generator(device=dev).manual_seed(13)
+    models = {mode: model(mode, B) for mode in runtimes}
+    carries = {mode: m.init_carry() for mode, m in models.items()}
+    for mode, m in models.items():
+        for slot in range(B):
+            m.insert_slot(carries[mode], slot, None, Greedy)
+    for li in range(L):
+        w = torch.randn((B, 64, m0.config.n_embd), generator=gen, device=dev) * 0.3
+        for c in carries.values():
+            c.state.wkv[li].copy_(w)
+    shift = torch.randn(carries["bf16"].state.shift.shape, generator=gen, device=dev)
+    elapsed = torch.randint(0, 2 ** 31 - 1, (B,), generator=gen, device=dev)
+    for c in carries.values():
+        c.state.shift.copy_(shift)
+        c.state.elapsed.copy_(elapsed)
+    tokens0 = torch.randint(1, V, (B,), generator=gen, device=dev).cpu().numpy().astype(np.int32)
+    on = np.ones(B, bool)
+    logits = {mode: m.decode_step(carries[mode], tokens0, on, on)[2].float()
+              for mode, m in models.items()}
+    torch.cuda.synchronize()
+    ref, got = logits["default"], logits["bf16"]
+    require(tuple(got.shape) == (B, V) and bool(torch.isfinite(got).all()),
+            "bf16 mode: logits not finite or of the wrong shape")
+    logits_err = max_abs(got, ref) / float(ref.abs().max())
+    state_excess, state_err = 0.0, 0.0
+    s_ref, s_got = carries["default"].state.wkv, carries["bf16"].state.wkv
+    for li in range(L):
+        a, b = s_got[li].float(), s_ref[li].float()
+        state_excess = max(state_excess, float(((a - b).abs() / (tol + tol * b.abs())).max()))
+        state_err = max(state_err, max_abs(a, b) / float(b.abs().max()))
+    log(f"bf16 mode, 7.2B width, batch {B}: first decode step against the default mode from "
+        f"the same random state: logits err {logits_err:.3e} of scale (tol {tol}); new state "
+        f"err {state_err:.3e} of scale, worst |err| / ({tol} + {tol}|ref|) {state_excess:.3f}")
+    require(logits_err <= tol and state_excess <= 1,
+            f"bf16 mode: first step against the default mode: logits err {logits_err} of "
+            f"scale, state |err|/limit {state_excess} (tol {tol})")
+    out.update(first_step_logits_err_of_scale=logits_err, first_step_state_err_of_scale=state_err,
+               first_step_state_excess=state_excess)
+
+    # decode blocks
+    ones = np.ones((K, B), bool)
+    tokens = np.full((K, B), 300, np.int32)
+    block = {mode: (lambda m=m, mode=mode: m.decode_block(carries[mode], tokens, ones, ones,
+                                                           ones)[1].cpu())
+             for mode, m in models.items()}
+    for mode in runtimes:
+        block[mode]()
+    per_step = {k: n / K for k, n in counted(lambda: models["bf16"].decode_block(
+        carries["bf16"], tokens, ones, ones, ones)).items()}
+    expected = expected_launches(L, core, "step", "bf16")
+    require(per_step == expected, f"bf16 mode: launches per step {per_step}, expected {expected}")
+    decode = {}
+    for mode in runtimes:
+        busy, wkv_ms, n = profiled(block[mode], r"wkv7_step_fused_kernel")
+        decode[mode] = dict(device_busy_step_ms=busy / K, wkv_step_ms=wkv_ms / K,
+                            wkv_launches_step=n / K)
+    log(f"bf16 mode decode at batch {B}: launches per step {per_step} (no host "
+        f"synchronisation: sync debug mode 'error'); a step (profiler, one block of {K} "
+        f"each): device busy {decode['bf16']['device_busy_step_ms']:.3f} ms, "
+        f"wkv7_step_fused {decode['bf16']['wkv_step_ms']:.4f} ms "
+        f"({decode['bf16']['wkv_launches_step']:g} launches); default mode, same call: device "
+        f"busy {decode['default']['device_busy_step_ms']:.3f} ms, wkv7_step_fused "
+        f"{decode['default']['wkv_step_ms']:.4f} ms")
+    out.update(launches_per_step=per_step, decode=decode)
+    del models, carries, logits, ref, got, s_ref, s_got, a, b, w
+    torch.cuda.empty_cache()
+
+    # compact prefill at batch prefill_batch
+    prefill = {mode: {} for mode in runtimes}
+    per_chunk = {}
+    for mode in runtimes:
+        m = model(mode, prefill_batch)
+        c = m.init_carry()
+        rng = np.random.default_rng(4)
+        for P, T in m.prefill_variants:
+            slot_idx = (np.arange(P) * (prefill_batch // P)).astype(np.int32)
+            lengths = np.full(P, T, np.int32)
+
+            def chunk():
+                toks = rng.integers(1, V, (P, T)).astype(np.int32)
+                m.prefill_step_compact(c, toks, lengths, slot_idx)
+
+            chunk()
+            torch.cuda.synchronize()
+            if mode == "bf16":
+                per_chunk[f"{P}x{T}"] = got_launches = counted(chunk)
+                expected = expected_launches(L, core, "chunk", "bf16")
+                require(got_launches == expected, f"bf16 mode prefill ({P}, {T}): launches per "
+                                                  f"chunk {got_launches}, expected {expected}")
+            busy, wkv_ms, n = profiled(chunk, r"wkv7_chunk_fused_kernel")
+            prefill[mode][f"{P}x{T}"] = dict(device_busy_chunk_ms=busy, wkv_chunk_ms=wkv_ms,
+                                             wkv_launches_chunk=n)
+        del m, c
+        torch.cuda.empty_cache()
+    for key, x in prefill["bf16"].items():
+        d = prefill["default"][key]
+        log(f"bf16 mode prefill {key} at batch {prefill_batch}: launches per chunk "
+            f"{per_chunk[key]} (sync debug mode 'error'); a chunk (profiler): device busy "
+            f"{x['device_busy_chunk_ms']:.2f} ms, wkv7_chunk_fused {x['wkv_chunk_ms']:.4f} ms "
+            f"({x['wkv_launches_chunk']} launches); default mode, same call: device busy "
+            f"{d['device_busy_chunk_ms']:.2f} ms, wkv7_chunk_fused {d['wkv_chunk_ms']:.4f} ms")
+    out.update(launches_per_chunk=per_chunk, prefill=prefill,
+               launches={k: n for k, n in _kernels.LAUNCHES.items() if k.endswith("_bf16")})
+    return out
+
+
+def run_unfused(dev, m, B=64, P=8, T=256, tol=3e-2, precision="default"):
     """Path B at 7.2B width on the engine model's prepared weights: one
     forward_chunk at (P, T) from a zero state and one forward_step at batch B
     from a random state, each with wkv_fn=wkv7_batch and, from a copy of the
@@ -1625,7 +1964,13 @@ def run_unfused(dev, m, B=64, P=8, T=256, tol=3e-2):
     their scale; greedy tokens equal where the fused top-2 margin is clear);
     layer 0, whose WKV inputs are the same on both paths, is reported per
     element against the WKV kernels' limit, and held to it at float32
-    (unfused_layer0_float32)."""
+    (unfused_layer0_float32). precision "bf16": both paths in the WKV
+    kernels' bf16 mode, the bare kernel's through
+    functools.partial(wkv7_batch, precision="bf16") and the fused kernels'
+    through wkv_precision, without the float32 layer-0 run (on a float32
+    state the mode is the default)."""
+    import functools
+
     from chirrup_tpu_torch.models import rwkv7 as tmodel
     from chirrup_tpu_torch.ops import _kernels
     from chirrup_tpu_torch.ops.wkv7_cuda import wkv7_batch
@@ -1633,7 +1978,10 @@ def run_unfused(dev, m, B=64, P=8, T=256, tol=3e-2):
     cfg, rt = m.config, m.runtime
     L, V = cfg.n_layer, cfg.vocab_size
     gen = torch.Generator(device=dev).manual_seed(11)
-    kw = dict(compute_dtype=rt.activation_dtype, use_dither=rt.use_dither, mm8_core=m.mm8_core)
+    kw = dict(compute_dtype=rt.activation_dtype, use_dither=rt.use_dither, mm8_core=m.mm8_core,
+              wkv_precision=precision)
+    bf16 = precision == "bf16"
+    bare = functools.partial(wkv7_batch, precision="bf16") if bf16 else wkv7_batch
 
     def state(n, random):
         st = tmodel.init_state(cfg, n, shift_dtype=rt.activation_dtype,
@@ -1650,7 +1998,7 @@ def run_unfused(dev, m, B=64, P=8, T=256, tol=3e-2):
         shape = (n, T) if kind == "chunk" else (n,)
         tokens = torch.randint(1, V, shape, generator=gen, device=dev, dtype=torch.int32)
         runs = {}
-        for label, fn in (("fused", None), ("unfused", wkv7_batch)):
+        for label, fn in (("fused", None), ("unfused", bare)):
             st = tmodel.RWKVState(st0.shift.clone(), st0.wkv.clone(), st0.elapsed.clone())
             torch.cuda.synchronize()
             _kernels.reset_launches()
@@ -1664,10 +2012,10 @@ def run_unfused(dev, m, B=64, P=8, T=256, tol=3e-2):
             runs[label] = (logits, st, (time.perf_counter() - t0) * 1e3, dict(_kernels.LAUNCHES))
         (l_f, s_f, ms_f, _), (l_u, s_u, ms_u, launches) = runs["fused"], runs["unfused"]
         expected = expected_launches(L, m.mm8_core, kind)
-        expected.update({"wkv7_step_fused": 0, "wkv7_chunk_fused": 0, "wkv7_batch": L,
-                         "penalty_tail": 0})
+        expected.update({"wkv7_step_fused": 0, "wkv7_chunk_fused": 0, "penalty_tail": 0,
+                         "wkv7_batch_bf16" if bf16 else "wkv7_batch": L})
         require(launches == expected,
-                f"path B {kind}: launches {launches}, expected {expected}")
+                f"path B {precision} {kind}: launches {launches}, expected {expected}")
         errs, excess = {}, {}
         pairs = [("shift", s_u.shift, s_f.shift), ("wkv", s_u.wkv, s_f.wkv),
                  ("wkv layer 0", s_u.wkv[0], s_f.wkv[0])]
@@ -1687,7 +2035,8 @@ def run_unfused(dev, m, B=64, P=8, T=256, tol=3e-2):
         require(max(v for k, v in errs.items() if k != "wkv layer 0") <= tol,
                 f"path B {kind}: unfused vs fused err of scale {errs} > {tol}")
         label = f"forward_chunk ({P}, {T})" if kind == "chunk" else f"forward_step at batch {B}"
-        log(f"path B {label}, 7.2B width, mm8_core {m.mm8_core!r}: launches {launches}; "
+        log(f"path B {label}, 7.2B width, mm8_core {m.mm8_core!r}, precision {precision!r}: "
+            f"launches {launches}; "
             f"unfused {ms_u:.1f} ms, fused {ms_f:.1f} ms (one call each, wall through a "
             f"synchronise); unfused vs fused err of scale "
             + ", ".join(f"{k} {v:.3e}" for k, v in errs.items())
@@ -1697,7 +2046,8 @@ def run_unfused(dev, m, B=64, P=8, T=256, tol=3e-2):
                              err_of_scale=errs, bf16_excess=excess)
         del runs, st0, s_f, s_u, l_f, l_u
         torch.cuda.empty_cache()
-    results["layer0_float32"] = unfused_layer0_float32(dev, m, B, P, T)
+    if not bf16:
+        results["layer0_float32"] = unfused_layer0_float32(dev, m, B, P, T)
     return results
 
 
@@ -1940,6 +2290,13 @@ def main(argv=None) -> int:
     kernels = [check_wkv(dev, gen), check_chunk(dev, gen), check_wkv_batch(dev, gen),
                *check_mm8(dev, gen), check_w16(dev, gen), check_penalty_tail(dev, gen)]
     torch.cuda.empty_cache()
+    # the WKV kernels' precision="bf16" instances, from a generator of their
+    # own (the draws above stay those of earlier trees)
+    gen_bf16 = torch.Generator(device=dev).manual_seed(9)
+    kernels += [check_wkv(dev, gen_bf16, precision="bf16"),
+                check_chunk(dev, gen_bf16, precision="bf16"),
+                check_wkv_batch(dev, gen_bf16, precision="bf16")]
+    torch.cuda.empty_cache()
     # the mm8 kernels at the other decode row counts: one row, and a count
     # that is not a multiple of 8
     mm8_decode = {rows: [*check_mm8(dev, gen, B=rows), check_w16(dev, gen, B=rows)]
@@ -1956,24 +2313,34 @@ def main(argv=None) -> int:
     check_small_prefill(dev)
     check_small_prefill(dev, mm8_core="pallas")
     check_small_unfused(dev)
+    check_small_model(dev, wkv_precision="bf16")
+    check_small_prefill(dev, wkv_precision="bf16")
     torch.cuda.empty_cache()
     # the w8a8 serving path, then path A (w8a16) once the first model is
     # freed, then path B (unfused TMix) on path A's weights
     model, launches, per_step, path = run_engine(dev, args.profile)
     prefill = run_prefill(dev, model, args.profile)
+    bf16_path = run_bf16_mode(dev, model, path["block_steps"])
     del model
     torch.cuda.empty_cache()
     model, w16_launches, w16_step, path_a = run_engine(dev, args.profile, blocks=4,
                                                        mm8_core="pallas", tag="_w16")
     path_a["prefill"] = run_prefill(dev, model, args.profile, B=64, chunks=4, tag="_w16")
     path_b = run_unfused(dev, model)
+    path_b_bf16 = run_unfused(dev, model, precision="bf16")
     del model
     for k in kernels:
         name = k["name"]
-        if name == "wkv7_batch":
-            k["launches"] = sum(path_b[kind]["launches"][name] for kind in ("chunk", "step"))
-            k["launches_per_step"] = path_b["step"]["launches"][name]
-            k["launches_per_chunk"] = path_b["chunk"]["launches"][name]
+        if name in ("wkv7_batch", "wkv7_batch_bf16"):
+            pb = path_b_bf16 if name.endswith("_bf16") else path_b
+            k["launches"] = sum(pb[kind]["launches"][name] for kind in ("chunk", "step"))
+            k["launches_per_step"] = pb["step"]["launches"][name]
+            k["launches_per_chunk"] = pb["chunk"]["launches"][name]
+            continue
+        if name in ("wkv7_step_fused_bf16", "wkv7_chunk_fused_bf16"):
+            k["launches"] = bf16_path["launches"][name]
+            k["launches_per_step"] = bf16_path["launches_per_step"][name]
+            k["launches_per_chunk"] = next(iter(bf16_path["launches_per_chunk"].values()))[name]
             continue
         run, step, chunk = ((w16_launches, w16_step, path_a["prefill"]) if name == "mm8_w16_gemm"
                             else (launches, per_step, prefill))
@@ -1989,6 +2356,8 @@ def main(argv=None) -> int:
     path["quant_summary"] = quant_summary
     path["w16"] = path_a
     path["unfused"] = path_b
+    path["wkv_bf16"] = bf16_path
+    path["unfused_bf16"] = path_b_bf16
 
     summary = {"kernels": kernels}
     os.makedirs(OUT_DIR, exist_ok=True)

@@ -16,6 +16,16 @@
 // stored once, in the state dtype, at the end; a row with lengths[b] == 0
 // keeps its state bit for bit. Other layers are never touched.
 //
+// precision="bf16" on a bf16 state (the BF instances; the JAX package's
+// _token_update_pre with bf16_state): S stays bf16 in registers and is
+// rounded every token; the update takes the delta form with every
+// elementwise operation a bf16 one rounded to nearest (wkv7_common.cuh),
+//   S_ij <- S_ij + ((S_ij * d_j + v_i * k~_j) + sa_i * b_j),  d = d1 - 1,
+//   y_i   = sum_j S_ij * bf16(d1_j r_j) + v_i <r, k~> + sa_i <r, b>,
+// sa_i and y_i float32 sums of bf16 products of the old S. Phase A then
+// stores the rows the recurrence reads as bf16 (half the shared-memory
+// traffic a token) and the two per-head sums <r, k~>, <r, b>.
+//
 // Bound on the H100: the arithmetic. A token costs ~9 float32 operations per
 // state element (64 * C per request), 4.8 GFLOP for a layer of 2,048 prompt
 // tokens at C 4096, ~0.07 ms at 67 TFLOP/s; its bytes (the state slab once
@@ -60,6 +70,8 @@
 // arrays of (TT, 64), TT bonus values, the head's 5 parameter vectors, a ring
 // of 2 x 5 x (TT, 64) inputs (50,496 bytes with bf16 inputs, 70,976 with
 // float32: dynamic, above the 48 KB default, allowed at every launch).
+
+#include <type_traits>
 
 #include "hopper_common.cuh"
 #include "wkv7_common.cuh"
@@ -115,12 +127,12 @@ __device__ __forceinline__ void store4(__nv_bfloat16* p, float4 v) {
 constexpr int RI = 4, P = 8, TT = 16, NT = N / RI * P;
 
 // shared-memory bytes of a block: 7 float32 (TT, 64) arrays, TT bonus
-// values, the head's 5 parameter vectors in float32, the ring of 2 x 5 x
-// (TT, 64) inputs (every array a multiple of 16 bytes: the ring's 16-byte
-// copies)
-template <typename TA>
+// values (and, for precision="bf16", TT of <r, k~> and of <r, b>), the
+// head's 5 parameter vectors in float32, the ring of 2 x 5 x (TT, 64)
+// inputs (every array a multiple of 16 bytes: the ring's 16-byte copies)
+template <typename TA, bool BF>
 constexpr int smem_bytes() {
-  return (7 * TT * N + TT + 5 * N) * 4 + 10 * TT * N * (int)sizeof(TA);
+  return (7 * TT * N + (BF ? 3 : 1) * TT + 5 * N) * 4 + 10 * TT * N * (int)sizeof(TA);
 }
 
 // phases A and C: a token's 64 channels on LG lanes of 8 channels each, 32 /
@@ -140,7 +152,7 @@ __device__ __forceinline__ float row_sum(float v) {
   return v;
 }
 
-template <typename TA, typename TS>
+template <typename TA, typename TS, bool BF>
 __global__ void __launch_bounds__(NT) wkv7_chunk_fused_kernel(
     TS* __restrict__ state, const Rows rows, const TA* __restrict__ k_k,
     const TA* __restrict__ k_a, const TA* __restrict__ r_k, const TA* __restrict__ ln_w,
@@ -150,12 +162,16 @@ __global__ void __launch_bounds__(NT) wkv7_chunk_fused_kernel(
   constexpr int NW = NT / 32;   // warps
   constexpr int G = N / 4 / P;  // float4 column groups a thread holds of each of its rows
   static_assert(NT % 32 == 0 && 32 % P == 0 && N % RI == 0 && TT % 4 == 0, "launch shape");
+  static_assert(!BF || sizeof(TS) == 2, "precision bf16 runs on a bf16 state");
   extern __shared__ __align__(16) uint8_t smem[];
   float* s_d1 = reinterpret_cast<float*>(smem);
   float *s_k = s_d1 + TT * N, *s_a = s_k + TT * N, *s_b = s_a + TT * N;
   float *s_r = s_b + TT * N, *s_v = s_r + TT * N, *s_y = s_v + TT * N;
   float* s_bonus = s_y + TT * N;
-  float* s_par = s_bonus + TT;  // k_k, k_a, r_k, ln_w, ln_b of the head
+  // precision="bf16": <r, k~> and <r, b> a token; d, k~, -kk, b and d1*r as
+  // bf16 in the first half of s_d1, s_k, s_a, s_b and s_r
+  [[maybe_unused]] float *s_rk = s_bonus + TT, *s_rb = s_rk + TT;
+  float* s_par = s_bonus + (BF ? 3 : 1) * TT;  // k_k, k_a, r_k, ln_w, ln_b of the head
   TA* ring = reinterpret_cast<TA*>(s_par + 5 * N);
 
   const int h = blockIdx.x, b = blockIdx.y, tid = threadIdx.x;
@@ -199,12 +215,18 @@ __global__ void __launch_bounds__(NT) wkv7_chunk_fused_kernel(
   issue(1);
 
   TS* srow = state + (((size_t)layer * B + b) * N + i0) * C + h * N;
-  float4 S[RI][G];
+  // four columns of a row: float32, or two packed bf16 pairs (BF)
+  std::conditional_t<BF, uint2, float4> S[RI][G];
   if (n_tok > 0) {
 #pragma unroll
     for (int r = 0; r < RI; ++r)
 #pragma unroll
-      for (int g = 0; g < G; ++g) S[r][g] = load4(srow + (size_t)r * C + 4 * (g * P + part));
+      for (int g = 0; g < G; ++g) {
+        if constexpr (BF)
+          S[r][g] = *reinterpret_cast<const uint2*>(srow + (size_t)r * C + 4 * (g * P + part));
+        else
+          S[r][g] = load4(srow + (size_t)r * C + 4 * (g * P + part));
+      }
   }
 
   for (int tile = 0; tile < n_tiles; ++tile) {
@@ -237,7 +259,47 @@ __global__ void __launch_bounds__(NT) wkv7_chunk_fused_kernel(
       }
       const float inv = 1.0f / fmaxf(sqrtf(group_sum(ss)), 1e-12f);
       const float bonus = group_sum(bs);
-      if (tt < nt) {
+      if constexpr (BF) {
+        float rk = 0.0f, rb = 0.0f, nb[8];
+#pragma unroll
+        for (int e = 0; e < 8; ++e) {
+          nb[e] = kp[e] * inv * ar[e];
+          rk += rr[e] * kt[e];
+          rb += rr[e] * nb[e];
+        }
+        rk = group_sum(rk);
+        rb = group_sum(rb);
+        if (tt < nt) {
+          const unsigned int step = el + (unsigned int)(t0 + tt);
+          const int o = tt * N + ch;
+          uint32_t d2[4], k2[4], a2[4], b2[4], r2[4];
+#pragma unroll
+          for (int e = 0; e < 8; e += 2) {
+            const float d1x = 1.0f + decay(wr[e], step, use_dither);
+            const float d1y = 1.0f + decay(wr[e + 1], step, use_dither);
+            d2[e / 2] = pack2(d1x - 1.0f, d1y - 1.0f);
+            k2[e / 2] = pack2(kt[e], kt[e + 1]);
+            a2[e / 2] = pack2(-(kp[e] * inv), -(kp[e + 1] * inv));
+            b2[e / 2] = pack2(nb[e], nb[e + 1]);
+            r2[e / 2] = pack2(d1x * rr[e], d1y * rr[e + 1]);
+          }
+          const auto put = [&](float* base, const uint32_t (&x)[4]) {
+            *reinterpret_cast<uint4*>(reinterpret_cast<__nv_bfloat16*>(base) + o) =
+                make_uint4(x[0], x[1], x[2], x[3]);
+          };
+          put(s_d1, d2);
+          put(s_k, k2);
+          put(s_a, a2);
+          put(s_b, b2);
+          put(s_r, r2);
+          store8(s_v + o, vr);
+          if (ch == 0) {
+            s_bonus[tt] = bonus;
+            s_rk[tt] = rk;
+            s_rb[tt] = rb;
+          }
+        }
+      } else if (tt < nt) {
         const unsigned int step = el + (unsigned int)(t0 + tt);
         const int o = tt * N + ch;
         float d1[8], na[8], nb[8];
@@ -262,6 +324,62 @@ __global__ void __launch_bounds__(NT) wkv7_chunk_fused_kernel(
 
     // B: the recurrence; each thread holds G column groups of RI rows, the
     // row's P threads join its sums
+    if constexpr (BF) {
+      const uint2 *ha = reinterpret_cast<const uint2*>(s_a) + part,
+                  *hd = reinterpret_cast<const uint2*>(s_d1) + part,
+                  *hk = reinterpret_cast<const uint2*>(s_k) + part,
+                  *hb = reinterpret_cast<const uint2*>(s_b) + part,
+                  *hr = reinterpret_cast<const uint2*>(s_r) + part;
+      for (int tt = 0; tt < nt; ++tt) {
+        const int o = tt * N / 4;  // a token's 64 bf16 as uint2
+        uint2 f[G];
+#pragma unroll
+        for (int g = 0; g < G; ++g) f[g] = ha[o + g * P];
+        float sa[RI];
+#pragma unroll
+        for (int r = 0; r < RI; ++r) {
+          float p0 = 0.0f, p1 = 0.0f;
+#pragma unroll
+          for (int g = 0; g < G; ++g) {
+            p0 += dot2(S[r][g].x, f[g].x);
+            p1 += dot2(S[r][g].y, f[g].y);
+          }
+          sa[r] = p0 + p1;
+        }
+#pragma unroll
+        for (int r = 0; r < RI; ++r) sa[r] = row_sum(sa[r]);
+        float vi[RI];
+        uint32_t v2[RI], sa2[RI];
+#pragma unroll
+        for (int r = 0; r < RI; ++r) {
+          vi[r] = s_v[tt * N + i0 + r];
+          v2[r] = pack2(vi[r], vi[r]);
+          sa2[r] = pack2(sa[r], sa[r]);
+        }
+        float y0[RI], y1[RI];
+#pragma unroll
+        for (int r = 0; r < RI; ++r) y0[r] = y1[r] = 0.0f;
+#pragma unroll
+        for (int g = 0; g < G; ++g) {
+          const uint2 fd = hd[o + g * P], fk = hk[o + g * P], fb = hb[o + g * P],
+                      fr = hr[o + g * P];
+#pragma unroll
+          for (int r = 0; r < RI; ++r) {
+            uint2& q = S[r][g];
+            y0[r] += dot2(q.x, fr.x);
+            y1[r] += dot2(q.y, fr.y);
+            q.x = delta_update(q.x, fd.x, v2[r], fk.x, sa2[r], fb.x);
+            q.y = delta_update(q.y, fd.y, v2[r], fk.y, sa2[r], fb.y);
+          }
+        }
+        const float rk = s_rk[tt], rb = s_rb[tt];
+#pragma unroll
+        for (int r = 0; r < RI; ++r) {
+          const float yi = row_sum(y0[r] + y1[r]) + vi[r] * rk + sa[r] * rb;
+          if (part == 0) s_y[tt * N + i0 + r] = yi;
+        }
+      }
+    } else  // the float32 recurrence
     for (int tt = 0; tt < nt; ++tt) {
       const float4* a4 = reinterpret_cast<const float4*>(s_a + tt * N) + part;
       float4 f[G];
@@ -344,7 +462,12 @@ __global__ void __launch_bounds__(NT) wkv7_chunk_fused_kernel(
 #pragma unroll
     for (int r = 0; r < RI; ++r)
 #pragma unroll
-      for (int g = 0; g < G; ++g) store4(srow + (size_t)r * C + 4 * (g * P + part), S[r][g]);
+      for (int g = 0; g < G; ++g) {
+        if constexpr (BF)
+          *reinterpret_cast<uint2*>(srow + (size_t)r * C + 4 * (g * P + part)) = S[r][g];
+        else
+          store4(srow + (size_t)r * C + 4 * (g * P + part), S[r][g]);
+      }
   }
   // zeros past the row's length, 16 bytes a store
   constexpr int PER = N * sizeof(TA) / 16;
@@ -355,16 +478,16 @@ __global__ void __launch_bounds__(NT) wkv7_chunk_fused_kernel(
   }
 }
 
-template <typename TA, typename TS>
+template <typename TA, typename TS, bool BF>
 int launch(void* state, const Rows& rows, const void* k_k, const void* k_a, const void* r_k,
            const void* ln_w, const void* ln_b, const void* elapsed, const void* lengths,
            void* y, int B, int T, int C, int layer, int use_dither, cudaStream_t stream) {
-  const auto kernel = wkv7_chunk_fused_kernel<TA, TS>;
+  const auto kernel = wkv7_chunk_fused_kernel<TA, TS, BF>;
   // per device, and cheap beside a launch: set before every one
   const cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                             smem_bytes<TA>());
+                                             smem_bytes<TA, BF>());
   if (e != cudaSuccess) return (int)e;
-  kernel<<<dim3(C / N, B), NT, smem_bytes<TA>(), stream>>>(
+  kernel<<<dim3(C / N, B), NT, smem_bytes<TA, BF>(), stream>>>(
       (TS*)state, rows, (const TA*)k_k, (const TA*)k_a, (const TA*)r_k, (const TA*)ln_w,
       (const TA*)ln_b, (const int32_t*)elapsed, (const int32_t*)lengths, (TA*)y, B, T, C,
       layer, use_dither);
@@ -376,7 +499,9 @@ int launch(void* state, const Rows& rows, const void* k_k, const void* k_a, cons
 // dtype codes: 0 = float32, 1 = bfloat16. sb_*, st_*: element strides per
 // request and per token of the (B, T, C) inputs r, w, k, a, v, whose columns
 // are contiguous and whose rows start on 16-byte boundaries; y is a
-// contiguous (B, T, C). Returns cudaGetLastError().
+// contiguous (B, T, C). bf16_mode: precision="bf16", on a bf16 state only (a
+// float32 state runs the float32 update, as the JAX package does). Returns
+// cudaGetLastError().
 extern "C" int wkv7_chunk_fused(void* state, const void* r, const void* w, const void* k,
                                 const void* a, const void* v, const void* k_k,
                                 const void* k_a, const void* r_k, const void* ln_w,
@@ -384,18 +509,22 @@ extern "C" int wkv7_chunk_fused(void* state, const void* r, const void* w, const
                                 void* y, int B, int T, int C, int layer, int use_dither,
                                 int sb_r, int st_r, int sb_w, int st_w, int sb_k, int st_k,
                                 int sb_a, int st_a, int sb_v, int st_v, int act_dtype,
-                                int state_dtype, void* stream) {
+                                int state_dtype, int bf16_mode, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
   const Rows rows = {{r, w, k, a, v},
                      {sb_r, sb_w, sb_k, sb_a, sb_v},
                      {st_r, st_w, st_k, st_a, st_v}};
-#define WKV7_CHUNK_DISPATCH(TA, TS)                                                         \
-  return launch<TA, TS>(state, rows, k_k, k_a, r_k, ln_w, ln_b, elapsed, lengths, y, B, T, C, \
-                        layer, use_dither, s)
-  if (act_dtype == 1 && state_dtype == 1) WKV7_CHUNK_DISPATCH(__nv_bfloat16, __nv_bfloat16);
-  if (act_dtype == 1 && state_dtype == 0) WKV7_CHUNK_DISPATCH(__nv_bfloat16, float);
-  if (act_dtype == 0 && state_dtype == 1) WKV7_CHUNK_DISPATCH(float, __nv_bfloat16);
-  WKV7_CHUNK_DISPATCH(float, float);
+#define WKV7_CHUNK_DISPATCH(TA, TS, BF)                                                       \
+  return launch<TA, TS, BF>(state, rows, k_k, k_a, r_k, ln_w, ln_b, elapsed, lengths, y, B, T, \
+                            C, layer, use_dither, s)
+  if (bf16_mode && state_dtype == 1) {
+    if (act_dtype == 1) WKV7_CHUNK_DISPATCH(__nv_bfloat16, __nv_bfloat16, true);
+    WKV7_CHUNK_DISPATCH(float, __nv_bfloat16, true);
+  }
+  if (act_dtype == 1 && state_dtype == 1) WKV7_CHUNK_DISPATCH(__nv_bfloat16, __nv_bfloat16, false);
+  if (act_dtype == 1 && state_dtype == 0) WKV7_CHUNK_DISPATCH(__nv_bfloat16, float, false);
+  if (act_dtype == 0 && state_dtype == 1) WKV7_CHUNK_DISPATCH(float, __nv_bfloat16, false);
+  WKV7_CHUNK_DISPATCH(float, float, false);
 #undef WKV7_CHUNK_DISPATCH
 }
 

@@ -1,6 +1,7 @@
 // Helpers shared by the WKV7 kernels (wkv7_step.cu, wkv7_chunk.cu,
 // wkv7_batch.cu): dtype conversion, 16-byte loads and stores of one 64-wide
-// state row and of 8 consecutive elements, and the decay with its dither.
+// state row and of 8 consecutive elements, the decay with its dither, and the
+// packed bf16 arithmetic of precision="bf16".
 
 #pragma once
 
@@ -100,6 +101,48 @@ __device__ __forceinline__ float decay(float w, unsigned int step, int use_dithe
   float d = expf(-0.6065306597126334f * sig) - 1.0f;
   if (use_dither) d += (float)(int)(2654435769u * step) * 0x1p-41f;
   return d;
+}
+
+// ---- precision="bf16": a state element pair as one packed __nv_bfloat162
+// (a uint32_t, the lower column in the low half, as in memory)
+//
+// The JAX package's bf16 mode (wkv7_pallas._token_update with bf16_state)
+// rounds every elementwise operation to bf16. Each helper is one packed
+// operation rounded once to nearest: fma.rn.bf16x2 with a -0 addend is the
+// product and with a 1 multiplier the sum, the forms cuda_bf16.h uses for
+// __hmul2 and __hadd2. Nothing here is left to the compiler to contract: an
+// FMA of the product and the sum would round once where the reference
+// rounds twice.
+__device__ __forceinline__ uint32_t bmul2(uint32_t a, uint32_t b) {
+  uint32_t d;
+  asm("{ .reg .b32 z;\n mov.b32 z, 0x80008000;\n fma.rn.bf16x2 %0, %1, %2, z;\n}"
+      : "=r"(d) : "r"(a), "r"(b));
+  return d;
+}
+__device__ __forceinline__ uint32_t badd2(uint32_t a, uint32_t b) {
+  uint32_t d;
+  asm("{ .reg .b32 o;\n mov.b32 o, 0x3f803f80;\n fma.rn.bf16x2 %0, %1, o, %2;\n}"
+      : "=r"(d) : "r"(a), "r"(b));
+  return d;
+}
+// two floats, each rounded to nearest: x in the low half, y in the high
+__device__ __forceinline__ uint32_t pack2(float x, float y) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(x, y);
+  return *reinterpret_cast<const uint32_t*>(&h);
+}
+// the halves as floats (exact)
+__device__ __forceinline__ float lo_f32(uint32_t p) { return __uint_as_float(p << 16); }
+__device__ __forceinline__ float hi_f32(uint32_t p) { return __uint_as_float(p & 0xffff0000u); }
+// float32 sum of the two bf16 products s * x
+__device__ __forceinline__ float dot2(uint32_t s, uint32_t x) {
+  const uint32_t p = bmul2(s, x);
+  return lo_f32(p) + hi_f32(p);
+}
+// the delta form of one pair: s + ((s * d + v * k) + sa * b), every
+// operation rounded to bf16, d = bf16(d1 - 1)
+__device__ __forceinline__ uint32_t delta_update(uint32_t s, uint32_t d, uint32_t v, uint32_t k,
+                                                 uint32_t sa, uint32_t b) {
+  return badd2(s, badd2(badd2(bmul2(s, d), bmul2(v, k)), bmul2(sa, b)));
 }
 
 }  // namespace wkv7

@@ -15,6 +15,17 @@
 // Rows with lengths[b] == 0 keep S bit-unchanged (it is neither read nor
 // written) and output 0.
 //
+// precision="bf16" on a bf16 state (the BF instances; the JAX package's
+// _token_update with bf16_state): the state stays bf16 and the update takes
+// the delta form, every elementwise operation a bf16 one rounded to nearest
+// (wkv7_common.cuh's packed helpers; d = bf16(d1 - 1), sa rounded to bf16
+// where it meets b):
+//   S_ij <- S_ij + ((S_ij * d_j + v_i * k~_j) + sa_i * b_j)
+//   y_i   = sum_j S_ij * bf16(d1_j r_j) + v_i <r, k~> + sa_i <r, b>
+// with sa_i and y_i float32 sums of bf16 products of the OLD S. The launch
+// is the same; each thread keeps its 16 x 8 slice packed, 64 registers, and
+// never widens it: the sums widen each pair's products.
+//
 // Bound on the H100: device memory. Each call reads and writes layer
 // `layer`'s state slab once (2 * B * 64 * C * sizeof(state) bytes, 64 MiB at
 // B=64, C=4096, bf16); the arithmetic is ~10 flops per state element. In a
@@ -76,6 +87,9 @@ __device__ __forceinline__ void store_cs(__nv_bfloat16* p, const float (&v)[8]) 
   for (int e = 0; e < 4; ++e) h[e] = __floats2bfloat162_rn(v[2 * e], v[2 * e + 1]);
   __stcs(reinterpret_cast<uint4*>(p), u);
 }
+__device__ __forceinline__ void store_cs(__nv_bfloat16* p, const uint4& u) {
+  __stcs(reinterpret_cast<uint4*>(p), u);
+}
 __device__ __forceinline__ void store_cs(float* p, const float (&v)[8]) {
   __stcs(reinterpret_cast<float4*>(p), make_float4(v[0], v[1], v[2], v[3]));
   __stcs(reinterpret_cast<float4*>(p) + 1, make_float4(v[4], v[5], v[6], v[7]));
@@ -132,7 +146,7 @@ __device__ __forceinline__ float head_sum(float v, float* red) {
   return v;
 }
 
-template <typename TA, typename TS>
+template <typename TA, typename TS, bool BF>
 __global__ void __launch_bounds__(NT) wkv7_step_fused_kernel(
     TS* __restrict__ state, const TA* __restrict__ r, const TA* __restrict__ w,
     const TA* __restrict__ k, const TA* __restrict__ a, const TA* __restrict__ v,
@@ -193,37 +207,82 @@ __global__ void __launch_bounds__(NT) wkv7_step_fused_kernel(
   }
   const float inv = 1.0f / fmaxf(sqrtf(row_sum(ss)), 1e-12f);
   const float bonus = row_sum(bs);
-  float d1[8], na[8], nb[8];
-#pragma unroll
-  for (int e = 0; e < 8; ++e) {
-    d1[e] = 1.0f + decay(wr[e], step, use_dither);
-    na[e] = -(kp[e] * inv);
-    nb[e] = kp[e] * inv * ar[e];
-  }
-
-  // recurrence, one row at a time: sa_i and y_i joined over the row's lanes
   float yv[RI];
-#pragma unroll
-  for (int q = 0; q < RI; ++q) {
-    float s[8];
-    unpack(raw[q], s);
-    float p0 = 0.0f, p1 = 0.0f;
-#pragma unroll
-    for (int e = 0; e < 8; e += 2) {
-      p0 += na[e] * s[e];
-      p1 += na[e + 1] * s[e + 1];
-    }
-    const float sa = row_sum(p0 + p1);
-    p0 = p1 = 0.0f;
+  if constexpr (BF) {
+    static_assert(sizeof(TS) == 2, "precision bf16 runs on a bf16 state");
+    // this thread's 4 column pairs of -kk, b = kk*a, k~, d = d1 - 1 and d1*r,
+    // each rounded to bf16; the head's <r, k~> and <r, b> in float32
+    uint32_t a2[4], b2[4], k2[4], d2[4], dr2[4];
+    float rk = 0.0f, rb = 0.0f;
 #pragma unroll
     for (int e = 0; e < 8; e += 2) {
-      s[e] = s[e] * d1[e] + vv[q] * kt[e] + sa * nb[e];
-      s[e + 1] = s[e + 1] * d1[e + 1] + vv[q] * kt[e + 1] + sa * nb[e + 1];
-      p0 += s[e] * rr[e];
-      p1 += s[e + 1] * rr[e + 1];
+      const float d1x = 1.0f + decay(wr[e], step, use_dither);
+      const float d1y = 1.0f + decay(wr[e + 1], step, use_dither);
+      const float kx = kp[e] * inv, ky = kp[e + 1] * inv;
+      const float bx = kx * ar[e], by = ky * ar[e + 1];
+      a2[e / 2] = pack2(-kx, -ky);
+      b2[e / 2] = pack2(bx, by);
+      k2[e / 2] = pack2(kt[e], kt[e + 1]);
+      d2[e / 2] = pack2(d1x - 1.0f, d1y - 1.0f);
+      dr2[e / 2] = pack2(d1x * rr[e], d1y * rr[e + 1]);
+      rk += rr[e] * kt[e] + rr[e + 1] * kt[e + 1];
+      rb += rr[e] * bx + rr[e + 1] * by;
     }
-    yv[q] = row_sum(p0 + p1);
-    if (hv) store_cs(srow + (size_t)q * C, s);
+    rk = row_sum(rk);
+    rb = row_sum(rb);
+    // one row at a time: sa_i and the S-part of y_i from the old row, then
+    // the delta update, stored at once
+#pragma unroll
+    for (int q = 0; q < RI; ++q) {
+      uint32_t sp[4] = {raw[q].u.x, raw[q].u.y, raw[q].u.z, raw[q].u.w};
+      float p0 = 0.0f, p1 = 0.0f, y0 = 0.0f, y1 = 0.0f;
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const uint32_t pa = bmul2(sp[e], a2[e]), py = bmul2(sp[e], dr2[e]);
+        p0 += lo_f32(pa);
+        p1 += hi_f32(pa);
+        y0 += lo_f32(py);
+        y1 += hi_f32(py);
+      }
+      const float sa = row_sum(p0 + p1);
+      const uint32_t sa2 = pack2(sa, sa), v2 = pack2(vv[q], vv[q]);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) sp[e] = delta_update(sp[e], d2[e], v2, k2[e], sa2, b2[e]);
+      yv[q] = row_sum(y0 + y1) + vv[q] * rk + sa * rb;
+      if (hv) store_cs(srow + (size_t)q * C, make_uint4(sp[0], sp[1], sp[2], sp[3]));
+    }
+  } else {
+    float d1[8], na[8], nb[8];
+#pragma unroll
+    for (int e = 0; e < 8; ++e) {
+      d1[e] = 1.0f + decay(wr[e], step, use_dither);
+      na[e] = -(kp[e] * inv);
+      nb[e] = kp[e] * inv * ar[e];
+    }
+
+    // recurrence, one row at a time: sa_i and y_i joined over the row's lanes
+#pragma unroll
+    for (int q = 0; q < RI; ++q) {
+      float s[8];
+      unpack(raw[q], s);
+      float p0 = 0.0f, p1 = 0.0f;
+#pragma unroll
+      for (int e = 0; e < 8; e += 2) {
+        p0 += na[e] * s[e];
+        p1 += na[e + 1] * s[e + 1];
+      }
+      const float sa = row_sum(p0 + p1);
+      p0 = p1 = 0.0f;
+#pragma unroll
+      for (int e = 0; e < 8; e += 2) {
+        s[e] = s[e] * d1[e] + vv[q] * kt[e] + sa * nb[e];
+        s[e + 1] = s[e + 1] * d1[e + 1] + vv[q] * kt[e + 1] + sa * nb[e + 1];
+        p0 += s[e] * rr[e];
+        p1 += s[e + 1] * rr[e + 1];
+      }
+      yv[q] = row_sum(p0 + p1);
+      if (hv) store_cs(srow + (size_t)q * C, s);
+    }
   }
 
   // epilogue: per-head GroupNorm (eps 64e-5) over the 64 rows, plus the bonus
@@ -245,13 +304,13 @@ __global__ void __launch_bounds__(NT) wkv7_step_fused_kernel(
   }
 }
 
-template <typename TA, typename TS>
+template <typename TA, typename TS, bool BF>
 int launch(void* state, const void* r, const void* w, const void* k, const void* a,
            const void* v, const void* k_k, const void* k_a, const void* r_k,
            const void* ln_w, const void* ln_b, const void* elapsed, const void* lengths,
            void* y, int B, int C, int layer, int use_dither, const int* ld,
            cudaStream_t stream) {
-  wkv7_step_fused_kernel<TA, TS><<<dim3((C / N + HB - 1) / HB, B), NT, 0, stream>>>(
+  wkv7_step_fused_kernel<TA, TS, BF><<<dim3((C / N + HB - 1) / HB, B), NT, 0, stream>>>(
       (TS*)state, (const TA*)r, (const TA*)w, (const TA*)k, (const TA*)a, (const TA*)v,
       (const TA*)k_k, (const TA*)k_a, (const TA*)r_k, (const TA*)ln_w, (const TA*)ln_b,
       (const int32_t*)elapsed, (const int32_t*)lengths, (TA*)y, B, C, layer, use_dither, ld[0],
@@ -263,7 +322,9 @@ int launch(void* state, const void* r, const void* w, const void* k, const void*
 
 // dtype codes: 0 = float32, 1 = bfloat16. ld_*: row strides (elements) of the
 // (B, C) inputs r, w, k, a, v, whose columns are contiguous; the state is
-// 16-byte aligned. heads_per_block .. threads: the launch the wrapper's plan
+// 16-byte aligned. bf16_mode: precision="bf16", on a bf16 state only (a
+// float32 state runs the float32 update, as the JAX package does).
+// heads_per_block .. threads: the launch the wrapper's plan
 // (wkv7_cuda.step_plan) describes, refused with ERR_PLAN unless it is this
 // file's. Returns the launch's error code.
 extern "C" int wkv7_step_fused(void* state, const void* r, const void* w, const void* k,
@@ -272,19 +333,24 @@ extern "C" int wkv7_step_fused(void* state, const void* r, const void* w, const 
                                const void* ln_b, const void* elapsed, const void* lengths,
                                void* y, int B, int C, int layer, int use_dither, int ld_r,
                                int ld_w, int ld_k, int ld_a, int ld_v, int act_dtype,
-                               int state_dtype, int heads_per_block, int rows_per_thread,
+                               int state_dtype, int bf16_mode, int heads_per_block,
+                               int rows_per_thread,
                                int threads_per_row, int threads, void* stream) {
   if (heads_per_block != HB || rows_per_thread != RI || threads_per_row != P || threads != NT)
     return hopper::ERR_PLAN;
   cudaStream_t s = (cudaStream_t)stream;
   const int ld[5] = {ld_r, ld_w, ld_k, ld_a, ld_v};
-#define WKV7_STEP_DISPATCH(TA, TS)                                                          \
-  return launch<TA, TS>(state, r, w, k, a, v, k_k, k_a, r_k, ln_w, ln_b, elapsed, lengths, y, \
-                        B, C, layer, use_dither, ld, s)
-  if (act_dtype == 1 && state_dtype == 1) WKV7_STEP_DISPATCH(__nv_bfloat16, __nv_bfloat16);
-  if (act_dtype == 1 && state_dtype == 0) WKV7_STEP_DISPATCH(__nv_bfloat16, float);
-  if (act_dtype == 0 && state_dtype == 1) WKV7_STEP_DISPATCH(float, __nv_bfloat16);
-  WKV7_STEP_DISPATCH(float, float);
+#define WKV7_STEP_DISPATCH(TA, TS, BF)                                                      \
+  return launch<TA, TS, BF>(state, r, w, k, a, v, k_k, k_a, r_k, ln_w, ln_b, elapsed, lengths, \
+                            y, B, C, layer, use_dither, ld, s)
+  if (bf16_mode && state_dtype == 1) {
+    if (act_dtype == 1) WKV7_STEP_DISPATCH(__nv_bfloat16, __nv_bfloat16, true);
+    WKV7_STEP_DISPATCH(float, __nv_bfloat16, true);
+  }
+  if (act_dtype == 1 && state_dtype == 1) WKV7_STEP_DISPATCH(__nv_bfloat16, __nv_bfloat16, false);
+  if (act_dtype == 1 && state_dtype == 0) WKV7_STEP_DISPATCH(__nv_bfloat16, float, false);
+  if (act_dtype == 0 && state_dtype == 1) WKV7_STEP_DISPATCH(float, __nv_bfloat16, false);
+  WKV7_STEP_DISPATCH(float, float, false);
 #undef WKV7_STEP_DISPATCH
 }
 

@@ -239,7 +239,8 @@ class ServingModel:
         logits, _ = model.forward_step(
             self.params, tokens, carry.state, active=active_mask,
             compute_dtype=self.runtime.activation_dtype,
-            use_dither=self.runtime.use_dither, mm8_core=self.mm8_core)
+            use_dither=self.runtime.use_dither, mm8_core=self.mm8_core,
+            wkv_precision=self.runtime.wkv_precision)
         # record the PREVIOUS sample (deferred through last_sampled), decay,
         # penalties, logsumexp and per-chunk candidates in one pass
         no_penalty = (last[:, None] == self._no_penalty_ids[None, :]).any(-1)
@@ -312,7 +313,8 @@ class ServingModel:
         model.forward_chunk(self.params, self._upload(np.asarray(tokens), torch.int32),
                             state, self._upload(np.asarray(lengths), torch.int32),
                             compute_dtype=self.runtime.activation_dtype,
-                            use_dither=self.runtime.use_dither, mm8_core=self.mm8_core)
+                            use_dither=self.runtime.use_dither, mm8_core=self.mm8_core,
+                            wkv_precision=self.runtime.wkv_precision)
 
     def prefill_step(self, carry: BatchCarry, tokens, lengths) -> BatchCarry:
         """One chunk over the whole batch: tokens (B, T) and lengths (B,) host

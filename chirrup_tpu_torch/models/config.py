@@ -8,6 +8,7 @@ from typing import Optional
 import torch
 
 from chirrup_tpu_torch.ops.mm8 import resolve_mm8_core
+from chirrup_tpu_torch.ops.wkv7_cuda import PRECISIONS as WKV_PRECISIONS
 
 HEAD_SIZE = 64
 
@@ -58,6 +59,18 @@ class RuntimeConfig:
     # candidates the sampler draws from before its exact fallback (top-p
     # coverage is checked either way; greedy rows are always exact)
     sampler_k_max: int = 128
+    # the fused WKV kernels' arithmetic, the JAX package's three values:
+    # "highest" and "default" carry the state in float32 within a step or
+    # chunk; "bf16" on a bf16 state keeps it in bf16 through every
+    # elementwise operation and applies the delta form S += S*d + v k^T +
+    # sa b^T (d = decay, the reference fp16 kernel's scheme, which keeps slow
+    # decays that S * (1 + d) would round away), rounding the state every
+    # token; on a float32 state "bf16" is "default"
+    # (ops/wkv7_cuda.bf16_mode)
+    wkv_precision: str = "default"
 
     def __post_init__(self):
         resolve_mm8_core(self.mm8_core)
+        if self.wkv_precision not in WKV_PRECISIONS:
+            raise ValueError(f"wkv_precision must be one of {WKV_PRECISIONS}, "
+                             f"got {self.wkv_precision!r}")

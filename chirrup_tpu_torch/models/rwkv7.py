@@ -15,15 +15,18 @@ Mm8MultiWeight) and are handed to the kernels as LayerIndexed views.
 
 Every forward takes `mm8_core`, the int8 GEMM of the INT8 linears ("auto" or
 "pallas_a8" w8a8, or "pallas" w8a16; ops/mm8.resolve_mm8_core; merged R/K/V
-weights run under w8a8 only), and `wkv_fn`: None runs the fused
-WKV kernels (the kk/k~ prologue, GroupNorm and the bonus inside the kernel);
-a callable runs the unfused TMix tail around it. The callable has the
-signature of ops/wkv7_cuda.wkv7_batch,
+weights run under w8a8 only), `wkv_fn` and `wkv_precision`. wkv_fn None runs
+the fused WKV kernels (the kk/k~ prologue, GroupNorm and the bonus inside the
+kernel) in the arithmetic `wkv_precision` names ("highest", "default" or
+"bf16"; ops/wkv7_cuda.bf16_mode); a callable runs the unfused TMix tail around
+it. The callable has the signature of ops/wkv7_cuda.wkv7_batch,
 
     wkv_fn(state, r, w_raw, k, v, a, b, elapsed, lengths, layer, *, use_dither)
 
 and advances layer `layer` of the stacked state IN PLACE, returning y (B, T,
-C); the JAX package's wkv_fn returns (y, new_state) instead.
+C); the JAX package's wkv_fn returns (y, new_state) instead. It carries its
+own precision, as the JAX package's raw_wkv closes over the runtime's:
+functools.partial(wkv7_batch, precision="bf16").
 """
 
 from __future__ import annotations
@@ -34,6 +37,7 @@ from typing import Callable, Optional
 import torch
 import torch.nn.functional as F
 
+from chirrup_tpu_torch import resolve_device
 from chirrup_tpu_torch.models.config import HEAD_SIZE, RWKV7Config
 from chirrup_tpu_torch.ops import mm8
 from chirrup_tpu_torch.ops.linear import matmul
@@ -53,7 +57,10 @@ class RWKVState:
 
 def init_state(config: RWKV7Config, batch_size: int, *, shift_dtype=torch.float32,
                wkv_dtype=torch.float32, device=None) -> RWKVState:
+    """A zero state of `batch_size` requests on `device` (resolve_device: the
+    CUDA device unless one is given)."""
     L, C, N = config.n_layer, config.n_embd, config.head_size
+    device = resolve_device(device)
     return RWKVState(
         shift=torch.zeros((L, 2, batch_size, C), dtype=shift_dtype, device=device),
         wkv=torch.zeros((L, batch_size, N, C), dtype=wkv_dtype, device=device),
@@ -121,7 +128,7 @@ def layer_params(blocks, li: int):
 # -------------------------------------------------------------------- blocks
 
 def _tmix(att, li, layer_is_first, x, shift_prev, v_first, wkv_full, elapsed, lengths,
-          use_dither, mm8_core, wkv_fn):
+          use_dither, mm8_core, wkv_fn, wkv_precision):
     """Time-mix. Advances layer li of the stacked wkv state in place and returns
     (out, new_shift, v_first)."""
     B, T, C = x.shape
@@ -189,10 +196,11 @@ def _tmix(att, li, layer_is_first, x, shift_prev, v_first, wkv_full, elapsed, le
                 att["ln_x_b"], elapsed, ln)
     if T == 1:
         y = wkv7_step_fused(wkv_full, li, r[:, 0], w_raw[:, 0], k[:, 0], a[:, 0], v[:, 0],
-                            *wkv_args, use_dither=use_dither).reshape(B, 1, C)
+                            *wkv_args, use_dither=use_dither,
+                            precision=wkv_precision).reshape(B, 1, C)
     else:
         y = wkv7_chunk_fused(wkv_full, li, r, w_raw, k, a, v, *wkv_args,
-                             use_dither=use_dither)
+                             use_dither=use_dither, precision=wkv_precision)
     out = mm(y.to(x.dtype), att["Wo"], mul_in=g)
     return out, _masked_last(x, lengths, shift_prev), v_first
 
@@ -209,7 +217,8 @@ def _cmix(ffn, x, shift_prev, lengths, mm8_core):
     return out, _masked_last(x, lengths, shift_prev)
 
 
-def _backbone(params, x, state: RWKVState, lengths, use_dither, mm8_core, wkv_fn):
+def _backbone(params, x, state: RWKVState, lengths, use_dither, mm8_core, wkv_fn,
+              wkv_precision):
     """All layers; the state's shift and wkv are written in place per layer."""
     blocks = params["blocks"]
     L = state.wkv.shape[0]
@@ -220,7 +229,7 @@ def _backbone(params, x, state: RWKVState, lengths, use_dither, mm8_core, wkv_fn
         xn = layer_norm(x, blk["ln1_w"], blk["ln1_b"])
         att_out, att_shift, v_first = _tmix(
             blk["att"], li, li == 0, xn, shift_l[0], v_first, state.wkv,
-            state.elapsed, lengths, use_dither, mm8_core, wkv_fn)
+            state.elapsed, lengths, use_dither, mm8_core, wkv_fn, wkv_precision)
         x = x + att_out
         xn = layer_norm(x, blk["ln2_w"], blk["ln2_b"])
         ffn_out, ffn_shift = _cmix(blk["ffn"], xn, shift_l[1], lengths, mm8_core)
@@ -237,14 +246,14 @@ def _embed(params, tokens, dtype):
 
 def forward_step(params, tokens, state: RWKVState, active=None, *,
                  compute_dtype=torch.float32, use_dither=True, mm8_core="auto",
-                 wkv_fn: Optional[Callable] = None):
+                 wkv_fn: Optional[Callable] = None, wkv_precision="default"):
     """One-token step for the whole batch: tokens (B,) -> logits (B, V) in the
     head's output dtype; the state advances in place. active: optional (B,)
-    bool — inactive rows keep their state and yield unused logits. mm8_core
-    and wkv_fn: see the module docstring."""
+    bool — inactive rows keep their state and yield unused logits. mm8_core,
+    wkv_fn and wkv_precision: see the module docstring."""
     lengths = None if active is None else active.to(torch.int32)
     x = _embed(params, tokens[:, None], compute_dtype)
-    x = _backbone(params, x, state, lengths, use_dither, mm8_core, wkv_fn)
+    x = _backbone(params, x, state, lengths, use_dither, mm8_core, wkv_fn, wkv_precision)
     xh = layer_norm(x[:, 0], params["ln_out_w"], params["ln_out_b"])
     logits = matmul(xh, params["head"], mm8_core=mm8_core)
     state.elapsed += (torch.ones_like(state.elapsed) if lengths is None else lengths)
@@ -253,26 +262,27 @@ def forward_step(params, tokens, state: RWKVState, active=None, *,
 
 def forward_chunk(params, tokens, state: RWKVState, lengths=None, *,
                   compute_dtype=torch.float32, use_dither=True, mm8_core="auto",
-                  wkv_fn: Optional[Callable] = None) -> RWKVState:
+                  wkv_fn: Optional[Callable] = None, wkv_precision="default") -> RWKVState:
     """Prefill a chunk: advance the state in place over tokens (B, T); no head
     (the last prompt token always goes through forward_step). lengths: optional
     (B,) int32 valid tokens per row; rows may be ragged or empty (length 0
     keeps the row's state), and each row's shift comes from its last valid
-    token. mm8_core and wkv_fn: see the module docstring."""
+    token. mm8_core, wkv_fn and wkv_precision: see the module docstring."""
     x = _embed(params, tokens, compute_dtype)
-    _backbone(params, x, state, lengths, use_dither, mm8_core, wkv_fn)
+    _backbone(params, x, state, lengths, use_dither, mm8_core, wkv_fn, wkv_precision)
     state.elapsed += tokens.shape[1] if lengths is None else lengths
     return state
 
 
 def forward_seq(params, tokens, state: RWKVState, *, full_output=False,
                 compute_dtype=torch.float32, use_dither=True, mm8_core="auto",
-                wkv_fn: Optional[Callable] = None):
+                wkv_fn: Optional[Callable] = None, wkv_precision="default"):
     """Whole-sequence forward with logits: tokens (B, T). Returns float32 logits
     (B, V), or (B, T, V) with full_output; the state advances in place. The
-    eval / oracle entry. mm8_core and wkv_fn: see the module docstring."""
+    eval / oracle entry. mm8_core, wkv_fn and wkv_precision: see the module
+    docstring."""
     x = _embed(params, tokens, compute_dtype)
-    x = _backbone(params, x, state, None, use_dither, mm8_core, wkv_fn)
+    x = _backbone(params, x, state, None, use_dither, mm8_core, wkv_fn, wkv_precision)
     if not full_output:
         x = x[:, -1:, :]
     logits = matmul(layer_norm(x, params["ln_out_w"], params["ln_out_b"]),

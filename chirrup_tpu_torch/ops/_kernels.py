@@ -14,7 +14,8 @@ with ctypes; every entry returns ``cudaGetLastError()`` and the wrappers raise
 on anything but 0.
 
 Each wrapper adds one to its entry in ``LAUNCHES`` exactly where it launches
-its kernel, so a run can show which kernels its main path went through.
+its kernel, so a run can show which kernels its main path went through (the
+WKV kernels' precision="bf16" instances count under ``<name>_bf16``).
 """
 
 from __future__ import annotations
@@ -38,8 +39,9 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 # launch counts by kernel name; plain integers, reset with reset_launches()
 LAUNCHES: Dict[str, int] = {"wkv7_step_fused": 0, "wkv7_chunk_fused": 0, "wkv7_batch": 0,
-                            "mm8_a8_quant_rows": 0, "mm8_a8_gemm": 0, "mm8_w16_gemm": 0,
-                            "penalty_tail": 0}
+                            "wkv7_step_fused_bf16": 0, "wkv7_chunk_fused_bf16": 0,
+                            "wkv7_batch_bf16": 0, "mm8_a8_quant_rows": 0, "mm8_a8_gemm": 0,
+                            "mm8_w16_gemm": 0, "penalty_tail": 0}
 
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}

@@ -10,6 +10,11 @@ precomputed and returns raw y. Positions at or past a row's length output
 zeros and leave its state alone; a row with length 0 keeps its state bit for
 bit.
 
+Each takes the JAX package's WKV `precision` (bf16_mode): "highest" and
+"default" run the float32 state math; "bf16" on a bf16 state runs the delta
+form in bf16 (_bf16_token), in instances of each kernel of their own,
+counted apart in _kernels.LAUNCHES ("<kernel>_bf16").
+
 The step kernel's launch (state rows a thread, threads a row) is fixed in
 csrc/wkv7_step.cu and described by ``step_plan``. The chunk kernel's launch
 (state rows a thread, threads a row, tokens a tile) is fixed in
@@ -29,17 +34,44 @@ from chirrup_tpu_torch.ops.wkv7 import HEAD_SIZE, decay_from_raw, wkv7_reference
 
 _P, _I = _kernels.P, _kernels.I
 _SIGNATURES = {
-    "wkv7_step": {"wkv7_step_fused": [_P] * 14 + [_I] * 15 + [_P]},
-    "wkv7_chunk": {"wkv7_chunk_fused": [_P] * 14 + [_I] * 17 + [_P]},
-    "wkv7_batch": {"wkv7_batch": [_P] * 10 + [_I] * 19 + [_P]},
+    "wkv7_step": {"wkv7_step_fused": [_P] * 14 + [_I] * 16 + [_P]},
+    "wkv7_chunk": {"wkv7_chunk_fused": [_P] * 14 + [_I] * 18 + [_P]},
+    "wkv7_batch": {"wkv7_batch": [_P] * 10 + [_I] * 20 + [_P]},
 }
+
+
+def _bf16_token(S, d1, r, k, a, b, v):
+    """One token of the precision="bf16" arithmetic on a bf16 state S (B, H,
+    i, j): d1 = 1 + decay, r, k, a, b (B, H, j) and v (B, H, i) float32
+    rows, folded for activity by the caller. Every elementwise operation is
+    a bf16 operation rounded to nearest (CPU and CUDA torch round each one);
+    the two sums over j are float32, over bf16 products:
+
+        sa_i = sum_j S_ij * bf16(a_j)
+        S'   = S + ((S * bf16(d1 - 1) + bf16(v) bf16(k)^T) + bf16(sa) bf16(b)^T)
+        y_i  = sum_j S_ij * bf16(d1_j r_j) + v_i <r, k> + sa_i <r, b>
+
+    the delta form, whose rounding is relative to the step's change (S *
+    bf16(d1) would freeze slow decays at bf16's step below 1, 2^-8), and y
+    from the old S in the 2-dot form. Returns y (B, H, i) float32 and S'."""
+    bf, f32 = torch.bfloat16, torch.float32
+    a_, b_, k_, v_ = (x.to(bf) for x in (a, b, k, v))
+    sa = (S * a_[..., None, :]).to(f32).sum(-1)
+    y1 = (S * (d1 * r).to(bf)[..., None, :]).to(f32).sum(-1)
+    d_ = (d1 - 1.0).to(bf)
+    delta = ((S * d_[..., None, :] + v_[..., :, None] * k_[..., None, :])
+             + sa.to(bf)[..., None] * b_[..., None, :])
+    y = y1 + v * (r * k).sum(-1, keepdim=True) + sa * (r * b).sum(-1, keepdim=True)
+    return y, S + delta
 
 
 def _fused_token(S, r, w_raw, k_raw, a_iclr, v, k_k, k_a, r_k, ln_w, ln_b, step,
                  active, use_dither):
-    """One token on a float32 state S (B, H, i, j): r..v (B, C) rows, k_k..ln_b
-    (C,), step (B,) int64 dither counters, active (B,) bool. Returns y (B, C)
-    float32, zero where inactive, and the new S (inactive rows exactly S)."""
+    """One token on the state S (B, H, i, j): r..v (B, C) rows, k_k..ln_b (C,),
+    step (B,) int64 dither counters, active (B,) bool. A float32 S takes the
+    float32 update; a bf16 S the precision="bf16" arithmetic (_bf16_token).
+    Returns y (B, C) float32, zero where inactive, and the new S in S's dtype
+    (inactive rows exactly S)."""
     B, C = r.shape
     N = HEAD_SIZE
     H = C // N
@@ -53,7 +85,8 @@ def _fused_token(S, r, w_raw, k_raw, a_iclr, v, k_k, k_a, r_k, ln_w, ln_b, step,
 
     kr, ai, rr, vv = heads(k_raw), heads(a_iclr), heads(r), heads(v)
     kk_pre = kr * param(k_k)
-    kk = kk_pre / torch.sqrt((kk_pre * kk_pre).sum(-1, keepdim=True)).clamp_min(1e-12)
+    inv = 1.0 / torch.sqrt((kk_pre * kk_pre).sum(-1, keepdim=True)).clamp_min(1e-12)
+    kk = kk_pre * inv  # a multiply by the reciprocal, as the kernels and the JAX package
     kt = kr * (1.0 + (ai - 1.0) * param(k_a))
     d1 = 1.0 + decay_from_raw(heads(w_raw), step.reshape(B, 1, 1), use_dither=use_dither)
     act = active.reshape(B, 1, 1)
@@ -61,10 +94,14 @@ def _fused_token(S, r, w_raw, k_raw, a_iclr, v, k_k, k_a, r_k, ln_w, ln_b, step,
     k_row = torch.where(act, kt, 0.0)
     b_row = torch.where(act, kk * ai, 0.0)
 
-    sa = torch.einsum("bhij,bhj->bhi", S, -kk)
-    S_new = (S * d1[:, :, None, :] + vv[..., :, None] * k_row[..., None, :]
-             + sa[..., None] * b_row[..., None, :])
-    y = torch.einsum("bhij,bhj->bhi", S_new, rr)
+    if S.dtype == torch.bfloat16:
+        y, S_new = _bf16_token(S, d1, rr, k_row, -kk, b_row, vv)
+        S_new = torch.where(act[..., None], S_new, S)
+    else:
+        sa = torch.einsum("bhij,bhj->bhi", S, -kk)
+        S_new = (S * d1[:, :, None, :] + vv[..., :, None] * k_row[..., None, :]
+                 + sa[..., None] * b_row[..., None, :])
+        y = torch.einsum("bhij,bhj->bhi", S_new, rr)
     mu = y.mean(-1, keepdim=True)
     var = ((y - mu) ** 2).mean(-1, keepdim=True)
     y = (y - mu) * torch.rsqrt(var + 64e-5) * param(ln_w) + param(ln_b)
@@ -72,45 +109,67 @@ def _fused_token(S, r, w_raw, k_raw, a_iclr, v, k_k, k_a, r_k, ln_w, ln_b, step,
     return torch.where(act, y, 0.0).reshape(B, C), S_new
 
 
-def _heads_of(state_l):
-    """(B, N, H*N) slab -> float32 (B, H, i, j)."""
+def _heads_of(state_l, bf16=False):
+    """(B, N, H*N) slab -> (B, H, i, j): the slab's bf16 as it is where
+    `bf16` (the precision="bf16" arithmetic), else float32."""
     B, N, C = state_l.shape
-    return state_l.to(torch.float32).reshape(B, N, C // N, N).permute(0, 2, 1, 3)
+    dtype = torch.bfloat16 if bf16 else torch.float32
+    return state_l.to(dtype).reshape(B, N, C // N, N).permute(0, 2, 1, 3)
 
 
 def _slab_of(S, like):
-    """float32 (B, H, i, j) -> a (B, N, H*N) slab in like's dtype."""
+    """(B, H, i, j) -> a (B, N, H*N) slab in like's dtype."""
     B, H, N, _ = S.shape
     return S.permute(0, 2, 1, 3).reshape(B, N, H * N).to(like.dtype)
 
 
+PRECISIONS = ("highest", "default", "bf16")
+
+
+def bf16_mode(fn, precision, state_dtype) -> bool:
+    """The JAX package's WKV precisions (wkv7_pallas._parse_precision):
+    "highest" and "default" keep the state math in float32 (the port runs
+    both alike); "bf16" runs the delta form in bf16 (_bf16_token) when the
+    state is bf16, and the float32 math on a float32 state. True where the
+    bf16 arithmetic applies; raises ValueError for any other precision."""
+    if precision not in PRECISIONS:
+        raise ValueError(f"{fn}: unknown precision {precision!r}")
+    return precision == "bf16" and state_dtype == torch.bfloat16
+
+
 def wkv7_step_fused_reference(state_l, r, w_raw, k_raw, a_iclr, v, k_k, k_a, r_k,
-                              ln_w, ln_b, elapsed, lengths, *, use_dither=True):
+                              ln_w, ln_b, elapsed, lengths, *, use_dither=True,
+                              precision="default"):
     """Plain version of the decode kernel on one layer's slab, without side
     effects.
 
     state_l: (B, N, C) layer slab; r, w_raw, k_raw, a_iclr, v: (B, C); k_k, k_a,
-    r_k, ln_w, ln_b: (C,); elapsed, lengths: (B,) int32. Returns y (B, C) in
-    r.dtype and the new slab in state_l.dtype (inactive rows bit-unchanged)."""
+    r_k, ln_w, ln_b: (C,); elapsed, lengths: (B,) int32; precision: see
+    bf16_mode. Returns y (B, C) in r.dtype and the new slab in state_l.dtype
+    (inactive rows bit-unchanged)."""
+    bf16 = bf16_mode("wkv7_step_fused_reference", precision, state_l.dtype)
     active = lengths > 0
-    y, S = _fused_token(_heads_of(state_l), r, w_raw, k_raw, a_iclr, v, k_k, k_a, r_k,
-                        ln_w, ln_b, elapsed.to(torch.int64), active, use_dither)
+    y, S = _fused_token(_heads_of(state_l, bf16), r, w_raw, k_raw, a_iclr, v, k_k, k_a,
+                        r_k, ln_w, ln_b, elapsed.to(torch.int64), active, use_dither)
     new = torch.where(active[:, None, None], _slab_of(S, state_l), state_l)
     return y.to(r.dtype), new
 
 
 def wkv7_chunk_fused_reference(state_l, r, w_raw, k_raw, a_iclr, v, k_k, k_a, r_k,
-                               ln_w, ln_b, elapsed, lengths, *, use_dither=True):
+                               ln_w, ln_b, elapsed, lengths, *, use_dither=True,
+                               precision="default"):
     """Plain version of the chunk kernel on one layer's slab, without side
-    effects: tokens t < lengths[b] of each row in order, the state carried in
-    float32 across the chunk and rounded to its dtype once at the end.
+    effects: tokens t < lengths[b] of each row in order. The state is carried
+    in float32 across the chunk and rounded to its dtype once at the end;
+    under the bf16 arithmetic (bf16_mode) it stays bf16, rounded every token.
 
     state_l: (B, N, C); r, w_raw, k_raw, a_iclr, v: (B, T, C); k_k, k_a, r_k,
     ln_w, ln_b: (C,); elapsed, lengths: (B,) int32 (token t's dither counter is
     elapsed + t). Returns y (B, T, C) in r.dtype, zero at t >= lengths, and the
     new slab in state_l.dtype (rows of length 0 bit-unchanged)."""
+    bf16 = bf16_mode("wkv7_chunk_fused_reference", precision, state_l.dtype)
     T = r.shape[1]
-    S = _heads_of(state_l)
+    S = _heads_of(state_l, bf16)
     ys = []
     for t in range(T):
         y, S = _fused_token(S, r[:, t], w_raw[:, t], k_raw[:, t], a_iclr[:, t], v[:, t],
@@ -170,16 +229,19 @@ def step_plan(B: int, C: int) -> StepPlan:
 
 
 def wkv7_step_fused(state, layer: int, r, w_raw, k_raw, a_iclr, v, k_k, k_a, r_k,
-                    ln_w, ln_b, elapsed, lengths, *, use_dither: bool = True):
+                    ln_w, ln_b, elapsed, lengths, *, use_dither: bool = True,
+                    precision: str = "default"):
     """Advance layer `layer` of the stacked state (L, B, N, C) by one token, in
     place; returns y (B, C) in r.dtype. r/w_raw/k_raw/a_iclr/v: (B, C) rows with
     unit column stride (row strides may differ); k_k, k_a, r_k, ln_w, ln_b: (C,)
-    in r.dtype; elapsed, lengths: (B,) int32. The kernel (launched as
-    step_plan says) on CUDA tensors, the plain version on CPU tensors."""
+    in r.dtype; elapsed, lengths: (B,) int32; precision: see bf16_mode. The
+    kernel (launched as step_plan says) on CUDA tensors, the plain version on
+    CPU tensors."""
+    bf16 = bf16_mode("wkv7_step_fused", precision, state.dtype)
     if state.device.type == "cpu":
         y, new = wkv7_step_fused_reference(
             state[layer], r, w_raw, k_raw, a_iclr, v, k_k, k_a, r_k, ln_w, ln_b,
-            elapsed, lengths, use_dither=use_dither)
+            elapsed, lengths, use_dither=use_dither, precision=precision)
         state[layer].copy_(new)
         return y
     if not state.is_cuda:
@@ -203,9 +265,9 @@ def wkv7_step_fused(state, layer: int, r, w_raw, k_raw, a_iclr, v, k_k, k_a, r_k
         k_a.data_ptr(), r_k.data_ptr(), ln_w.data_ptr(), ln_b.data_ptr(),
         elapsed.data_ptr(), lengths.data_ptr(), y.data_ptr(), B, C, layer,
         int(use_dither), *(t.stride(0) for t in rows), _kernels.dtype_code(r, "r"),
-        _kernels.dtype_code(state, "state"), plan.heads_per_block, plan.rows_per_thread,
-        plan.threads_per_row, plan.threads, _kernels.stream_of(state))
-    _kernels.LAUNCHES["wkv7_step_fused"] += 1
+        _kernels.dtype_code(state, "state"), int(bf16), plan.heads_per_block,
+        plan.rows_per_thread, plan.threads_per_row, plan.threads, _kernels.stream_of(state))
+    _kernels.LAUNCHES["wkv7_step_fused_bf16" if bf16 else "wkv7_step_fused"] += 1
     _kernels.check(lib, "wkv7_step", "wkv7_step_fused", code)
     return y
 
@@ -271,18 +333,20 @@ def check_chunk_operands(state, layer, r, w_raw, k_raw, a_iclr, v, k_k, k_a, r_k
 
 
 def wkv7_chunk_fused(state, layer: int, r, w_raw, k_raw, a_iclr, v, k_k, k_a, r_k,
-                     ln_w, ln_b, elapsed, lengths, *, use_dither: bool = True):
+                     ln_w, ln_b, elapsed, lengths, *, use_dither: bool = True,
+                     precision: str = "default"):
     """Advance layer `layer` of the stacked state (L, B, N, C) by up to T tokens
     per row, in place; returns y (B, T, C) in r.dtype, zero at t >= lengths.
     r/w_raw/k_raw/a_iclr/v: (B, T, C) with unit column stride (request and token
     strides may differ: r, k, v are views of the merged R/K/V output); k_k, k_a,
-    r_k, ln_w, ln_b: (C,) in r.dtype; elapsed, lengths: (B,) int32. The kernel
-    (launched as chunk_plan says) on CUDA tensors, the plain version on CPU
-    tensors."""
+    r_k, ln_w, ln_b: (C,) in r.dtype; elapsed, lengths: (B,) int32; precision:
+    see bf16_mode. The kernel (launched as chunk_plan says) on CUDA tensors,
+    the plain version on CPU tensors."""
+    bf16 = bf16_mode("wkv7_chunk_fused", precision, state.dtype)
     if state.device.type == "cpu":
         y, new = wkv7_chunk_fused_reference(
             state[layer], r, w_raw, k_raw, a_iclr, v, k_k, k_a, r_k, ln_w, ln_b,
-            elapsed, lengths, use_dither=use_dither)
+            elapsed, lengths, use_dither=use_dither, precision=precision)
         state[layer].copy_(new)
         return y
     if not state.is_cuda:
@@ -298,31 +362,48 @@ def wkv7_chunk_fused(state, layer: int, r, w_raw, k_raw, a_iclr, v, k_k, k_a, r_
         k_k.data_ptr(), k_a.data_ptr(), r_k.data_ptr(), ln_w.data_ptr(), ln_b.data_ptr(),
         elapsed.data_ptr(), lengths.data_ptr(), y.data_ptr(), B, T, C, layer,
         int(use_dither), *strides, _kernels.dtype_code(r, "r"),
-        _kernels.dtype_code(state, "state"), _kernels.stream_of(state))
-    _kernels.LAUNCHES["wkv7_chunk_fused"] += 1
+        _kernels.dtype_code(state, "state"), int(bf16), _kernels.stream_of(state))
+    _kernels.LAUNCHES["wkv7_chunk_fused_bf16" if bf16 else "wkv7_chunk_fused"] += 1
     _kernels.check(lib, "wkv7_chunk", "wkv7_chunk_fused", code)
     return y
 
 
-def _check_precision(fn, precision):
-    """The JAX package's WKV precisions: "highest" and "default" both keep the
-    state math in float32, the only form the port runs; "bf16", the delta form
-    in the bf16 state dtype, is not ported."""
-    if precision == "bf16":
-        raise NotImplementedError(f"{fn}: precision 'bf16' (the delta-form update in the "
-                                  f"bf16 state dtype) is not ported")
-    if precision not in ("highest", "default"):
-        raise ValueError(f"{fn}: unknown precision {precision!r}")
+def _batch_bf16(state_l, r, w_raw, k, v, a, b, elapsed, lengths, use_dither):
+    """wkv7_reference_batch in the precision="bf16" arithmetic (_bf16_token)
+    on a bf16 slab: the state stays bf16, rounded every token. Returns raw y
+    (B, T, C) float32, zero at t >= lengths, and the new slab."""
+    B, T, C = r.shape
+    H = C // HEAD_SIZE
+    heads = lambda x: x.to(torch.float32).reshape(B, T, H, HEAD_SIZE)
+    rs, ws, ks, vs, as_, bs = (heads(x) for x in (r, w_raw, k, v, a, b))
+    S = _heads_of(state_l, bf16=True)
+    ys = []
+    for t in range(T):
+        act = (t < lengths).reshape(B, 1, 1)
+        d1 = 1.0 + decay_from_raw(ws[:, t], (elapsed.to(torch.int64) + t).reshape(B, 1, 1),
+                                  use_dither=use_dither)
+        y, S_new = _bf16_token(S, torch.where(act, d1, 1.0), rs[:, t],
+                               torch.where(act, ks[:, t], 0.0), as_[:, t],
+                               torch.where(act, bs[:, t], 0.0), vs[:, t])
+        S = torch.where(act[..., None], S_new, S)
+        ys.append(torch.where(act, y, 0.0).reshape(B, C))
+    return torch.stack(ys, dim=1), _slab_of(S, state_l)
 
 
 def wkv7_batch_reference(state_l, r, w_raw, k, v, a, b, elapsed, lengths=None, *,
                          use_dither=True, precision="highest"):
     """Plain version of the bare kernel on one layer's slab, without side
-    effects: ops/wkv7.wkv7_reference_batch. Returns y (B, T, C) in r.dtype,
-    zero at t >= lengths, and the new slab in state_l.dtype."""
-    _check_precision("wkv7_batch_reference", precision)
-    y, new = wkv7_reference_batch(state_l, r, w_raw, k, v, a, b, elapsed,
-                                  use_dither=use_dither, lengths=lengths)
+    effects: ops/wkv7.wkv7_reference_batch, or _batch_bf16 under the bf16
+    arithmetic (bf16_mode). Returns y (B, T, C) in r.dtype, zero at t >=
+    lengths, and the new slab in state_l.dtype."""
+    if bf16_mode("wkv7_batch_reference", precision, state_l.dtype):
+        if lengths is None:
+            lengths = torch.full((r.shape[0],), r.shape[1], dtype=torch.int32,
+                                 device=r.device)
+        y, new = _batch_bf16(state_l, r, w_raw, k, v, a, b, elapsed, lengths, use_dither)
+    else:
+        y, new = wkv7_reference_batch(state_l, r, w_raw, k, v, a, b, elapsed,
+                                      use_dither=use_dither, lengths=lengths)
     return y.to(r.dtype), new
 
 
@@ -334,15 +415,14 @@ def wkv7_batch(state, r, w_raw, k, v, a, b, elapsed, lengths=None, layer: int = 
     r, w_raw, k (k~), v, a (-kk), b (kk*a_iclr): (B, T, C) in one dtype with
     unit column stride (request and token strides may differ); elapsed: (B,)
     int32 (token t's dither counter is elapsed + t); lengths: (B,) int32, or
-    None for T everywhere. precision "highest" and "default" both run the
-    state in float32."""
-    _check_precision("wkv7_batch", precision)
+    None for T everywhere; precision: see bf16_mode."""
+    bf16 = bf16_mode("wkv7_batch", precision, state.dtype)
     B, T, C = r.shape
     if lengths is None:
         lengths = torch.full((B,), T, dtype=torch.int32, device=r.device)
     if state.device.type == "cpu":
         y, new = wkv7_batch_reference(state[layer], r, w_raw, k, v, a, b, elapsed, lengths,
-                                      use_dither=use_dither)
+                                      use_dither=use_dither, precision=precision)
         state[layer].copy_(new)
         return y
     if not state.is_cuda:
@@ -371,8 +451,8 @@ def wkv7_batch(state, r, w_raw, k, v, a, b, elapsed, lengths=None, layer: int = 
     code = lib.wkv7_batch(
         state.data_ptr(), *(t.data_ptr() for t in rows), elapsed.data_ptr(),
         lengths.data_ptr(), y.data_ptr(), B, T, C, layer, int(use_dither), *strides,
-        _kernels.dtype_code(r, "r"), _kernels.dtype_code(state, "state"),
+        _kernels.dtype_code(r, "r"), _kernels.dtype_code(state, "state"), int(bf16),
         _kernels.stream_of(state))
-    _kernels.LAUNCHES["wkv7_batch"] += 1
+    _kernels.LAUNCHES["wkv7_batch_bf16" if bf16 else "wkv7_batch"] += 1
     _kernels.check(lib, "wkv7_batch", "wkv7_batch", code)
     return y

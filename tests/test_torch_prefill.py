@@ -152,9 +152,9 @@ def test_forward_chunk_step_equals_seq_and_token_feed():
     tokens = np.random.default_rng(4).integers(1, 300, (B, T)).astype(np.int32)
     tt = torch.from_numpy(tokens)
 
-    seq_state = tmodel.init_state(cfg, B)
+    seq_state = tmodel.init_state(cfg, B, device="cpu")
     seq_logits, _ = tmodel.forward_seq(params, tt, seq_state)
-    chunk_state = tmodel.init_state(cfg, B)
+    chunk_state = tmodel.init_state(cfg, B, device="cpu")
     tmodel.forward_chunk(params, tt[:, :-1], chunk_state)
     j_state = jmodel.forward_chunk(jax.tree_util.tree_map(jnp.asarray, dense),
                                    jnp.asarray(tokens[:, :-1]), jmodel.init_state(
@@ -163,7 +163,7 @@ def test_forward_chunk_step_equals_seq_and_token_feed():
         np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=0, atol=1e-4)
     np.testing.assert_array_equal(chunk_state.elapsed.numpy(), np.asarray(j_state.elapsed))
     step_logits, _ = tmodel.forward_step(params, tt[:, -1], chunk_state)
-    feed_state = tmodel.init_state(cfg, B)
+    feed_state = tmodel.init_state(cfg, B, device="cpu")
     for i in range(T):
         feed_logits, _ = tmodel.forward_step(params, tt[:, i], feed_state)
     for logits, st in ((step_logits, chunk_state), (feed_logits, feed_state)):
@@ -173,7 +173,7 @@ def test_forward_chunk_step_equals_seq_and_token_feed():
         np.testing.assert_array_equal(st.elapsed.numpy(), seq_state.elapsed.numpy())
 
     # ragged: row 0 takes 3 tokens, row 1 none, row 2 all 8
-    ragged = tmodel.init_state(cfg, B)
+    ragged = tmodel.init_state(cfg, B, device="cpu")
     tmodel.forward_step(params, tt[:, 0], ragged)   # a non-zero state to keep
     before = [x.clone() for x in (ragged.shift, ragged.wkv, ragged.elapsed)]
     lengths = torch.tensor([3, 0, 8], dtype=torch.int32)
@@ -182,7 +182,7 @@ def test_forward_chunk_step_equals_seq_and_token_feed():
     np.testing.assert_array_equal(ragged.wkv[:, 1].numpy(), before[1][:, 1].numpy())
     np.testing.assert_array_equal(ragged.shift[:, :, 1].numpy(), before[0][:, :, 1].numpy())
     for row, n in ((0, 3), (2, 8)):
-        alone = tmodel.init_state(cfg, 1)
+        alone = tmodel.init_state(cfg, 1, device="cpu")
         tmodel.forward_step(params, tt[row:row + 1, 0], alone)
         tmodel.forward_chunk(params, tt[row:row + 1, 1:1 + n], alone)
         np.testing.assert_allclose(ragged.wkv[:, row].numpy(), alone.wkv[:, 0].numpy(),

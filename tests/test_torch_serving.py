@@ -58,6 +58,23 @@ def test_fp32_serving_matches_golden():
     np.testing.assert_allclose(np.stack(outs), expected, rtol=0, atol=2e-4)
 
 
+def test_init_state_resolves_device():
+    """init_state without a device builds on the CUDA device, and raises where
+    there is none (as every entry point of the port does); device="cpu"
+    builds on the CPU."""
+    from chirrup_tpu_torch.models import rwkv7 as tm
+
+    cfg = RWKV7Config(n_layer=2, n_embd=128, vocab_size=512, **LORA)
+    st = tm.init_state(cfg, 2, device="cpu")
+    assert {t.device.type for t in (st.shift, st.wkv, st.elapsed)} == {"cpu"}
+    assert tuple(st.wkv.shape) == (2, 2, 64, 128)
+    if torch.cuda.is_available():
+        assert tm.init_state(cfg, 2).wkv.is_cuda
+    else:
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            tm.init_state(cfg, 2)
+
+
 # ------------------------------------------------------------ int8 w8a8 parity
 
 INT8_CFG = dict(n_layer=2, n_embd=128, vocab_size=16384, **LORA)
@@ -179,7 +196,7 @@ def test_forward_seq_matches_jax():
     j_logits, j_state = jm.forward_seq(jax.tree_util.tree_map(jnp.asarray, dense),
                                        jnp.asarray(tokens), jm.init_state(JConfig(**cfg), 2),
                                        full_output=True)
-    state = tm.init_state(RWKV7Config(**cfg), 2)
+    state = tm.init_state(RWKV7Config(**cfg), 2, device="cpu")
     t_logits, _ = tm.forward_seq(params_from_numpy(dense, device="cpu"),
                                  torch.from_numpy(tokens), state, full_output=True)
     np.testing.assert_allclose(t_logits.numpy(), np.asarray(j_logits), rtol=0, atol=1e-4)

@@ -81,12 +81,11 @@ def test_wkv7_batch_matches_pallas(T, state_dtype):
             np.testing.assert_array_equal(s_t[other], state0[other])
 
 
-@pytest.mark.parametrize("precision,error", [("bf16", NotImplementedError),
-                                             ("fast", ValueError)])
+@pytest.mark.parametrize("precision,error", [("fast", ValueError)])
 def test_wkv7_batch_precision(precision, error):
-    """"highest" and "default" both run the float32 state; the JAX package's
-    "bf16" delta form in the state dtype is not ported, and the kernel wrapper
-    and its plain version both say so."""
+    """"highest" and "default" both run the float32 state; a precision the JAX
+    package does not have is refused by the kernel wrapper and its plain
+    version alike ("bf16": tests/test_torch_wkv7_bf16.py)."""
     d = _inputs(np.random.default_rng(1), 2, 3, 1, 1)
     rows = [torch.from_numpy(d[k]) for k in ("r", "w", "k", "v", "a", "b")]
     el = torch.zeros(2, dtype=torch.int32)
@@ -124,7 +123,7 @@ def test_unfused_forward_matches_jax(entry):
     tokens = np.random.default_rng(4).integers(1, 300, (B, T)).astype(np.int32)
     tt = torch.from_numpy(tokens)
     j_state = jmodel.init_state(JConfig(**DENSE_CFG), B)
-    state = tmodel.init_state(RWKV7Config(**DENSE_CFG), B)
+    state = tmodel.init_state(RWKV7Config(**DENSE_CFG), B, device="cpu")
     j_logits = t_logits = None
     if entry == "step":
         j_logits, j_state = jmodel.forward_step(jparams, jnp.asarray(tokens[:, 0]), j_state,
@@ -158,7 +157,7 @@ def test_unfused_forward_equals_fused(entry):
     params = params_from_numpy(dense, device="cpu")
     B, T = 3, 7
     tt = torch.from_numpy(np.random.default_rng(6).integers(1, 300, (B, T)).astype(np.int32))
-    states = [tmodel.init_state(RWKV7Config(**DENSE_CFG), B) for _ in range(2)]
+    states = [tmodel.init_state(RWKV7Config(**DENSE_CFG), B, device="cpu") for _ in range(2)]
     outs = []
     for st, fn in zip(states, (None, wkv7_batch)):
         if entry == "step":
