@@ -2,7 +2,9 @@
 """Smoke run of chirrup_tpu_torch on one NVIDIA GPU (built for an H100, sm_90a).
 
     python3 chip_smoke.py [--profile]
-    python3 chip_smoke.py --compare DIR    # DIR: another checkout (compare_trees)
+    python3 chip_smoke.py --compare DIR    # DIR: another checkout (compare_trees):
+                                           # the WKV kernels, the quantizer, the tail
+                                           # and the engine's step, in turns
 
 Phases, in order; any failure ends the run with a non-zero exit:
 
@@ -20,8 +22,11 @@ Phases, in order; any failure ends the run with a non-zero exit:
    and (32, 64) (against a planted fault that ignores lengths, a second run
    bit-equal, timed with full rows too, and its serial floor: the longest
    row's tokens times one token of the chain), the bare
-   WKV kernel at T = 1 (batch 64) and at the same variants (with the same
-   planted fault), the w8a8 mm8 kernels (the quantizer against a planted
+   WKV kernel at T = 1 (batch 64, timed cold and warm) and at the same
+   variants (full rows and ragged; planted faults: lengths ignored, and the
+   decay shifted by a token; "highest" bit-equal to "default"; beside its
+   bytes bound and the bound of its WY form's TF32 and CUDA-core work), the
+   w8a8 mm8 kernels (the quantizer against a planted
    fault, the neighbouring row's codes and stats, with a second run
    bit-equal and its other launches timed; the bare int8 core, int32 out)
    and the w8a16 core, bf16 and float32 activations, at its seven decode
@@ -31,7 +36,13 @@ Phases, in order; any failure ends the run with a non-zero exit:
    share of the bytes bound at 2,048 rows; the three WKV kernels again in
    their precision="bf16" instances (the delta form in the bf16 state) at
    the same shapes, with a quarter of the decays near 0 and a planted fault
-   of their own, the product form S * bf16(1 + d); before them, the
+   of their own, the product form S * bf16(1 + d); the bare kernel again in
+   both arithmetics at stress variants of the chunked WY form (decay logits
+   of +8 and -8, a_iclr ~ 1, lengths at the 16-token tile's edges, a (2,
+   1024) chunk) and on input rows off the 16-byte grid
+   (check_wkv_batch_stress), and the WY form with float32 rows and state
+   against a float64 recurrence within 1/64 of the per-element limit, which
+   one TF32 pass a product breaks (check_wkv_batch_float32); before them, the
    registers and spills (ptxas -v) of both TMA GEMMs, the quantizer, the
    three WKV kernels and the penalty tail, and the GEMMs' wgmma and TMA
    instructions (cuobjdump, where present);
@@ -769,11 +780,18 @@ def _kernel_name(fn):
     m = re.search(r"quant_rows_kernelI(\w+?)Li(\d+)ELi(\d)EE", fn)
     if m:
         return f"quant_rows {dt(m.group(1))} E{m.group(2)} mode {m.group(3)}"
-    m = re.search(r"wkv7_(chunk|step|batch)(?:_fused)?_kernelI(13__nv_bfloat16|f)"
+    m = re.search(r"(wkv7_chunk|wkv7_step|batch_rows)(?:_fused)?_kernelI(13__nv_bfloat16|f)"
                   r"(13__nv_bfloat16|S\d*_|f)Lb([01])E", fn)
     if m:
-        return (f"{m.group(1)} {dt(m.group(2))} state {dt(m.group(3))}"
+        return (f"{m.group(1)[5:] if m.group(1)[:4] == 'wkv7' else m.group(1)} "
+                f"{dt(m.group(2))} state {dt(m.group(3))}"
                 + (" precision bf16" if m.group(4) == "1" else ""))
+    m = re.search(r"batch_wy_kernelI(13__nv_bfloat16|f)(13__nv_bfloat16|S\d*_|f)E", fn)
+    if m:
+        return f"batch_wy {dt(m.group(1))} state {dt(m.group(2))}"
+    m = re.search(r"batch_tokens_bf16_kernelI(13__nv_bfloat16|f)E", fn)
+    if m:
+        return f"batch_tokens {dt(m.group(1))} state bf16, precision bf16"
     m = re.search(r"penalty_tail_kernelI(13__nv_bfloat16|f)Lb([01])E", fn)
     if m:
         return f"tail {dt(m.group(1))} logits, vector loads {m.group(2)}"
@@ -952,19 +970,120 @@ def check_w16(dev, gen, B=64, sites=W16_SITES):
                 sites=rows)
 
 
+# The bare kernel's WY form (T > 1, float32 state math; csrc/wkv7_batch.cu)
+# per (request, head) tile of WT = 16 tokens, from its products' shapes:
+# TF32 multiply-adds of one pass, 4 WT x WT x 64 (the four WT x WT
+# matrices), 2 x 64 x 64 x WT (S0 A~^T, S0 R~^T), 3 x 64 x WT x WT (V M_ak^T,
+# V M_rk^T, SA M_rb^T) and 2 x 64 x WT x 64 (V K^, SA B^); three passes each
+# (hi*hi, hi*lo, lo*hi), two where v, bf16, is exact in TF32 (V M_ak^T,
+# V M_rk^T, V K^); and its CUDA-core operations: 13 a token and column in
+# the prep (the decay, g, A~, R~, K^, B^), the substitution's 2 x 64 x WT
+# (WT - 1) / 2 and the 64 x 64 scaling by g_n.
+WY_TILE = 16
+WY_MACS = dict(p1=4 * 16 * 16 * 64, s0=2 * 64 * 64 * 16, vm=2 * 64 * 16 * 16, sam=64 * 16 * 16,
+               vk=64 * 16 * 64, sab=64 * 16 * 64)
+WY_CORE_OPS = 13 * 16 * 64 + 64 * 16 * 15 + 64 * 64
+PEAK_TF32 = 495e12
+
+
+def wy_work(lengths, T, C):
+    """(TF32 tensor operations, CUDA-core operations) the WY form does on
+    bf16 rows for these lengths: every tile a row's tokens reach, at every
+    head."""
+    tiles = int(((lengths.clamp(0, T) + WY_TILE - 1) // WY_TILE).sum()) * (C // 64)
+    m = WY_MACS
+    exact = m["vm"] + m["vk"]
+    passes = 3 * (sum(m.values()) - exact) + 2 * exact
+    return 2 * passes * tiles, WY_CORE_OPS * tiles
+
+
+def batch_bounds(state_l, y, elapsed, lengths, P, T, C, valid, bf16, wy=False):
+    """The bare kernel's bounds on one call: bytes (the live rows' state
+    slabs once each way, the valid tokens' six input rows, y, the counters),
+    the recurrence's operations (9 float32 a state element a token; the bf16
+    mode's BF16_OPS at the packed bf16 rate), and where the WY form runs
+    (wy) its own work: tensor operations at 495 TFLOP/s and CUDA-core
+    operations at 67. Returns (bound ms, bound_by, extras dict)."""
+    live = int((lengths > 0).sum())
+    moved = 2 * live * 64 * C * state_l.element_size() + 6 * valid * C * 2 + nbytes(
+        y, elapsed, lengths)
+    t_bytes = moved / HBM_BYTES_PER_S * 1e3
+    bnd, by = (bound_ms(moved, BF16_OPS * valid * 64 * C, "bf16x2") if bf16
+               else bound_ms(moved, 9 * valid * 64 * C, "fp32"))
+    extra = dict(bytes_ms=t_bytes)
+    if wy:
+        tensor, core = wy_work(lengths, T, C)
+        extra.update(design_tensor_ms=tensor / PEAK_TF32 * 1e3,
+                     design_core_ms=core / PEAK_OPS_PER_S["fp32"] * 1e3)
+    return bnd, by, extra
+
+
+def batch_faults(before, args, lengths, T, kw, bf16):
+    """The planted faults the bare kernel's check must reject, as (name,
+    y, state) of the plain version: lengths ignored (float32 arithmetics) or
+    the product form (bf16), and, where T > 1, the decay shifted by one
+    token (w rolled along T)."""
+    from chirrup_tpu_torch.ops.wkv7_cuda import wkv7_batch_reference
+
+    out = []
+    if bf16:
+        with planted_product_form():
+            out.append(("product form S * bf16(1 + d)",
+                        *wkv7_batch_reference(before, *args, lengths, **kw)))
+    else:
+        out.append(("lengths ignored",
+                    *wkv7_batch_reference(before, *args, torch.full_like(lengths, T))))
+    if T > 1:
+        r, w, *rest = args
+        out.append(("decay shifted by a token",
+                    *wkv7_batch_reference(before, r, w.roll(1, dims=1), *rest, lengths, **kw)))
+    return out
+
+
+def hold_batch(tag, state, li, before, neighbour, y, y_ref, s_ref, lengths, faults, bf16):
+    """The bare kernel's result against its plain version: y per element
+    (bf16_excess), the state per element or, in the bf16 mode, by
+    chain_excess; the neighbouring layer and the length-0 rows untouched, y
+    0 past each length; every planted fault rejected (excess > 1). Returns
+    (worst y excess, worst state excess, max |err|, {fault: excess})."""
+    P, T = y.shape[:2]
+    require(y.dtype == torch.bfloat16 and tuple(y.shape) == (P, T, state.shape[-1]),
+            f"{tag}: y {y.dtype} {tuple(y.shape)}")
+    state_excess = chain_excess if bf16 else bf16_excess
+    ex_y, ex_s = bf16_excess(y, y_ref), state_excess(state[li], s_ref)
+    err = max(max_abs(y, y_ref), max_abs(state[li], s_ref))
+    require(ex_y <= 1 and ex_s <= 1, f"{tag}: worst |err|/limit y {ex_y}, state {ex_s}")
+    require(torch.equal(state[li - 1], neighbour), f"{tag}: another layer touched")
+    idle = lengths == 0
+    require(torch.equal(state[li][idle], before[idle]), f"{tag}: length-0 rows changed")
+    past = torch.arange(T, device=y.device)[None, :] >= lengths[:, None]
+    require(bool((y[past] == 0).all()), f"{tag}: output past a length")
+    rejected = {}
+    for name, y_f, s_f in faults:
+        rejected[name] = max(bf16_excess(y_f, y_ref), state_excess(s_f, s_ref))
+        require(rejected[name] > 1, f"{tag}: the check passes a kernel with the fault {name} "
+                                    f"(worst |err|/limit {rejected[name]})")
+    return ex_y, ex_s, err, rejected
+
+
 def check_wkv_batch(dev, gen, variants=((64, 1), (8, 64), (8, 256), (32, 64)), C=4096,
                     L=32, li=5, precision="default"):
     """The bare WKV kernel against its plain version at the decode step (T = 1,
     batch 64) and at each prefill variant, bf16 rows and state, r/k/v as views
     of one merged (P, T, 3C) projection output, a = -kk and b = kk*iclr from
     a per-head unit kk, lengths that include 0, 1, T-3 and T, and a dither
-    counter that crosses 2^31 mid-chunk. The WKV chunk kernel's per-element
-    limit on y and state; the comparison must reject a planted fault (a plain
-    version that ignores lengths). The first variant is the JSON headline.
-    precision "bf16": the kernel's bf16-mode instance, a quarter of the decays
-    near 0 (with_slow_decays), against a planted fault of its own
+    counter that crosses 2^31 mid-chunk (hold_batch: the WKV chunk kernel's
+    per-element limit on y and state, planted faults rejected: batch_faults).
+    Timed at T = 1 cold (the launches rotating over the L layers) and warm,
+    at T > 1 with every row full (as path B runs) and on the variant's own
+    lengths, each beside its bounds (batch_bounds) and, full rows, the plain
+    version's time. Under "default", "highest" (batch_plan's same launch)
+    runs once on the same inputs and must give the same bits, y and state.
+    The first variant is the JSON headline (ms cold). precision "bf16": the
+    kernel's bf16-mode instance, a quarter of the decays near 0
+    (with_slow_decays), against a planted fault of its own
     (product_form_token), its operations counted at the packed bf16 rate."""
-    from chirrup_tpu_torch.ops.wkv7_cuda import wkv7_batch, wkv7_batch_reference
+    from chirrup_tpu_torch.ops.wkv7_cuda import batch_plan, wkv7_batch, wkv7_batch_reference
 
     bf16 = precision == "bf16"
     kw = dict(precision=precision)
@@ -991,61 +1110,230 @@ def check_wkv_batch(dev, gen, variants=((64, 1), (8, 64), (8, 256), (32, 64)), C
         y_ref, s_ref = wkv7_batch_reference(before, *args, lengths, **kw)
         y = wkv7_batch(state, *args, lengths, li, **kw)
         torch.cuda.synchronize()
-        require(y.dtype == bf and tuple(y.shape) == (P, T, C), f"wkv7_batch: y {y.dtype}")
-        state_excess = chain_excess if bf16 else bf16_excess
-        ex_y, ex_s = bf16_excess(y, y_ref), state_excess(state[li], s_ref)
-        err = max(max_abs(y, y_ref), max_abs(state[li], s_ref))
-        require(ex_y <= 1 and ex_s <= 1,
-                f"wkv7_batch {precision} P{P} T{T}: worst |err|/limit y {ex_y}, "
-                f"state {ex_s}")
-        require(torch.equal(state[li - 1], neighbour), "wkv7_batch touched another layer")
-        idle = lengths == 0
-        require(torch.equal(state[li][idle], before[idle]), "wkv7_batch: length-0 rows changed")
-        past = torch.arange(T, device=dev)[None, :] >= lengths[:, None]
-        require(bool((y[past] == 0).all()), "wkv7_batch: output past a length")
-        if bf16:
-            fault = "product form S * bf16(1 + d)"
-            with planted_product_form():
-                y_fault, s_fault = wkv7_batch_reference(before, *args, lengths, **kw)
+        tag = f"wkv7_batch {precision} P{P} T{T}"
+        ex_y, ex_s, err, rejected = hold_batch(tag, state, li, before, neighbour, y, y_ref, s_ref,
+                                               lengths, batch_faults(before, args, lengths, T,
+                                                                     kw, bf16), bf16)
+        if precision == "default":  # "highest" takes the same launch: the same bits
+            hi = state.clone()
+            hi[li] = before
+            y_hi = wkv7_batch(hi, *args, lengths, li, precision="highest")
+            require(torch.equal(y_hi, y) and torch.equal(hi, state),
+                    f"{tag}: \"highest\" differs from \"default\"")
+            del hi, y_hi
+        full = torch.full_like(lengths, T)   # with every row full, as path B runs
+        plan = batch_plan(P, T, C, "bf16" if bf16 else precision)
+        site = dict(variant=[P, T], plan=plan.path, err=err, excess_y=ex_y, excess_state=ex_s,
+                    faults=rejected, valid_tokens=int(lengths.clamp(0, T).sum()))
+        if T == 1:
+            layers = itertools.cycle(range(L))
+            site["ms"] = device_ms(lambda: wkv7_batch(state, *args, full, next(layers), **kw))
+            site["warm_ms"] = device_ms(lambda: wkv7_batch(state, *args, full, li, **kw))
+            timed = f"{site['ms']:.4f} ms cold, {site['warm_ms']:.4f} warm"
         else:
-            fault = "lengths ignored"
-            y_fault, s_fault = wkv7_batch_reference(before, *args, torch.full_like(lengths, T))
-        ex_fault = max(bf16_excess(y_fault, y_ref), state_excess(s_fault, s_ref))
-        require(ex_fault > 1, f"wkv7_batch {precision}: the check passes a kernel with the "
-                              f"fault {fault} (worst |err|/limit {ex_fault})")
-        full = torch.full_like(lengths, T)   # timed with every row full, as path B runs
-        ms = device_ms(lambda: wkv7_batch(state, *args, full, li, **kw))
-        plain = device_ms(lambda: wkv7_batch_reference(state[li], *args, full, **kw), iters=1,
-                          reps=3)
-        # the timed work: every token valid, every slab live; 9 operations per
-        # state element per token, as the fused kernels count: S*d is one
-        # multiply (d once per column), a.S, v*k, sa*b and S.r one FMA each
-        n_tok = P * T
-        moved = 2 * nbytes(state[li]) + 6 * n_tok * C * 2 + nbytes(y, elapsed, full)
-        bnd, by = (bound_ms(moved, BF16_OPS * n_tok * 64 * C, "bf16x2") if bf16
-                   else bound_ms(moved, 9 * n_tok * 64 * C, "fp32"))
-        log(f"wkv7_batch {precision} P{P} T{T} C{C} bf16 (lengths {lengths[:4].tolist()}...): "
-            f"y/state err {err:.3e}; worst |err|/limit y {ex_y:.3f}, state {ex_s:.3f} ("
-            f"{'state chain_excess' if bf16 else 'limit 2^-7|ref| + 2^-8 rms(ref)'}); "
-            f"planted fault ({fault}) {ex_fault:.2f}; "
-            f"full rows {ms:.4f} ms, plain {plain:.4f} ms, bound {bnd:.4f} ms ({by})")
-        sites.append(dict(variant=[P, T], err=err, ms=ms, plain_ms=plain, bound_ms=bnd,
-                          bound_by=by, fault=fault, fault_excess=ex_fault))
-        del rkv, r, k, v, w, a, b, kk, state, before, neighbour, y, y_ref, s_ref, y_fault
-        del s_fault
+            site["ms"] = device_ms(lambda: wkv7_batch(state, *args, full, li, **kw))
+            site["ragged_ms"] = device_ms(lambda: wkv7_batch(state, *args, lengths, li, **kw))
+            timed = f"full rows {site['ms']:.4f} ms, ragged {site['ragged_ms']:.4f}"
+        site["plain_ms"] = device_ms(lambda: wkv7_batch_reference(state[li], *args, full, **kw),
+                                     iters=1, reps=3)
+        wy = plan.path == "wy"
+        site["bound_ms"], site["bound_by"], extra = batch_bounds(
+            state[li], y, elapsed, full, P, T, C, P * T, bf16, wy)
+        site.update(extra)
+        bounds = (f"recurrence bound {site['bound_ms']:.4f} ms ({site['bound_by']}), bytes "
+                  f"{extra['bytes_ms']:.4f}")
+        if wy:
+            bounds += (f", the WY form's work {extra['design_tensor_ms']:.4f} (TF32 at 495 "
+                       f"TFLOP/s) / {extra['design_core_ms']:.4f} (CUDA cores)")
+            site["ragged_bounds"] = batch_bounds(state[li], y, elapsed, lengths, P, T, C,
+                                                 site["valid_tokens"], bf16, wy)[2]
+        log(f"{tag} C{C} bf16 ({plan.path}; lengths {lengths[:4].tolist()}...): y/state err "
+            f"{err:.3e}; worst |err|/limit y {ex_y:.3f}, state {ex_s:.3f} ("
+            f"{'state chain_excess' if bf16 else 'limit 2^-7|ref| + 2^-8 rms(ref)'}"
+            f"{'; highest bit-equal' if precision == 'default' else ''}); planted "
+            f"faults " + ", ".join(f"({n}) {x:.2f}" for n, x in rejected.items())
+            + f"; {timed}, plain {site['plain_ms']:.4f} ms; {bounds}")
+        sites.append(site)
+        del rkv, r, k, v, w, a, b, kk, state, before, neighbour, y, y_ref, s_ref
         torch.cuda.empty_cache()
     head = sites[0]
     return dict(name="wkv7_batch_bf16" if bf16 else "wkv7_batch", route="cuda",
                 source="chirrup_tpu_torch/csrc/wkv7_batch.cu", precision=precision,
                 replaces="chirrup_tpu/ops/wkv7_pallas.py:863",
                 max_abs_err=max(x["err"] for x in sites), ms=head["ms"],
-                plain_ms=head["plain_ms"], bound_ms=head["bound_ms"], bound_by=head["bound_by"],
-                library_ms=None,
+                warm_ms=head.get("warm_ms"), plain_ms=head["plain_ms"],
+                bound_ms=head["bound_ms"], bound_by=head["bound_by"], library_ms=None,
                 shape=f"P{variants[0][0]} T{variants[0][1]} C{C}, state ({L}, P, 64, {C}) bf16, "
-                      f"one layer",
+                      f"one layer a launch; ms cold (rotating over the layers), warm_ms on one",
                 tolerance=BF16_TOLERANCE if bf16 else "per element 2^-7 |ref| + 2^-8 "
                                                       "rms(ref), y and state",
                 sites=sites)
+
+
+def check_wkv_batch_stress(dev, precision, C=4096, L=4, li=2, n=WY_TILE):
+    """The bare kernel where the chunked WY form is weakest, from a generator
+    of its own (seed 13), bf16 rows and state: a quarter of the columns with
+    w_raw = +8 (d1 ~ 0.545, a 16-token tile's g down to 6e-5) and a quarter
+    with -8 (d1 ~ 1), a_iclr ~ 1 on every other row (b = kk (1 - 2^-10)),
+    lengths 0, 1, n - 1, n, n + 1, T - 3 and T (n the tile), and a long
+    variant (2, 1024) that carries the state through 64 tiles; then two
+    variants whose six input rows sit one element off the 16-byte grid, in
+    base and token stride (the kernel stages them by element loads, not by
+    TMA or cp.async): (4, 40), tiles cut mid-way, and (8, 1). Held as
+    check_wkv_batch holds its variants (hold_batch, batch_faults). Returns
+    each variant's worst excesses, the faults' and, for the long variant, its
+    time with every row full."""
+    from chirrup_tpu_torch.ops.wkv7_cuda import wkv7_batch, wkv7_batch_reference
+
+    bf16 = precision == "bf16"
+    kw = dict(precision=precision)
+    bf = torch.bfloat16
+    gen = torch.Generator(device=dev).manual_seed(13)
+    rnd = lambda *s: torch.randn(s, generator=gen, device=dev)
+    out = []
+    for P, T, lens, unaligned in ((8, 64, [0, 1, n - 1, n, n + 1, 61, 64, 40], False),
+                                  (8, 256, [0, 1, n - 1, n, n + 1, 253, 256, 150], False),
+                                  (2, 1024, [1024, 1021], False), (4, 40, [0, n + 1, 37, 40], True),
+                                  (8, 1, [0, 1, 1, 0, 1, 1, 1, 1], True)):
+        rkv = rnd(P, T, 3 * C).to(bf)
+        r, k, v = rkv.split(C, dim=-1)
+        w = rnd(P, T, C)
+        cols = torch.randperm(C, generator=gen, device=dev)
+        w[..., cols[:C // 4]] = 8.0
+        w[..., cols[C // 4:C // 2]] = -8.0
+        w = w.to(bf)
+        kk = torch.nn.functional.normalize(rnd(P, T, C // 64, 64), dim=-1).reshape(P, T, C)
+        iclr = torch.sigmoid(rnd(P, T, C))
+        iclr[1::2] = 1.0 - 2.0 ** -10
+        a, b = (-kk).to(bf), (kk * iclr).to(bf)
+        if unaligned:  # views one element into a (P, T, 6 C + 1) buffer
+            buf = torch.empty(P, T, 6 * C + 1, dtype=bf, device=dev)
+            views = [buf[..., 1 + q * C:1 + (q + 1) * C] for q in range(6)]
+            for view, x in zip(views, (r, w, k, v, a, b)):
+                view.copy_(x)
+            r, w, k, v, a, b = views
+        state = (rnd(L, P, 64, C) * 0.3).to(bf)
+        elapsed = torch.randint(0, 2 ** 31 - 1, (P,), generator=gen, device=dev,
+                                dtype=torch.int64).to(torch.int32)
+        elapsed[0] = 2 ** 31 - 9
+        lengths = torch.tensor(lens, dtype=torch.int32, device=dev)
+        args = (r, w, k, v, a, b, elapsed)
+        before, neighbour = state[li].clone(), state[li - 1].clone()
+        y_ref, s_ref = wkv7_batch_reference(before, *args, lengths, **kw)
+        y = wkv7_batch(state, *args, lengths, li, **kw)
+        torch.cuda.synchronize()
+        tag = (f"wkv7_batch stress {precision} P{P} T{T}"
+               + (" unaligned rows" if unaligned else ""))
+        ex_y, ex_s, err, rejected = hold_batch(tag, state, li, before, neighbour, y, y_ref, s_ref,
+                                               lengths, batch_faults(before, args, lengths, T,
+                                                                     kw, bf16), bf16)
+        site = dict(variant=[P, T], lengths=lens, unaligned=unaligned, err=err, excess_y=ex_y,
+                    excess_state=ex_s, faults=rejected)
+        if T >= 1024:
+            full = torch.full_like(lengths, T)
+            site["ms"] = device_ms(lambda: wkv7_batch(state, *args, full, li, **kw))
+        log(f"{tag} C{C} bf16 (decay logits +8 and -8 on a quarter of the columns each, "
+            f"a_iclr ~ 1 on odd rows, lengths {lens}): y/state err {err:.3e}; worst |err|/limit "
+            f"y {ex_y:.3f}, state {ex_s:.3f}; planted faults "
+            + ", ".join(f"({nm}) {x:.2f}" for nm, x in rejected.items())
+            + (f"; full rows {site['ms']:.4f} ms" if "ms" in site else ""))
+        out.append(site)
+        del rkv, r, k, v, w, a, b, kk, iclr, state, before, neighbour, y, y_ref, s_ref, args
+        torch.cuda.empty_cache()
+    return out
+
+
+# the float32 check's limit: the per-element limit times F32_SCALE
+F32_SCALE = 2.0 ** -6
+
+
+def sequential64(state_l, r, w, k, v, a, b, elapsed, lengths):
+    """The bare recurrence token by token in float64, its decays d1 = 1 +
+    decay_from_raw in float32 as the kernels compute them: y_t = S_t r_t,
+    and past a row's length y = 0 and the state kept. Returns y (B, T, C)
+    and the new slab, float64."""
+    from chirrup_tpu_torch.ops.wkv7 import decay_from_raw
+
+    B, T, C = r.shape
+    H, f64 = C // 64, torch.float64
+    heads = lambda x: x.to(f64).reshape(B, T, H, 64)
+    rs, ks, vs, as_, bs = (heads(x) for x in (r, k, v, a, b))
+    steps = (elapsed.to(torch.int64)[:, None, None, None]
+             + torch.arange(T, device=r.device)[None, :, None, None])
+    d1 = (1.0 + decay_from_raw(w.reshape(B, T, H, 64), steps)).to(f64)
+    S = state_l.to(f64).reshape(B, 64, H, 64).permute(0, 2, 1, 3)  # (B, H, i, j)
+    ys = []
+    for t in range(T):
+        act = (t < lengths).reshape(B, 1, 1)
+        sa = torch.einsum("bhij,bhj->bhi", S, as_[:, t])
+        new = (S * d1[:, t, :, None, :] + vs[:, t, :, :, None] * ks[:, t, :, None, :]
+               + sa[..., None] * bs[:, t, :, None, :])
+        S = torch.where(act[..., None], new, S)
+        ys.append(torch.where(act, torch.einsum("bhij,bhj->bhi", S, rs[:, t]), 0.0))
+    return torch.stack(ys, dim=1).reshape(B, T, C), S.permute(0, 2, 1, 3).reshape(B, 64, C)
+
+
+def check_wkv_batch_float32(dev, C=4096, L=3, li=1, n=WY_TILE):
+    """The WY form's arithmetic at a resolution bf16 hides: float32 rows and
+    state, from a generator of their own (seed 14), at (8, 64), (8, 256),
+    (32, 64) and (2, 1024), a quarter of the decay logits +8 and a quarter
+    -8, a_iclr ~ 1 on every other row, ragged lengths at the tile's edges.
+    The kernel ("default") against the float64 recurrence (sequential64),
+    y and state per element within F32_SCALE (1/64) of the per-element
+    limit; the same form with one TF32 pass a product
+    (wkv7_batch_chunked_reference, rounding "tf32"), the planted fault, must
+    break that limit (excess > 1), and so must the float32 plain version
+    with the decay shifted by a token. Returns each variant's excesses."""
+    from chirrup_tpu_torch.ops.wkv7_cuda import (wkv7_batch, wkv7_batch_chunked_reference,
+                                                 wkv7_batch_reference)
+
+    gen = torch.Generator(device=dev).manual_seed(14)
+    rnd = lambda *s: torch.randn(s, generator=gen, device=dev)
+    excess = lambda got, ref: bf16_excess(got, ref) / F32_SCALE
+    out = []
+    for P, T in ((8, 64), (8, 256), (32, 64), (2, 1024)):
+        rkv = rnd(P, T, 3 * C)
+        r, k, v = rkv.split(C, dim=-1)
+        w = rnd(P, T, C)
+        cols = torch.randperm(C, generator=gen, device=dev)
+        w[..., cols[:C // 4]] = 8.0
+        w[..., cols[C // 4:C // 2]] = -8.0
+        kk = torch.nn.functional.normalize(rnd(P, T, C // 64, 64), dim=-1).reshape(P, T, C)
+        iclr = torch.sigmoid(rnd(P, T, C))
+        iclr[1::2] = 1.0 - 2.0 ** -10
+        a, b = -kk, kk * iclr
+        state = rnd(L, P, 64, C) * 0.3
+        elapsed = torch.randint(0, 2 ** 31 - 1, (P,), generator=gen, device=dev,
+                                dtype=torch.int64).to(torch.int32)
+        elapsed[0] = 2 ** 31 - 9
+        lengths = torch.full((P,), T, dtype=torch.int32, device=dev)
+        lengths[1:4] = torch.tensor([n + 1, T - 3, n - 1], dtype=torch.int32, device=dev)[:P - 1]
+        args = (r, w, k, v, a, b, elapsed)
+        before = state[li].clone()
+        y_ref, s_ref = sequential64(before, *args, lengths)
+        y = wkv7_batch(state, *args, lengths, li)
+        torch.cuda.synchronize()
+        tag = f"wkv7_batch float32 P{P} T{T}"
+        ex_y, ex_s = excess(y, y_ref), excess(state[li], s_ref)
+        require(ex_y <= 1 and ex_s <= 1, f"{tag}: worst |err|/(limit/64) y {ex_y}, state {ex_s}")
+        faults = {"one TF32 pass": wkv7_batch_chunked_reference(before, *args, lengths, tile=n,
+                                                                rounding="tf32"),
+                  "decay shifted by a token": wkv7_batch_reference(
+                      before, r, w.roll(1, dims=1), *args[2:], lengths)}
+        rejected = {}
+        for name, (y_f, s_f) in faults.items():
+            rejected[name] = max(excess(y_f, y_ref), excess(s_f, s_ref))
+            require(rejected[name] > 1, f"{tag}: the float32 check passes the fault {name} "
+                                        f"(worst |err|/(limit/64) {rejected[name]})")
+        log(f"{tag} C{C} (decay logits +8 and -8, a_iclr ~ 1 on odd rows, lengths "
+            f"{lengths[:4].tolist()}...): against float64, worst |err|/(limit/64) y {ex_y:.3f}, "
+            f"state {ex_s:.3f}; planted faults "
+            + ", ".join(f"({nm}) {x:.2f}" for nm, x in rejected.items()))
+        out.append(dict(variant=[P, T], excess_y=ex_y, excess_state=ex_s, faults=rejected,
+                        limit_scale=F32_SCALE))
+        del rkv, r, k, v, w, kk, iclr, a, b, state, before, y, y_ref, s_ref, faults, args
+        torch.cuda.empty_cache()
+    return out
 
 
 def tail_inputs(dev, gen, B, V=65536):
@@ -2149,6 +2437,55 @@ def compare_step_tail(dev, L=32, V=65536):
     return dict(step_ms=step, tail_ms=tail)
 
 
+# the bare kernel's variants timed by compare_batch: (requests, tokens)
+BATCH_VARIANTS = ((64, 1), (8, 64), (8, 256), (32, 64), (2, 1024))
+
+
+def compare_batch(dev, C=4096, L=32):
+    """The bare WKV kernel through the public wkv7_batch wrapper of
+    whichever chirrup_tpu_torch is imported, at each of BATCH_VARIANTS in
+    each arithmetic ("default" and "bf16"; "highest" takes "default"'s
+    launch, which the smoke run holds bit-equal), on bf16 rows and state
+    drawn here from seed 3 (the same inputs in any tree whose wrapper takes
+    these arguments): T = 1 cold (the launches rotating over the L layers)
+    and warm, T > 1 with every row full and on lengths drawn alike (ragged)."""
+    from chirrup_tpu_torch.ops.wkv7_cuda import wkv7_batch
+
+    gen = torch.Generator(device=dev).manual_seed(3)
+    rnd = lambda *s: torch.randn(s, generator=gen, device=dev)
+    bf = torch.bfloat16
+    out = {}
+    for P, T in BATCH_VARIANTS:
+        rkv = rnd(P, T, 3 * C).to(bf)
+        r, k, v = rkv.split(C, dim=-1)
+        w = rnd(P, T, C).to(bf)
+        kk = torch.nn.functional.normalize(rnd(P, T, C // 64, 64), dim=-1).reshape(P, T, C)
+        a, b = (-kk).to(bf), (kk * torch.sigmoid(rnd(P, T, C))).to(bf)
+        state = (rnd(L if T == 1 else 2, P, 64, C) * 0.3).to(bf)
+        elapsed = torch.randint(0, 2 ** 31 - 1, (P,), generator=gen, device=dev,
+                                dtype=torch.int64).to(torch.int32)
+        ragged = torch.randint(0, T + 1, (P,), generator=gen, device=dev,
+                               dtype=torch.int64).to(torch.int32)
+        full = torch.full_like(ragged, T)
+        args = (r, w, k, v, a, b, elapsed)
+        for prec in ("default", "bf16"):
+            kw = dict(precision=prec)
+            if T == 1:
+                layers = itertools.cycle(range(L))
+                times = dict(cold_ms=device_ms(lambda: wkv7_batch(state, *args, full,
+                                                                  next(layers), **kw)),
+                             warm_ms=device_ms(lambda: wkv7_batch(state, *args, full, 1, **kw)))
+            else:
+                times = dict(full_ms=device_ms(lambda: wkv7_batch(state, *args, full, 1, **kw)),
+                             ragged_ms=device_ms(lambda: wkv7_batch(state, *args, ragged, 1,
+                                                                    **kw)),
+                             ragged_tokens=int(ragged.sum()))
+            out[f"{P}x{T} {prec}"] = times
+        del rkv, r, k, v, w, a, b, kk, state
+        torch.cuda.empty_cache()
+    return out
+
+
 def compare_engine(dev, tag):
     """The w8a8 engine phase (run_engine, two steady blocks) on whichever
     chirrup_tpu_torch is imported: the decode step's device busy time and
@@ -2165,9 +2502,9 @@ def compare_engine(dev, tag):
 # a full run's), the quantizer (with its GEMM) at batch 64 and at 2,048 rows
 # from seed 1, each from that tree's chip_smoke.py; then the step kernel and
 # the penalty tail timed by this script's compare_step_tail (argv[2]) on
-# that tree's kernels, and this script's engine phase (compare_engine, its
-# profile file tagged argv[3]); the numbers go to the JSON file named by
-# argv[1]
+# that tree's kernels, the bare WKV kernel by its compare_batch, and this
+# script's engine phase (compare_engine, its profile file tagged argv[3]);
+# the numbers go to the JSON file named by argv[1]
 _COMPARE_RUN = """
 import importlib.util, json, sys, torch
 import chip_smoke as cs
@@ -2185,13 +2522,14 @@ spec = importlib.util.spec_from_file_location("compare_here", sys.argv[2])
 here = importlib.util.module_from_spec(spec)
 spec.loader.exec_module(here)
 out["step_tail"] = here.compare_step_tail(dev)
+out["batch"] = here.compare_batch(dev)
 out["engine"] = here.compare_engine(dev, sys.argv[3])
 json.dump(out, open(sys.argv[1], "w"))
 """
 
 
 def compare_trees(parent: str) -> int:
-    """The WKV step and chunk kernels, the activation quantizer, the
+    """The WKV step, chunk and bare kernels, the activation quantizer, the
     penalty tail and the w8a8 engine's decode step of this tree against
     those of another checkout `parent` (a `git archive` of another commit
     unpacked into a gitignored directory), each tree in a process of its
@@ -2199,7 +2537,8 @@ def compare_trees(parent: str) -> int:
     (_COMPARE_RUN). Prints each run's step kernel times (cold and warm, each
     dtype pair), chunk times (with its valid tokens: the same in every run),
     the quantizer's time over a decode step and at 2,048 rows, the tail's
-    times at each batch, and the engine's device busy time a decode step
+    times at each batch, the bare kernel's at each variant and arithmetic
+    (compare_batch), and the engine's device busy time a decode step
     with its step kernel's and tail's shares; writes every site's numbers to
     chiprun_out/compare.json."""
     here = os.path.dirname(os.path.abspath(__file__))
@@ -2222,7 +2561,7 @@ def compare_trees(parent: str) -> int:
             + quant["head"]
         st, eng = res["step_tail"], res["engine"]
         groups = {g: (ms, n) for g, ms, n in eng["device_ms_by_group_step"]}
-        runs.append(dict(run=i, tree=label, engine=eng, chunk=[
+        runs.append(dict(run=i, tree=label, engine=eng, batch=res["batch"], chunk=[
             dict(variant=x["variant"], valid_tokens=x["valid_tokens"], ms=x["ms"],
                  bound_ms=x["bound_ms"]) for x in res["chunk"]],
             quant_decode_step_ms=step, quant_64_ms=quant,
@@ -2242,7 +2581,11 @@ def compare_trees(parent: str) -> int:
             + ", ".join(f"{k} {1e3 * v:.2f} us" for k, v in quant.items())
             + "); at 2,048 rows " + ", ".join(
                 f"{q['site']} {1e3 * q['ms']:.2f} us ({100 * q['bound_ms'] / q['ms']:.1f}% of "
-                f"its bound)" for q in runs[-1]["quant_2048"]))
+                f"its bound)" for q in runs[-1]["quant_2048"])
+            + "; wkv7_batch " + "; ".join(
+                f"{v} " + ", ".join(f"{k} {t:.4f}" for k, t in times.items()
+                                    if k != "ragged_tokens")
+                for v, times in res["batch"].items()))
     tokens = {tuple(tuple([x["variant"][0], x["variant"][1], x["valid_tokens"]])
                     for x in r["chunk"]) for r in runs}
     require(len(tokens) == 1, f"the trees timed the chunk kernel on different lengths: {tokens}")
@@ -2258,9 +2601,9 @@ def main(argv=None) -> int:
     parser.add_argument("--profile", action="store_true",
                         help="also print a torch.profiler table of one decode block")
     parser.add_argument("--compare", metavar="DIR",
-                        help="instead of the smoke run, time the WKV step and chunk "
-                             "kernels, the quantizer and the penalty tail of the checkout "
-                             "in DIR against this tree's (compare_trees)")
+                        help="instead of the smoke run, time the WKV step, chunk and "
+                             "bare kernels, the quantizer and the penalty tail of the "
+                             "checkout in DIR against this tree's (compare_trees)")
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the GPU only", file=sys.stderr)
@@ -2296,6 +2639,15 @@ def main(argv=None) -> int:
     kernels += [check_wkv(dev, gen_bf16, precision="bf16"),
                 check_chunk(dev, gen_bf16, precision="bf16"),
                 check_wkv_batch(dev, gen_bf16, precision="bf16")]
+    torch.cuda.empty_cache()
+    # the bare kernel in both arithmetics at the WY form's stress variants
+    # and unaligned rows ("highest" runs "default"'s launch, held bit-equal
+    # above), and the WY form with float32 rows and state, filed under the
+    # kernel's entries
+    batch = {k["name"]: k for k in kernels if k["name"].startswith("wkv7_batch")}
+    batch["wkv7_batch"]["stress_default"] = check_wkv_batch_stress(dev, "default")
+    batch["wkv7_batch_bf16"]["stress_bf16"] = check_wkv_batch_stress(dev, "bf16")
+    batch["wkv7_batch"]["float32"] = check_wkv_batch_float32(dev)
     torch.cuda.empty_cache()
     # the mm8 kernels at the other decode row counts: one row, and a count
     # that is not a multiple of 8
@@ -2363,7 +2715,9 @@ def main(argv=None) -> int:
     os.makedirs(OUT_DIR, exist_ok=True)
     with open(os.path.join(OUT_DIR, "chip_smoke.json"), "w") as f:
         json.dump(dict(card=smi[0], path=path, **summary), f, indent=1)
-    log(json.dumps({"kernels": [{k: v for k, v in kern.items() if k not in ("sites", "splits_ms")}
+    per_site = ("sites", "splits_ms", "stress_default", "stress_bf16",
+                "float32")  # in chiprun_out/chip_smoke.json
+    log(json.dumps({"kernels": [{k: v for k, v in kern.items() if k not in per_site}
                                 for kern in kernels]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

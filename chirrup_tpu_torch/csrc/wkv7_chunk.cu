@@ -24,7 +24,9 @@
 //   y_i   = sum_j S_ij * bf16(d1_j r_j) + v_i <r, k~> + sa_i <r, b>,
 // sa_i and y_i float32 sums of bf16 products of the old S. Phase A then
 // stores the rows the recurrence reads as bf16 (half the shared-memory
-// traffic a token) and the two per-head sums <r, k~>, <r, b>.
+// traffic a token) and the two per-head sums <r, k~>, <r, b>. The token
+// (bf16_token_rows) is wkv7_common.cuh's, shared with the bare kernel's
+// bf16 mode at T > 1 (wkv7_batch.cu).
 //
 // Bound on the H100: the arithmetic. A token costs ~9 float32 operations per
 // state element (64 * C per request), 4.8 GFLOP for a layer of 2,048 prompt
@@ -80,19 +82,6 @@ namespace {
 
 using namespace wkv7;
 using hopper::smem_u32;
-
-// 16 bytes global -> shared without going through registers (cp.async, L2
-// only); each thread's copies form one group per tile
-__device__ __forceinline__ void copy16(uint32_t dst, const void* src) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(dst), "l"(src) : "memory");
-}
-__device__ __forceinline__ void copy_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-// wait until at most one group (the next tile's) is in flight
-__device__ __forceinline__ void copy_wait_all_but_one() {
-  asm volatile("cp.async.wait_group 1;\n" ::: "memory");
-}
 
 // the five (B, T, C) input rows r, w, k, a, v (columns contiguous): base
 // pointers and element strides per request and per token
@@ -231,7 +220,7 @@ __global__ void __launch_bounds__(NT) wkv7_chunk_fused_kernel(
 
   for (int tile = 0; tile < n_tiles; ++tile) {
     const int s = tile & 1, t0 = tile * TT, nt = min(TT, n_tok - t0);
-    copy_wait_all_but_one();
+    copy_wait<1>();  // all but the next tile's group
     __syncthreads();  // this tile's rows from every thread; C of the last is done
 
     // A: the S-independent prologue from the staged rows, TPW tokens a warp
@@ -332,52 +321,9 @@ __global__ void __launch_bounds__(NT) wkv7_chunk_fused_kernel(
                   *hr = reinterpret_cast<const uint2*>(s_r) + part;
       for (int tt = 0; tt < nt; ++tt) {
         const int o = tt * N / 4;  // a token's 64 bf16 as uint2
-        uint2 f[G];
-#pragma unroll
-        for (int g = 0; g < G; ++g) f[g] = ha[o + g * P];
-        float sa[RI];
-#pragma unroll
-        for (int r = 0; r < RI; ++r) {
-          float p0 = 0.0f, p1 = 0.0f;
-#pragma unroll
-          for (int g = 0; g < G; ++g) {
-            p0 += dot2(S[r][g].x, f[g].x);
-            p1 += dot2(S[r][g].y, f[g].y);
-          }
-          sa[r] = p0 + p1;
-        }
-#pragma unroll
-        for (int r = 0; r < RI; ++r) sa[r] = row_sum(sa[r]);
-        float vi[RI];
-        uint32_t v2[RI], sa2[RI];
-#pragma unroll
-        for (int r = 0; r < RI; ++r) {
-          vi[r] = s_v[tt * N + i0 + r];
-          v2[r] = pack2(vi[r], vi[r]);
-          sa2[r] = pack2(sa[r], sa[r]);
-        }
-        float y0[RI], y1[RI];
-#pragma unroll
-        for (int r = 0; r < RI; ++r) y0[r] = y1[r] = 0.0f;
-#pragma unroll
-        for (int g = 0; g < G; ++g) {
-          const uint2 fd = hd[o + g * P], fk = hk[o + g * P], fb = hb[o + g * P],
-                      fr = hr[o + g * P];
-#pragma unroll
-          for (int r = 0; r < RI; ++r) {
-            uint2& q = S[r][g];
-            y0[r] += dot2(q.x, fr.x);
-            y1[r] += dot2(q.y, fr.y);
-            q.x = delta_update(q.x, fd.x, v2[r], fk.x, sa2[r], fb.x);
-            q.y = delta_update(q.y, fd.y, v2[r], fk.y, sa2[r], fb.y);
-          }
-        }
-        const float rk = s_rk[tt], rb = s_rb[tt];
-#pragma unroll
-        for (int r = 0; r < RI; ++r) {
-          const float yi = row_sum(y0[r] + y1[r]) + vi[r] * rk + sa[r] * rb;
-          if (part == 0) s_y[tt * N + i0 + r] = yi;
-        }
+        bf16_token_rows<RI, G, P>(S, ha + o, hd + o, hk + o, hb + o, hr + o,
+                                  s_v + tt * N + i0, s_rk[tt], s_rb[tt], s_y + tt * N + i0,
+                                  part);
       }
     } else  // the float32 recurrence
     for (int tt = 0; tt < nt; ++tt) {

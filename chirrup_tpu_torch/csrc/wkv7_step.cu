@@ -54,6 +54,8 @@
 // H100 (1, 2 or 4 heads a block, 8 or 16 rows a thread, with and without
 // the evict-first hints, with register caps that allow more warps an SM),
 // this one was the fastest (PERF.md).
+// The row core (rows_f32, rows_bf16) is wkv7_common.cuh's, shared with
+// the bare kernel's T = 1 launch (wkv7_batch.cu).
 
 #include "hopper_common.cuh"
 #include "wkv7_common.cuh"
@@ -67,66 +69,8 @@ using namespace wkv7;
 constexpr int HB = 4, RI = 16, P = 8, G = 32 / P, NT = HB * N / RI * P, NW = NT / 32;
 static_assert(P * 8 == N && G % HB == 0 && NT % 32 == 0, "launch shape");
 
-// 8 consecutive state elements as loaded: bf16 stays packed (4 registers a
-// row) until its row's turn. Loads and stores are evict-first (.cs).
-template <typename TS> struct Raw8;
-template <> struct Raw8<__nv_bfloat16> { uint4 u; };
-template <> struct Raw8<float> { float4 lo, hi; };
-
-__device__ __forceinline__ void load_raw(const __nv_bfloat16* p, Raw8<__nv_bfloat16>& r) {
-  r.u = __ldcs(reinterpret_cast<const uint4*>(p));
-}
-__device__ __forceinline__ void load_raw(const float* p, Raw8<float>& r) {
-  r.lo = __ldcs(reinterpret_cast<const float4*>(p));
-  r.hi = __ldcs(reinterpret_cast<const float4*>(p) + 1);
-}
-__device__ __forceinline__ void store_cs(__nv_bfloat16* p, const float (&v)[8]) {
-  uint4 u;
-  __nv_bfloat162* h = reinterpret_cast<__nv_bfloat162*>(&u);
-#pragma unroll
-  for (int e = 0; e < 4; ++e) h[e] = __floats2bfloat162_rn(v[2 * e], v[2 * e + 1]);
-  __stcs(reinterpret_cast<uint4*>(p), u);
-}
-__device__ __forceinline__ void store_cs(__nv_bfloat16* p, const uint4& u) {
-  __stcs(reinterpret_cast<uint4*>(p), u);
-}
-__device__ __forceinline__ void store_cs(float* p, const float (&v)[8]) {
-  __stcs(reinterpret_cast<float4*>(p), make_float4(v[0], v[1], v[2], v[3]));
-  __stcs(reinterpret_cast<float4*>(p) + 1, make_float4(v[4], v[5], v[6], v[7]));
-}
-__device__ __forceinline__ void unpack(const Raw8<__nv_bfloat16>& r, float (&v)[8]) {
-  const uint32_t w[4] = {r.u.x, r.u.y, r.u.z, r.u.w};
-#pragma unroll
-  for (int e = 0; e < 4; ++e) {
-    const float2 f = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&w[e]));
-    v[2 * e] = f.x;
-    v[2 * e + 1] = f.y;
-  }
-}
-__device__ __forceinline__ void unpack(const Raw8<float>& r, float (&v)[8]) {
-  v[0] = r.lo.x; v[1] = r.lo.y; v[2] = r.lo.z; v[3] = r.lo.w;
-  v[4] = r.hi.x; v[5] = r.hi.y; v[6] = r.hi.z; v[7] = r.hi.w;
-}
-
-// 8 consecutive activations as floats: one vector load where p is 16-byte
-// aligned (the rows of the merged R/K/V output are), else one at a time
-template <typename T>
-__device__ __forceinline__ void load8_any(const T* p, float (&v)[8]) {
-  if ((reinterpret_cast<uintptr_t>(p) & 15) == 0) {
-    load8(p, v);
-  } else {
-#pragma unroll
-    for (int e = 0; e < 8; ++e) v[e] = to_f32(p[e]);
-  }
-}
-
-// the sum over the P neighbouring lanes that hold one state row's columns;
-// every one of them gets the same bits (a butterfly of commutative adds)
-__device__ __forceinline__ float row_sum(float v) {
-#pragma unroll
-  for (int o = 1; o < P; o <<= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
-}
+// the sum over the P neighbouring lanes that hold one state row's columns
+__device__ __forceinline__ float row_sum(float v) { return lanes_sum<P>(v); }
 
 // the sum over a head's row groups of a value that each group's P lanes
 // hold alike: the warp's groups of that head (lane group g holds head g % HB)
@@ -231,26 +175,8 @@ __global__ void __launch_bounds__(NT) wkv7_step_fused_kernel(
     rk = row_sum(rk);
     rb = row_sum(rb);
     // one row at a time: sa_i and the S-part of y_i from the old row, then
-    // the delta update, stored at once
-#pragma unroll
-    for (int q = 0; q < RI; ++q) {
-      uint32_t sp[4] = {raw[q].u.x, raw[q].u.y, raw[q].u.z, raw[q].u.w};
-      float p0 = 0.0f, p1 = 0.0f, y0 = 0.0f, y1 = 0.0f;
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const uint32_t pa = bmul2(sp[e], a2[e]), py = bmul2(sp[e], dr2[e]);
-        p0 += lo_f32(pa);
-        p1 += hi_f32(pa);
-        y0 += lo_f32(py);
-        y1 += hi_f32(py);
-      }
-      const float sa = row_sum(p0 + p1);
-      const uint32_t sa2 = pack2(sa, sa), v2 = pack2(vv[q], vv[q]);
-#pragma unroll
-      for (int e = 0; e < 4; ++e) sp[e] = delta_update(sp[e], d2[e], v2, k2[e], sa2, b2[e]);
-      yv[q] = row_sum(y0 + y1) + vv[q] * rk + sa * rb;
-      if (hv) store_cs(srow + (size_t)q * C, make_uint4(sp[0], sp[1], sp[2], sp[3]));
-    }
+    // the delta update, stored at once (wkv7_common.cuh)
+    rows_bf16<P, RI>(raw, srow, C, a2, b2, k2, d2, dr2, rk, rb, vv, yv, hv);
   } else {
     float d1[8], na[8], nb[8];
 #pragma unroll
@@ -259,30 +185,9 @@ __global__ void __launch_bounds__(NT) wkv7_step_fused_kernel(
       na[e] = -(kp[e] * inv);
       nb[e] = kp[e] * inv * ar[e];
     }
-
-    // recurrence, one row at a time: sa_i and y_i joined over the row's lanes
-#pragma unroll
-    for (int q = 0; q < RI; ++q) {
-      float s[8];
-      unpack(raw[q], s);
-      float p0 = 0.0f, p1 = 0.0f;
-#pragma unroll
-      for (int e = 0; e < 8; e += 2) {
-        p0 += na[e] * s[e];
-        p1 += na[e + 1] * s[e + 1];
-      }
-      const float sa = row_sum(p0 + p1);
-      p0 = p1 = 0.0f;
-#pragma unroll
-      for (int e = 0; e < 8; e += 2) {
-        s[e] = s[e] * d1[e] + vv[q] * kt[e] + sa * nb[e];
-        s[e + 1] = s[e + 1] * d1[e + 1] + vv[q] * kt[e + 1] + sa * nb[e + 1];
-        p0 += s[e] * rr[e];
-        p1 += s[e + 1] * rr[e + 1];
-      }
-      yv[q] = row_sum(p0 + p1);
-      if (hv) store_cs(srow + (size_t)q * C, s);
-    }
+    // the recurrence, one row at a time (wkv7_common.cuh; shared with the
+    // bare kernel's T = 1 path)
+    rows_f32<P, RI>(raw, srow, C, d1, na, kt, nb, rr, vv, yv, hv);
   }
 
   // epilogue: per-head GroupNorm (eps 64e-5) over the 64 rows, plus the bonus

@@ -20,7 +20,12 @@ csrc/wkv7_step.cu and described by ``step_plan``. The chunk kernel's launch
 (state rows a thread, threads a row, tokens a tile) is fixed in
 csrc/wkv7_chunk.cu and described by ``chunk_plan``; its inputs arrive by
 16-byte asynchronous copies, so each row of r, w, k, a and v must start on a
-16-byte boundary (``check_chunk_operands``).
+16-byte boundary (``check_chunk_operands``). The bare kernel has three
+launches, fixed in csrc/wkv7_batch.cu and chosen by ``batch_plan`` from T
+and the arithmetic: the step kernel's row layout at T = 1, the chunked WY
+form on the tensor cores (``wkv7_batch_chunked_reference`` is its algebra)
+for T > 1 in float32 state math, and the chunk kernel's per-token layout for
+T > 1 in the bf16 arithmetic.
 """
 
 from __future__ import annotations
@@ -36,7 +41,7 @@ _P, _I = _kernels.P, _kernels.I
 _SIGNATURES = {
     "wkv7_step": {"wkv7_step_fused": [_P] * 14 + [_I] * 16 + [_P]},
     "wkv7_chunk": {"wkv7_chunk_fused": [_P] * 14 + [_I] * 18 + [_P]},
-    "wkv7_batch": {"wkv7_batch": [_P] * 10 + [_I] * 20 + [_P]},
+    "wkv7_batch": {"wkv7_batch": [_P] * 10 + [_I] * 26 + [_P]},
 }
 
 
@@ -407,6 +412,201 @@ def wkv7_batch_reference(state_l, r, w_raw, k, v, a, b, elapsed, lengths=None, *
     return y.to(r.dtype), new
 
 
+ROUNDINGS = ("none", "tf32", "3xtf32")
+
+
+def _tf32_bits(x):
+    """float32 x's bits as int64 in [0, 2^32)."""
+    return x.contiguous().view(torch.int32).to(torch.int64) & 0xFFFFFFFF
+
+
+def _from_bits(u):
+    return torch.where(u >= 2 ** 31, u - 2 ** 32, u).to(torch.int32).view(torch.float32)
+
+
+def tf32_round(x):
+    """float32 x rounded to TF32's 10-bit mantissa, to nearest even."""
+    u = _tf32_bits(x)
+    return _from_bits((u + 0xFFF + ((u >> 13) & 1)) & 0xFFFFE000)
+
+
+def tf32_trunc(x):
+    """float32 x as the tensor cores read a word that is not TF32: its top
+    19 bits, the mantissa cut to 10 bits toward zero."""
+    return _from_bits(_tf32_bits(x) & 0xFFFFE000)
+
+
+def _rounded_matmul(x, y, rounding):
+    """x @ y with each operand rounded as `rounding` says: "none" as they
+    are; "tf32" both to TF32 (tf32_round); "3xtf32" each split hi + lo, hi =
+    x cut to TF32 (tf32_trunc: one mask in the kernel), lo = x - hi (exact)
+    as the tensor cores read it (tf32_trunc again), and summed lo*hi + hi*lo
+    + hi*hi, the order the kernel accumulates in."""
+    if rounding == "none":
+        return x @ y
+    if rounding == "tf32":
+        return tf32_round(x) @ tf32_round(y)
+    xh, yh = tf32_trunc(x), tf32_trunc(y)
+    xl, yl = tf32_trunc(x - xh), tf32_trunc(y - yh)
+    return xl @ yh + xh @ yl + xh @ yh
+
+
+def wkv7_batch_chunked_reference(state_l, r, w_raw, k, v, a, b, elapsed, lengths=None, *,
+                                 tile=16, rounding="none", use_dither=True,
+                                 dtype=torch.float32):
+    """The chunked WY form of wkv7_batch_reference's float32 recurrence, the
+    algebra csrc/wkv7_batch.cu follows for T > 1 ("highest" and "default"),
+    in plain PyTorch. Used by the tests and chip_smoke.py to size and hold
+    the kernel's arithmetic; no wrapper calls it.
+
+    Tokens go in tiles of `tile` from the state S0 (per head, row i = value,
+    column j = key). Within a tile, g_t = prod_{u<=t} d1_u per column (g_-1
+    = 1), A~_t = g_{t-1} a_t, R~_t = g_t r_t, K^_t = k_t / g_t, B^_t = b_t /
+    g_t; M_ak = tril(A~ K^T, -1), M_ab = tril(A~ B^T, -1), M_rk = tril(R~
+    K^T), M_rb = tril(R~ B^T), shared by the 64 rows; with V (64 x n) the
+    tile's v:
+        SA  = (S0 A~^T + V M_ak^T) (I - M_ab^T)^-1   (forward substitution)
+        Y   = S0 R~^T + V M_rk^T + SA M_rb^T         (y_t = S_t r_t)
+        S_n = (S0 + V K^ + SA B^) diag(g_n)
+    Tokens at or past a row's length take d1 = 1 and a, b, k, r, v = 0, so
+    the state stays and y is set to 0. Every matrix product's operands are
+    rounded as `rounding` says (ROUNDINGS; "tf32" and "3xtf32" need dtype
+    float32); the substitution and the scaling run in `dtype`.
+
+    Shapes as wkv7_batch_reference. Returns y (B, T, C) in `dtype` and the
+    new slab in state_l.dtype (rows of length 0 bit-unchanged)."""
+    if rounding not in ROUNDINGS:
+        raise ValueError(f"wkv7_batch_chunked_reference: unknown rounding {rounding!r}")
+    if rounding != "none" and dtype != torch.float32:
+        raise ValueError("wkv7_batch_chunked_reference: TF32 rounding needs float32")
+    B, T, C = r.shape
+    N, H = HEAD_SIZE, C // HEAD_SIZE
+    if lengths is None:
+        lengths = torch.full((B,), T, dtype=torch.int32, device=r.device)
+    t_idx = torch.arange(T, device=r.device)
+    act = (t_idx[None, :] < lengths[:, None])[:, :, None, None]  # (B, T, 1, 1)
+
+    def heads(x):  # (B, T, C) -> (B, H, T, N), zero where inactive
+        return torch.where(act, x.to(dtype).reshape(B, T, H, N), 0.0).permute(0, 2, 1, 3)
+
+    rs, ks, vs, as_, bs = (heads(x) for x in (r, k, v, a, b))
+    steps = elapsed.to(torch.int64)[:, None, None, None] + t_idx[None, :, None, None]
+    d1 = 1.0 + decay_from_raw(w_raw.reshape(B, T, H, N), steps, use_dither=use_dither)
+    d1 = torch.where(act, d1.to(dtype), 1.0).permute(0, 2, 1, 3)
+    mm = lambda x, y: _rounded_matmul(x, y, rounding)
+    S = state_l.to(dtype).reshape(B, N, H, N).permute(0, 2, 1, 3)  # (B, H, i, j)
+    ys = []
+    for t0 in range(0, T, tile):
+        n = min(tile, T - t0)
+        sl = slice(t0, t0 + n)
+        # the cumulative decay in the kernel's order: a running product over
+        # each 8 tokens, times g at the end of the 8 before
+        g, run = [], None
+        for t in range(n):
+            d = d1[:, :, t0 + t]
+            run = d if t % 8 == 0 else run * d
+            g.append(run if t < 8 else g[t // 8 * 8 - 1] * run)
+        g = torch.stack(g, dim=2)  # (B, H, n, N)
+        g_prev = torch.cat([torch.ones_like(g[:, :, :1]), g[:, :, :-1]], dim=2)
+        At, Rt = as_[:, :, sl] * g_prev, rs[:, :, sl] * g
+        inv = 1.0 / g  # one reciprocal a token and column, as the kernel
+        Kh, Bh = ks[:, :, sl] * inv, bs[:, :, sl] * inv
+        M_ak = torch.tril(mm(At, Kh.transpose(-1, -2)), -1)
+        M_ab = torch.tril(mm(At, Bh.transpose(-1, -2)), -1)
+        M_rk = torch.tril(mm(Rt, Kh.transpose(-1, -2)))
+        M_rb = torch.tril(mm(Rt, Bh.transpose(-1, -2)))
+        Vt = vs[:, :, sl].transpose(-1, -2)  # (B, H, i, n)
+        X = mm(S, At.transpose(-1, -2)) + mm(Vt, M_ak.transpose(-1, -2))
+        SA = torch.empty_like(X)
+        for u in range(n):  # column by column, as the kernel substitutes
+            SA[..., u] = X[..., u]
+            X[..., u + 1:] = X[..., u + 1:] + SA[..., u:u + 1] * M_ab[..., u + 1:, u][:, :, None]
+        Y = mm(S, Rt.transpose(-1, -2)) + mm(Vt, M_rk.transpose(-1, -2)) \
+            + mm(SA, M_rb.transpose(-1, -2))
+        S = (S + mm(Vt, Kh) + mm(SA, Bh)) * g[:, :, n - 1][:, :, None, :]
+        ys.append(Y.permute(0, 3, 1, 2))  # (B, n, H, i)
+    y = torch.where(act, torch.cat(ys, dim=1), 0.0).reshape(B, T, C)
+    new = S.permute(0, 2, 1, 3).reshape(B, N, C).to(state_l.dtype)
+    return y, torch.where((lengths > 0)[:, None, None], new, state_l)
+
+
+class BatchPlan(NamedTuple):
+    """One of the bare kernel's three launches. `path`: "rows" (T = 1: the
+    step kernel's layout, `heads_per_block` heads of one request a block,
+    `rows_per_thread` state rows a thread, `threads_per_row` lanes a row),
+    "wy" (T > 1, float32 state math: one block of 4 warps per (head,
+    request), each warp 16 state rows as m16n8 accumulator tiles, a thread
+    2 rows and a quad (4 lanes) a row; `tile_tokens` tokens a tile on the
+    tensor cores in three TF32 passes a product) or "tokens" (T > 1, the
+    bf16 arithmetic: the chunk kernel's layout, one block per (head,
+    request), `tile_tokens` tokens a tile). The wrapper hands the plan to the
+    kernel's entry, which refuses any launch but its source's."""
+    path: str
+    threads: int
+    heads_per_block: int
+    rows_per_thread: int
+    threads_per_row: int
+    tile_tokens: int
+    grid: Tuple[int, int, int]
+
+
+BATCH_PATHS = {"rows": 0, "wy": 1, "tokens": 2}
+
+
+def batch_plan(B: int, T: int, C: int, precision: str) -> BatchPlan:
+    """The bare kernel's launch for B requests of up to T tokens at width C
+    in the arithmetic `precision` that runs: "bf16" where bf16_mode holds
+    (the wrapper passes "default" for precision="bf16" on a float32 state,
+    whose float32 math the JAX package runs at default dot precision),
+    else "highest" or "default". As csrc/wkv7_batch.cu fixes them:
+    - T = 1, either arithmetic: "rows", the step kernel's launch (step_plan);
+    - T > 1, "highest" or "default": "wy", 16-token tiles, three TF32 passes
+      a product in both: float32-grade products, as "highest" asks; one
+      pass gained 18-22% at a 7% margin on the card (the source note);
+    - T > 1, "bf16": "tokens", chunk_plan's launch (4 rows a thread, 8
+      threads a row, 16-token tiles).
+    Raises ValueError for shapes the kernel does not take (B is a grid
+    dimension of at most 65,535) and for an unknown arithmetic."""
+    if precision not in PRECISIONS:
+        raise ValueError(f"wkv7_batch: unknown precision {precision!r}")
+    if not 1 <= B <= 65535 or T < 1 or C < HEAD_SIZE or C % HEAD_SIZE:
+        raise ValueError(f"wkv7_batch: unsupported shapes B {B}, T {T}, C {C}")
+    heads = C // HEAD_SIZE
+    if T == 1:
+        return BatchPlan("rows", 128, 4, 16, 8, 1, (-(-heads // 4), B, 1))
+    if precision == "bf16":
+        return BatchPlan("tokens", 128, 1, 4, 8, 16, (heads, B, 1))
+    return BatchPlan("wy", 128, 1, 2, 4, 16, (heads, B, 1))
+
+
+def check_batch_operands(state, layer, r, w_raw, k, v, a, b, elapsed, lengths):
+    """What the bare kernel takes, checked on the state's device: state (L,
+    B, 64, H*64), 16-byte aligned; r, w_raw, k, v, a, b (B, T, C) in one
+    float dtype with unit column stride, strides below 2^31; elapsed,
+    lengths (B,) int32. Returns the twelve request and token strides. Raises
+    TypeError, ValueError or IndexError on anything else."""
+    B, T, C = r.shape
+    dev, act = state.device, r.dtype
+    L, _, N, _ = state.shape
+    if state.shape[1] != B or state.shape[3] != C or N != HEAD_SIZE or C % HEAD_SIZE:
+        raise ValueError(f"wkv7_batch: state {tuple(state.shape)} does not hold {B} rows "
+                         f"of width {C} in heads of {HEAD_SIZE}")
+    if not 0 <= layer < L:
+        raise IndexError(f"wkv7_batch: layer {layer} out of range [0, {L})")
+    _kernels.require(state, "state", device=dev, align=16)  # 16-byte row loads
+    for name, t in (("elapsed", elapsed), ("lengths", lengths)):
+        _kernels.require(t, name, dtype=torch.int32, shape=(B,), device=dev)
+    strides = []
+    for name, t in zip(("r", "w_raw", "k", "v", "a", "b"), (r, w_raw, k, v, a, b)):
+        if t.dtype != act or t.device != dev or tuple(t.shape) != (B, T, C) \
+                or t.stride(2) != 1 or max(t.stride(0), t.stride(1)) >= 2 ** 31:
+            raise ValueError(f"wkv7_batch: {name} must be ({B}, {T}, {C}) {act} on {dev} "
+                             f"with unit column stride, got {tuple(t.shape)} {t.dtype} "
+                             f"{t.device} {t.stride()}")
+        strides += [t.stride(0), t.stride(1)]
+    return strides
+
+
 def wkv7_batch(state, r, w_raw, k, v, a, b, elapsed, lengths=None, layer: int = 0, *,
                use_dither: bool = True, precision: str = "highest"):
     """The bare recurrence (the JAX wkv7_pallas_batch with `layer`): advance
@@ -415,7 +615,8 @@ def wkv7_batch(state, r, w_raw, k, v, a, b, elapsed, lengths=None, layer: int = 
     r, w_raw, k (k~), v, a (-kk), b (kk*a_iclr): (B, T, C) in one dtype with
     unit column stride (request and token strides may differ); elapsed: (B,)
     int32 (token t's dither counter is elapsed + t); lengths: (B,) int32, or
-    None for T everywhere; precision: see bf16_mode."""
+    None for T everywhere; precision: see bf16_mode. The kernel (launched as
+    batch_plan says) on CUDA tensors, the plain version on CPU tensors."""
     bf16 = bf16_mode("wkv7_batch", precision, state.dtype)
     B, T, C = r.shape
     if lengths is None:
@@ -427,31 +628,17 @@ def wkv7_batch(state, r, w_raw, k, v, a, b, elapsed, lengths=None, layer: int = 
         return y
     if not state.is_cuda:
         raise ValueError(f"wkv7_batch: no kernel for device {state.device}")
-    dev, act = state.device, r.dtype
-    L, _, N, _ = state.shape
-    if state.shape[1] != B or state.shape[3] != C or N != HEAD_SIZE or C % HEAD_SIZE:
-        raise ValueError(f"wkv7_batch: state {tuple(state.shape)} does not hold {B} rows "
-                         f"of width {C} in heads of {HEAD_SIZE}")
-    if not 0 <= layer < L:
-        raise IndexError(f"wkv7_batch: layer {layer} out of range [0, {L})")
-    _kernels.require(state, "state", device=dev, align=16)  # 16-byte row loads
-    for name, t in (("elapsed", elapsed), ("lengths", lengths)):
-        _kernels.require(t, name, dtype=torch.int32, shape=(B,), device=dev)
-    rows = (r, w_raw, k, v, a, b)
-    strides = []
-    for name, t in zip(("r", "w_raw", "k", "v", "a", "b"), rows):
-        if t.dtype != act or t.device != dev or tuple(t.shape) != (B, T, C) \
-                or t.stride(2) != 1 or max(t.stride(0), t.stride(1)) >= 2 ** 31:
-            raise ValueError(f"wkv7_batch: {name} must be ({B}, {T}, {C}) {act} on {dev} "
-                             f"with unit column stride, got {tuple(t.shape)} {t.dtype} "
-                             f"{t.device} {t.stride()}")
-        strides += [t.stride(0), t.stride(1)]
-    y = torch.empty((B, T, C), dtype=act, device=dev)
+    act_code = _kernels.dtype_code(r, "r")
+    strides = check_batch_operands(state, layer, r, w_raw, k, v, a, b, elapsed, lengths)
+    arithmetic = "bf16" if bf16 else "highest" if precision == "highest" else "default"
+    plan = batch_plan(B, T, C, arithmetic)  # raises for shapes the kernel does not take
+    y = torch.empty((B, T, C), dtype=r.dtype, device=state.device)
     lib = _kernels.library("wkv7_batch", _SIGNATURES["wkv7_batch"])
     code = lib.wkv7_batch(
-        state.data_ptr(), *(t.data_ptr() for t in rows), elapsed.data_ptr(),
-        lengths.data_ptr(), y.data_ptr(), B, T, C, layer, int(use_dither), *strides,
-        _kernels.dtype_code(r, "r"), _kernels.dtype_code(state, "state"), int(bf16),
+        state.data_ptr(), *(t.data_ptr() for t in (r, w_raw, k, v, a, b)), elapsed.data_ptr(),
+        lengths.data_ptr(), y.data_ptr(), B, T, C, layer, int(use_dither), *strides, act_code,
+        _kernels.dtype_code(state, "state"), int(bf16), BATCH_PATHS[plan.path], plan.threads,
+        plan.heads_per_block, plan.rows_per_thread, plan.threads_per_row, plan.tile_tokens,
         _kernels.stream_of(state))
     _kernels.LAUNCHES["wkv7_batch_bf16" if bf16 else "wkv7_batch"] += 1
     _kernels.check(lib, "wkv7_batch", "wkv7_batch", code)
