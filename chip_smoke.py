@@ -45,7 +45,17 @@ Phases, in order; any failure ends the run with a non-zero exit:
    one TF32 pass a product breaks (check_wkv_batch_float32); before them, the
    registers and spills (ptxas -v) of both TMA GEMMs, the quantizer, the
    three WKV kernels and the penalty tail, and the GEMMs' wgmma and TMA
-   instructions (cuobjdump, where present);
+   instructions (cuobjdump, where present); then the exact-row sampler
+   (sample_exact_rows, check_sample_exact) at batch 64, V 65536 with 0, 1,
+   8 and 64 flagged rows against its plain version with handed noise
+   (tokens equal but for at most one row a count whose token the kernel's
+   exact cumulative sum explains where float32's puts the top-p cutoff on
+   another value; such rows are counted), with two planted faults (ties toward the higher id; the
+   cutoff value dropped), 4,096 draws of one row from its own generator
+   against the analytic distribution, its generator against the plain
+   version's Philox, vocabularies of V - 61 and 3 columns, and its time at
+   each count (and for one row of each kind) beside its bytes bound and
+   the torch path it replaced;
 4. the decode path and the compact prefill on a small model, kernels (GPU)
    against plain versions (CPU), and chunked prefill against token-by-token
    feeding on the GPU; the same for the w8a16 configuration (mm8_core
@@ -54,29 +64,43 @@ Phases, in order; any failure ends the run with a non-zero exit:
    with RuntimeConfig(wkv_precision="bf16") on a bf16 state, GPU against
    CPU;
 5. the port's AsyncEngineCore at the full width of the 7.2B model (32 layers,
-   random INT8 weights from a seed), batch 64, serving five short requests
-   (four through SEQ_PREFILL, one through ONE_PREFILL) and four ~1,024-token
-   prompts, with each request's time to first token and every kernel's launch
-   counter read around that run; then one decode block under
-   torch.cuda.set_sync_debug_mode("error"), with the launches per step counted
-   over it; the steady decode rate at batch 64 over 8 blocks, with each
-   block's host dispatch, CPU and wall time; and the device busy time of one
-   block from torch.profiler, with each kernel's ms and launches a step,
+   random INT8 weights from a seed), batch 64, its worker warming up (on the
+   card: capturing as CUDA graphs) every serving program before its
+   handshake, serving five short requests (four through SEQ_PREFILL, one
+   through ONE_PREFILL) and four ~1,024-token prompts, with each request's
+   time to first token and every kernel's launch counter read around that
+   run; the same requests again on a model with graphs=False (time to first
+   token, eager); then on a new carry one decode block replayed under
+   torch.cuda.set_sync_debug_mode("error"), with the launches per step
+   counted over it; the steady decode rate at batch 64 over 8 blocks, with
+   each block's host dispatch, CPU and wall time; the device busy time of
+   one block from torch.profiler, with each kernel's ms and launches a step,
    also summed by group (STEP_GROUPS) (its table goes to
-   chiprun_out/chip_smoke_profile.txt; --profile prints it as well);
+   chiprun_out/chip_smoke_profile.txt; --profile prints it as well); one
+   profiled block with every row greedy, which must show no (B, V) sort and
+   one exact-row launch a step; the same steady decode with graphs=False (3
+   blocks, one profiled); and graphs against eager (check_graphs): two
+   models on the engine's weights from one random state and seed, bit-equal
+   tokens and carry after a greedy 16-step block, a sampled one with
+   penalties and flagged rows, decode_step and each prefill variant, two
+   consecutive replays drawing different noise, a replay under sync debug
+   mode "error" with its launches a step;
 6. chunked prefill at 7.2B width on a batch-256 ServingModel sharing the
-   engine's weights, both variants (8, 256) and (32, 64): launches per chunk
-   (one chunk under sync debug mode "error"), prompt tok/s, host dispatch per
-   chunk and the device busy time per chunk by kernel (torch.profiler; table in
-   chiprun_out/chip_smoke_prefill_profile.txt); then the same weights served
+   engine's weights, both variants (8, 256) and (32, 64), captured as
+   graphs: launches per chunk (one chunk under sync debug mode "error"),
+   prompt tok/s, host dispatch per chunk and the device busy time per chunk
+   by kernel (torch.profiler; table in
+   chiprun_out/chip_smoke_prefill_profile.txt), then the same with
+   graphs=False (2 chunks each); then the same weights served
    with RuntimeConfig(wkv_precision="bf16") (run_bf16_mode): the first
    decode step against the default mode's from the same state, launches per
    step over one decode block and per chunk at (8, 256) and (32, 64) at batch
    256, and the device busy time and WKV kernels' ms in both modes;
 7. path A, the exact w8a16 configuration: phases 5 and 6 again with
    ModelLoadConfig(mm8_core="pallas") after the first engine is freed (4
-   steady blocks; prefill on the batch-64 variant (8, 64)), every int8 product
-   on mm8_w16_gemm and none on the w8a8 kernels;
+   steady blocks with graphs, 2 without; no eager engine run; prefill on the
+   batch-64 variant (8, 64)), every int8 product on mm8_w16_gemm and none on
+   the w8a8 kernels;
 8. path B, the unfused TMix on that model: one forward_step at batch 64 and
    one forward_chunk at (8, 256) with wkv_fn=wkv7_batch, every WKV on the bare
    kernel, against the fused kernels from the same state; then both on layer 0
@@ -94,9 +118,11 @@ from __future__ import annotations
 import argparse
 import asyncio
 import contextlib
+import gc
 import itertools
 import json
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -754,7 +780,8 @@ GEMM_SOURCES = {"mm8_a8": "IGMMA", "mm8_w16": "HGMMA"}
 # the sources whose registers and spills the run reports (ptxas -v): the
 # GEMMs (mm8_a8 holds the quantizer too), the three WKV kernels and the
 # penalty tail
-PTXAS_SOURCES = (*GEMM_SOURCES, "wkv7_chunk", "wkv7_step", "wkv7_batch", "penalty_tail")
+PTXAS_SOURCES = (*GEMM_SOURCES, "wkv7_chunk", "wkv7_step", "wkv7_batch", "penalty_tail",
+                 "sample_exact")
 
 
 def _tile_name(fn):
@@ -1445,6 +1472,294 @@ def check_penalty_tail(dev, gen, V=65536, batches=(64, 512)):
     return result
 
 
+# ------------------------------------------------- the exact-row sampler
+
+def exact_draw(adj, temperature, top_p, top_k, gumbel, fault=None, lse=None):
+    """The rwkv-pip exact draw (ops.sampling.sample_logits_rwkv_pip_compatible)
+    written out again with a planted fault: "ties_high" breaks ties of the
+    stable order toward the higher token id, "cutoff_excluded" drops the
+    values equal to the top-p cutoff. With `lse` (n,), the kernel's
+    arithmetic instead of float32's: p = exp(adj - lse), and the cumulative
+    sum in float64 (the kernel's 2^-48 fixed-point sum is exact to ~1e-10).
+    Rows (n, V) float32; (n,) tokens."""
+    n, V = adj.shape
+    if fault == "ties_high":  # the rows reversed: a stable order then favours high ids
+        flipped = exact_draw(adj.flip(1), temperature, top_p, top_k, gumbel.flip(1))
+        return (V - 1 - flipped).to(torch.int32)
+    t = temperature.reshape(n, 1).float()
+    p_ = top_p.reshape(n, 1).float()
+    zero = t == 0
+    t = torch.where(zero, 1.0, t)
+    p_ = torch.where(zero, 0.0, p_)
+    if lse is None:
+        probs = torch.softmax(adj.float(), dim=-1)
+    else:
+        probs = torch.exp(adj.float() - lse.reshape(n, 1))
+    sp, si = torch.sort(probs, dim=-1, descending=True, stable=True)
+    cum = torch.cumsum(sp if lse is None else sp.double(), dim=-1)
+    pos = (cum < p_.to(cum.dtype)).sum(-1, keepdim=True).clamp(0, V - 1)
+    cut = torch.gather(sp, 1, pos)
+    drop = probs <= cut if fault == "cutoff_excluded" else probs < cut
+    probs = torch.where(drop, 0.0, probs)
+    k = top_k.reshape(n, 1).long()
+    ranks = torch.arange(V, device=adj.device)[None, :]
+    outside = torch.zeros_like(probs, dtype=torch.bool)
+    outside.scatter_(1, si, ranks >= torch.where(k > 0, k, V))
+    probs = torch.where(outside, 0.0, probs)
+    logp = torch.where(probs > 0, torch.log(probs) / t, -float("inf"))
+    return torch.argmax(logp + gumbel, dim=-1).to(torch.int32)
+
+
+def cutoff_kept(adj, lse, temperature, top_p):
+    """How many values each row keeps at its top-p cutoff, (n,) twice: by
+    the plain version's arithmetic (softmax, float32 cumulative sum) and by
+    the kernel's (exp(adj - lse), the sum in float64). Rows (n, V)."""
+    n, V = adj.shape
+    p_ = torch.where(temperature.reshape(n, 1) == 0, 0.0, top_p.reshape(n, 1).float())
+    kept = []
+    for probs, dtype in ((torch.softmax(adj.float(), -1), torch.float32),
+                         (torch.exp(adj.float() - lse.reshape(n, 1)), torch.float64)):
+        sp = torch.sort(probs, dim=-1, descending=True).values
+        cum = torch.cumsum(sp.to(dtype), dim=-1)
+        pos = (cum < p_.to(dtype)).sum(-1, keepdim=True).clamp(0, V - 1)
+        kept.append((probs >= torch.gather(sp, 1, pos)).sum(-1))
+    return kept
+
+
+def rounding_excused(rows, got, adj, lse, temperature, top_p, top_k, gumbel):
+    """Of the rows where the kernel's token differs from the plain
+    version's, those that float rounding of the top-p cutoff explains: the
+    float32 and the float64 cumulative sums keep a different number of
+    values (the cutoff falls on another value; on a row of equal values it
+    never does), and the draw by the kernel's arithmetic (exact_draw with
+    lse) gives the kernel's token."""
+    if not rows:
+        return []
+    r = torch.tensor(rows, device=adj.device)
+    kept32, kept64 = cutoff_kept(adj[r], lse[r], temperature[r], top_p[r])
+    exact_sum = exact_draw(adj[r], temperature[r], top_p[r], top_k[r], gumbel[r], lse=lse[r])
+    ok = (kept32 != kept64) & (exact_sum == got[r])
+    return [row for row, o in zip(rows, ok.tolist()) if o]
+
+
+def exact_rows_inputs(dev, gen, B=64, V=65536):
+    """Rows for the exact-row kernel, five kinds in turn: (a) near-flat bf16
+    logits (many exact ties) with top_p 1 and temperature 2; (b) exactly
+    flat logits with top_k 200 (above the candidate sampler's k_max 128: the
+    first 200 ids are kept); (c) randn * 3 with top_p 0.9, temperature 0.8,
+    top_k 300; (d) randn * 2 with top_p 0.5 (a cutoff mid-row); (e)
+    temperature 0 with top_k 1,000 and a tied maximum at columns 777 and
+    40,000. Sparse penalties on every row. Returns (logits, pres2, occ2,
+    freq, lse, temperature, top_p, top_k)."""
+    u = lambda *s: torch.rand(s, generator=gen, device=dev)
+    z = torch.randn((B, V), generator=gen, device=dev)
+    kind = torch.arange(B, device=dev) % 5
+    scale = torch.tensor([0.01, 0.0, 3.0, 2.0, 3.0], device=dev)[kind]
+    logits = (z * scale[:, None]).to(torch.bfloat16)
+    pres = (u(B, V) < 0.001).float() * 0.5
+    occ = (u(B, V) < 0.001).float() * u(B, V)
+    freq = u(B) * (kind != 1)
+    flat = kind == 1
+    pres[flat], occ[flat] = 0.0, 0.0
+    tied = torch.nonzero(kind == 4).reshape(-1)
+    cols = torch.tensor([777, 40000 % V], device=dev)
+    logits[tied[:, None], cols] = 40.0
+    pres[tied[:, None], cols] = occ[tied[:, None], cols] = 0.0
+    temperature = torch.tensor([2.0, 1.5, 0.8, 1.0, 0.0], device=dev)[kind]
+    top_p = torch.tensor([1.0, 1.0, 0.9, 0.5, 0.3], device=dev)[kind]
+    top_k = torch.tensor([0, 200, 300, 0, 1000], device=dev, dtype=torch.int32)[kind]
+    adj = logits.float() - pres - occ * freq[:, None]
+    lse = torch.logsumexp(adj, dim=-1)
+    return logits, pres, occ, freq, lse, temperature, top_p, top_k
+
+
+def flagged_mask(B, n, dev):
+    """n flagged rows spread over the batch (every row at n = B)."""
+    need = torch.zeros(B, dtype=torch.bool, device=dev)
+    if n:
+        need[torch.linspace(0, B - 1, n, device=dev).round().long()] = True
+    return need
+
+
+def exact_rows_distribution(dev, V=65536, draws=4096, batch=512):
+    """`draws` draws of one row from the kernel's own generator (seeds
+    mode), at V columns: 64 distinct values (randn * 2) at spread columns, -30
+    elsewhere, in bf16. For each case the frequency of every token lies
+    within 0.03 of the analytic filtered distribution (float64, the rwkv-pip
+    rule) and no draw falls outside its support (the rule of
+    tests/test_torch_sampling.py's distribution test). Returns the worst
+    frequency error by case."""
+    from chirrup_tpu_torch.ops.sampling_cuda import sample_exact_rows
+
+    g = torch.Generator(device=dev).manual_seed(21)
+    row = torch.full((V,), -30.0, device=dev)
+    cols = torch.arange(64, device=dev) * (V // 64)
+    row[cols] = torch.randn(64, generator=g, device=dev) * 2
+    row = row.to(torch.bfloat16)
+    out = {}
+    for temp, top_p, top_k in ((1.5, 1.0, 10), (1.0, 0.9, 0), (0.7, 0.6, 5)):
+        x = row.double()
+        p = torch.softmax(x, 0)
+        sp, si = torch.sort(p, descending=True, stable=True)
+        pos = min(int((torch.cumsum(sp, 0) < top_p).sum()), V - 1)
+        p = torch.where(p < sp[pos], 0.0, p)
+        if top_k:
+            p[si[top_k:]] = 0.0
+        p = p ** (1 / temp)
+        expected = p / p.sum()
+        counts = torch.zeros(V, dtype=torch.float64, device=dev)
+        zero = torch.zeros((batch, V), device=dev)
+        for i in range(draws // batch):
+            tokens = torch.full((batch,), -1, dtype=torch.int32, device=dev)
+            seeds = torch.randint(0, 2 ** 62, (batch,), generator=g, device=dev)
+            sample_exact_rows(
+                tokens, torch.ones(batch, dtype=torch.bool, device=dev),
+                row[None].expand(batch, V).contiguous(), zero, zero,
+                torch.zeros(batch, device=dev), torch.logsumexp(row.float(), 0).expand(batch).contiguous(),
+                torch.full((batch,), temp, device=dev), torch.full((batch,), top_p, device=dev),
+                torch.full((batch,), top_k, dtype=torch.int32, device=dev), seeds=seeds)
+            counts += torch.bincount(tokens.long(), minlength=V).double()
+        freq = counts / draws
+        err = float((freq - expected).abs().max())
+        outside = int(((freq > 0) & (expected == 0)).sum())
+        log(f"sample_exact_rows, the kernel's own noise: {draws} draws of one row (V {V}, "
+            f"temperature {temp}, top_p {top_p}, top_k {top_k}): worst frequency error {err:.4f} "
+            f"(tol 0.03), {outside} tokens drawn outside the support")
+        require(err < 0.03 and outside == 0,
+                f"sample_exact_rows: in-kernel noise off the distribution ({err}, {outside})")
+        out[f"T{temp}_p{top_p}_k{top_k}"] = err
+    return out
+
+
+def check_sample_exact(dev, gen, B=64, V=65536, counts=(0, 1, 8, 64)):
+    """The exact-row kernel against its plain version at batch B, V columns
+    (exact_rows_inputs), at each number of flagged rows: with handed noise
+    the tokens of flagged rows equal the plain version's, except at most
+    one row a count that rounding of the top-p cutoff explains
+    (rounding_excused; counted and reported); rows not flagged keep their
+    token, and max_abs_err is the largest |token - plain token| over every
+    row and count. Two planted
+    faults (exact_draw: ties toward the higher id; the cutoff value
+    dropped) must each disagree with the kernel on rows where the plain
+    version agrees. Then the draws of the kernel's own generator against
+    the analytic distribution (exact_rows_distribution), the kernel's own
+    noise against the plain version's Philox (at least 95% of the rows draw
+    the same token), vocabularies of V - 61 and 3 columns, and each count
+    timed in the serving mode (seeds) beside its bytes bound, the plain
+    version, and the torch path the kernel replaced (library_ms: the exact
+    draw on every row, a (B, V) sort, kept where flagged), and one flagged
+    row of each kind alone."""
+    from chirrup_tpu_torch.ops.sampling import gumbel_like, sample_logits_rwkv_pip_compatible
+    from chirrup_tpu_torch.ops.sampling_cuda import (sample_exact_rows,
+                                                     sample_exact_rows_reference)
+
+    logits, pres, occ, freq, lse, temp, top_p, top_k = exact_rows_inputs(dev, gen, B, V)
+    gumbel = -torch.log(torch.empty((B, V), device=dev).exponential_(generator=gen))
+    adj = logits.float() - pres - occ * freq[:, None]
+    marker = torch.full((B,), -7, dtype=torch.int32, device=dev)
+    args = (logits, pres, occ, freq, lse, temp, top_p, top_k)
+    sites, excused_rows, err = [], 0, 0
+    for n in counts:
+        need = flagged_mask(B, n, dev)
+        got = sample_exact_rows(marker.clone(), need, *args, gumbel=gumbel)
+        want = sample_exact_rows_reference(marker.clone(), need, *args, gumbel=gumbel)
+        torch.cuda.synchronize()
+        rows = torch.nonzero(got != want).reshape(-1).tolist()
+        excused = rounding_excused([r for r in rows if bool(need[r])], got, adj, lse, temp,
+                                   top_p, top_k, gumbel)
+        require(set(rows) == set(excused) and len(excused) <= 1,
+                f"sample_exact_rows, {n} flagged: tokens differ from the plain version at rows "
+                f"{rows} (of which rounding of the top-p cutoff explains {excused}; at most "
+                f"one a count may differ)")
+        require(bool((got[~need] == -7).all()), "sample_exact_rows wrote a row not flagged")
+        excused_rows += len(excused)
+        err = max(err, int((got.long() - want.long()).abs().max()))
+        seeds = torch.randint(0, 2 ** 62, (B,), generator=gen, device=dev)
+        toks = marker.clone()
+        ms = device_ms(lambda: sample_exact_rows(toks, need, *args, seeds=seeds))
+        plain = device_ms(lambda: sample_exact_rows_reference(toks, need, *args, seeds=seeds),
+                          iters=2, reps=3) if n else device_ms(
+            lambda: sample_exact_rows_reference(toks, need, *args, seeds=seeds))
+
+        def replaced():
+            exact = sample_logits_rwkv_pip_compatible(
+                logits.float() - pres - occ * freq[:, None], temp, top_p, top_k,
+                gumbel=gumbel_like(adj, gen))
+            return torch.where(need, exact, toks)
+
+        library = device_ms(replaced, iters=5)
+        moved = n * V * (logits.element_size() + 8) + nbytes(need) + 4 * n * 5
+        b, by = bound_ms(moved, 0, "fp32")
+        log(f"sample_exact_rows B{B} V{V}, {n} flagged: tokens equal the plain version's "
+            f"but on {len(rows)} rows, {len(excused)} of them explained by rounding of the "
+            f"top-p cutoff; {ms:.4f} ms (seeds), "
+            f"bound {b:.4f} ms ({by}), plain {plain:.4f} ms, the replaced torch path "
+            f"{library:.4f} ms")
+        sites.append(dict(flagged=n, ms=ms, bound_ms=b, bound_by=by, plain_ms=plain,
+                          library_ms=library, rows_differing=len(rows),
+                          rounding_excused_rows=len(excused)))
+    # the kernel's own noise against the plain version's Philox (numpy): the
+    # same generator, so nearly every row draws the same token (logf and
+    # numpy's log may round a score one step apart)
+    need = flagged_mask(B, B, dev)
+    seeds = torch.randint(0, 2 ** 62, (B,), generator=gen, device=dev)
+    same = int((sample_exact_rows(marker.clone(), need, *args, seeds=seeds)
+                == sample_exact_rows_reference(marker.clone(), need, *args, seeds=seeds)).sum())
+    require(same >= 0.95 * B, f"sample_exact_rows: in-kernel noise draws the plain version's "
+                              f"token on {same} of {B} rows")
+    # a vocabulary that is no multiple of the slices or of 4, and a tiny one
+    for b_odd, v_odd in ((5, V - 61), (3, 3)):
+        odd = exact_rows_inputs(dev, gen, b_odd, v_odd)
+        g_odd = -torch.log(torch.empty((b_odd, v_odd), device=dev).exponential_(generator=gen))
+        all_rows = torch.ones(b_odd, dtype=torch.bool, device=dev)
+        t_odd = torch.full((b_odd,), -7, dtype=torch.int32, device=dev)
+        got = sample_exact_rows(t_odd.clone(), all_rows, *odd, gumbel=g_odd)
+        want = sample_exact_rows_reference(t_odd.clone(), all_rows, *odd, gumbel=g_odd)
+        torch.cuda.synchronize()
+        require(torch.equal(got, want), f"sample_exact_rows B{b_odd} V{v_odd}: tokens "
+                                        f"{got.tolist()}, plain {want.tolist()}")
+    log(f"sample_exact_rows: in-kernel noise draws the plain version's token (its Philox in "
+        f"numpy) on {same} of {B} rows; handed noise equal at B5 V{V - 61} and B3 V3")
+    # one flagged row of each kind (exact_rows_inputs): the time a row takes
+    seeds = torch.randint(0, 2 ** 62, (B,), generator=gen, device=dev)
+    toks = marker.clone()
+    by_kind = {}
+    for kind in range(5):
+        need = torch.zeros(B, dtype=torch.bool, device=dev)
+        need[kind] = True
+        by_kind["abcde"[kind]] = device_ms(lambda: sample_exact_rows(toks, need, *args,
+                                                                     seeds=seeds))
+    log("sample_exact_rows, one flagged row of each kind (exact_rows_inputs): "
+        + ", ".join(f"({k}) {ms:.4f} ms" for k, ms in by_kind.items()))
+    # planted faults, on every row
+    need = flagged_mask(B, B, dev)
+    got = sample_exact_rows(marker.clone(), need, *args, gumbel=gumbel)
+    plain = exact_draw(adj, temp, top_p, top_k, gumbel)
+    faults = {}
+    for fault in ("ties_high", "cutoff_excluded"):
+        bad = exact_draw(adj, temp, top_p, top_k, gumbel, fault=fault)
+        caught = int(((bad != got) & (plain == got)).sum())
+        faults[fault] = caught
+        require(caught >= 4, f"sample_exact_rows: the planted fault {fault} disagrees with the "
+                             f"kernel on only {caught} rows")
+    log(f"sample_exact_rows: planted faults rejected (rows where the fault disagrees and the "
+        f"plain version agrees: {faults}); {excused_rows} rows over all counts explained by "
+        f"rounding of the top-p cutoff; largest |token - plain token| {err}")
+    dist = exact_rows_distribution(dev, V)
+    top = sites[-1]
+    return dict(name="sample_exact_rows", route="cuda",
+                source="chirrup_tpu_torch/csrc/sample_exact.cu",
+                replaces="chirrup_tpu/ops/sampling_pallas.py:282", max_abs_err=err,
+                ms=top["ms"], plain_ms=top["plain_ms"], bound_ms=top["bound_ms"],
+                bound_by=top["bound_by"], library_ms=top["library_ms"],
+                shape=f"({B}, {V}) bf16 logits, {top['flagged']} flagged rows",
+                tolerance="tokens equal, except at most one row a count that rounding of the "
+                          "top-p cutoff explains (max_abs_err in token ids)",
+                rounding_excused_rows=excused_rows, planted_faults=faults,
+                distribution_err=dist, one_row_ms_by_kind=by_kind,
+                philox_rows_equal=same, sites=sites)
+
+
 # ------------------------------------------------- small model, end to end
 
 def check_small_model(dev, wkv_precision="default"):
@@ -1698,8 +2013,8 @@ def expected_launches(L, core, kind, wkv_precision="default"):
     per layer (its bf16-mode instance under wkv_precision "bf16"); per layer
     the w8a8 core ("auto") runs quantize + GEMM for the
     merged R/K/V, Wo, FFN k and FFN v, and the w8a16 core ("pallas") one GEMM
-    for each of R, K, V, Wo, FFN k and FFN v; a step adds the head and one
-    penalty tail."""
+    for each of R, K, V, Wo, FFN k and FFN v; a step adds the head, one
+    penalty tail and one exact-row sampler launch."""
     from chirrup_tpu_torch.ops import _kernels
 
     step = int(kind == "step")
@@ -1710,7 +2025,7 @@ def expected_launches(L, core, kind, wkv_precision="default"):
         out["mm8_w16_gemm"] = 6 * L + step
     else:
         out["mm8_a8_quant_rows"] = out["mm8_a8_gemm"] = 4 * L + step
-    out["penalty_tail"] = step
+    out["penalty_tail"] = out["sample_exact_rows"] = step
     return out
 
 
@@ -1743,6 +2058,11 @@ def write_vocab(path: str, size: int = 65536) -> None:
         f.write("\n".join(lines))
 
 
+# the kernels of a (B, V) sort (cub's radix sorts and PyTorch's segmented-sort
+# helpers: the exact draw in plain PyTorch); a sort of the (B, V / 128)
+# candidates runs PyTorch's in-place small sort (radixSortKVInPlace) instead
+STEP_GROUPS_SORT = (r"DeviceRadixSort|DeviceSegmentedRadixSort|SegmentedSort|sort_postprocess|"
+                    r"fill_index_and_segment")
 # groups of a decode step's kernels by name (group_kernels): the port's own
 # kernels, then PyTorch's glue by what it does; a kernel joins the first
 # group whose pattern its name matches
@@ -1752,8 +2072,10 @@ STEP_GROUPS = [
     ("wkv7_step_fused", r"wkv7_step_fused_kernel"),
     ("mm8_a8_quant_rows", r"quant_rows_kernel"),
     ("penalty_tail", r"penalty_tail_kernel"),
-    ("sampler: the exact path's (B, V) sort", r"RadixSort|radixSort|sort_postprocess|"
-                                              r"fill_index_and_segment"),
+    ("sample_exact_rows", r"sample_exact_kernel"),
+    ("sampler: a (B, V) sort", STEP_GROUPS_SORT),
+    ("sampler: the candidates' sort", r"radixSortKVInPlace|bitonicSort|sortKeyValueInplace|"
+                                      r"warpMergeSort"),
     ("sampler: cumsum, softmax, gathers, noise", r"scan_innermost|SoftMax|scatter_gather|"
                                                  r"distribution_|vectorized_gather"),
     ("copies and casts", r"direct_copy|Memcpy|bfloat16_copy|CatArray|Memset"),
@@ -1779,48 +2101,277 @@ def group_kernels(by_kernel):
     return [(g, ms, n) for g, (ms, n) in sums.items() if n > 0]
 
 
-def run_engine(dev, profile: bool, B=64, L=32, C=4096, V=65536, n_tok=32, blocks=8,
-               long_prompt=1024, mm8_core="auto", tag=""):
-    """The engine phase under mm8 core `mm8_core` ("auto": w8a8; "pallas":
-    w8a16, path A); `tag` names its profile file."""
-    from chirrup_tpu_torch.engine.engine import AsyncEngineCore
-    from chirrup_tpu_torch.engine.structures import ModelLoadConfig
+class Sampled:
+    """Sampling with penalties on: rows the candidates cover when the logits
+    are peaked, flagged for the exact draw when they are flat."""
+    temperature, top_p, top_k = 1.0, 0.3, 0
+    frequency_penalty, presence_penalty, penalty_decay = 0.5, 0.5, 0.996
+    forbidden_tokens = ()
+
+
+class Greedy(Sampled):
+    temperature = 0.0
+
+
+class Hostile(Sampled):
+    """Flagged on every row: top_p 1 at a high temperature."""
+    temperature, top_p = 2.0, 1.0
+
+
+class WideK(Sampled):
+    """Flagged on every row: top_k above the candidate sampler's k_max."""
+    top_p, top_k = 0.9, 200
+
+
+def steady_decode(model, carry, K, blocks):
+    """Steady decode as the worker runs it, every slot decoding: `blocks`
+    K-step blocks, each followed by its one host read. Per block: host
+    dispatch (until decode_block returns), the main thread's CPU time within
+    it, and the wall time through the read."""
+    import numpy as np
+
+    B = model.batch_size
+    ones = np.ones((K, B), bool)
+    tokens = np.full((K, B), 300, np.int32)
+    host_ms, cpu_ms, wall_ms = [], [], []
+    load_before = os.getloadavg()
+    for _ in range(blocks):
+        torch.cuda.synchronize()
+        t0, c0 = time.perf_counter(), time.thread_time()
+        carry, sampled, _ = model.decode_block(carry, tokens, ones, ones, ones)
+        t1, c1 = time.perf_counter(), time.thread_time()
+        sampled.cpu()
+        t2 = time.perf_counter()
+        host_ms.append((t1 - t0) * 1e3)
+        cpu_ms.append((c1 - c0) * 1e3)
+        wall_ms.append((t2 - t0) * 1e3)
+    load_after = os.getloadavg()
+    step_ms = sum(wall_ms) / (blocks * K)
+    return dict(step_ms=step_ms, decode_tok_s=blocks * K * B / (sum(wall_ms) / 1e3),
+                blocks=blocks, host_dispatch_ms=host_ms, host_cpu_ms=cpu_ms,
+                block_wall_ms=wall_ms, load_average=[load_before[0], load_after[0]])
+
+
+def spread(xs):
+    return f"median {statistics.median(xs):.1f}, min {min(xs):.1f}, max {max(xs):.1f}"
+
+
+def profile_block(model, carry, K):
+    """One more block under torch.profiler: (device busy ms a step or None,
+    [(kernel, ms a step, launches a step)], groups, the profiler's
+    averages)."""
+    import numpy as np
+    from torch.profiler import ProfilerActivity, profile as torch_profile
+
+    B = model.batch_size
+    ones = np.ones((K, B), bool)
+    tokens = np.full((K, B), 300, np.int32)
+    with torch_profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        carry, sampled, _ = model.decode_block(carry, tokens, ones, ones, ones)
+        sampled.cpu()
+    averages = prof.key_averages()
+    busy_ms = sum(e.self_device_time_total for e in averages
+                  if e.device_type.name == "CUDA") / 1e3
+    by_kernel = sorted(((e.key, e.self_device_time_total / 1e3 / K, e.count / K)
+                        for e in averages
+                        if e.device_type.name == "CUDA" and e.self_device_time_total > 0),
+                       key=lambda kv: -kv[1])
+    return (busy_ms / K if busy_ms > 0 else None), by_kernel, group_kernels(by_kernel), averages
+
+
+def decode_report(label, B, K, steady, busy, by_kernel, groups):
+    log(f"{label}: steady decode at batch {B}: {steady['step_ms']:.3f} ms per step, "
+        f"{steady['decode_tok_s']:.1f} tok/s (host clock over {steady['blocks']} blocks of "
+        f"{K}); per block: host dispatch ms {spread(steady['host_dispatch_ms'])}; main-thread "
+        f"CPU ms {spread(steady['host_cpu_ms'])}; wall ms {spread(steady['block_wall_ms'])}; "
+        f"{os.cpu_count()} CPUs, load average {steady['load_average'][0]:.2f} -> "
+        f"{steady['load_average'][1]:.2f}")
+    if busy is None:
+        log(f"{label}: device busy per step: not measured (the profiler recorded no device "
+            f"time)")
+        return None
+    idle = 1 - busy / steady["step_ms"]
+    log(f"{label}: device busy per step {busy:.3f} ms (profiler, one block of {K}); against "
+        f"the steady wall {steady['step_ms']:.3f} ms the device is idle {100 * idle:.1f}% of "
+        f"the time; wall / busy {steady['step_ms'] / busy:.3f}; a step by kernel (ms, "
+        f"launches): " + "; ".join(f"{name[:60]} {ms:.4f} ({n:g})"
+                                   for name, ms, n in by_kernel[:16])
+        + "; by group: " + "; ".join(f"{g} {ms:.4f} ({n:g})" for g, ms, n in groups))
+    return idle
+
+
+def carry_diff(a, b):
+    """The carry fields in which two carries differ (bit for bit)."""
+    fields = dict(shift=(a.state.shift, b.state.shift), wkv=(a.state.wkv, b.state.wkv),
+                  elapsed=(a.state.elapsed, b.state.elapsed),
+                  occurrence=(a.occurrence, b.occurrence),
+                  presence=(a.presence_vec, b.presence_vec),
+                  last_sampled=(a.last_sampled, b.last_sampled))
+    return [name for name, (x, y) in fields.items() if not torch.equal(x, y)]
+
+
+def check_graphs(dev, m0, K, seed=17, prefill_batch=256):
+    """The serving programs as CUDA graphs against the same bodies run
+    eagerly, at the engine model's width and weights: two ServingModels on
+    m0's prepared weights, one with graphs and one with graphs=False, the
+    same generator seed, the same random state and slot parameters. Bit for
+    bit, the tokens and the whole carry (shift, wkv, elapsed, occurrence,
+    presence, last_sampled) after: a K-step block with every row greedy;
+    a K-step block with sampling and penalties on at the fixed seed (a
+    quarter of the rows each greedy, Sampled, Hostile and WideK: the last
+    two kinds are flagged on every step and take the exact-row kernel);
+    decode_step (and its raw logits); each compact prefill variant on
+    ragged rows, of the batch-B models and of two batch-`prefill_batch`
+    models from one random state (both variants). Then two consecutive replays
+    must draw different noise, one replay runs under sync debug mode
+    "error", and a replay counts expected_launches(...) plus one exact-row
+    kernel a step. Returns the capture seconds and memory of each program."""
+    import numpy as np
+    from chirrup_tpu_torch.engine.serving import ServingModel
     from chirrup_tpu_torch.ops import _kernels
 
-    tmp = tempfile.TemporaryDirectory()
-    vocab = os.path.join(tmp.name, "vocab.txt")
-    write_vocab(vocab, V)
-    cfg = ModelLoadConfig(model_path="<synthetic>", vocab_path=vocab, vocab_size=V,
-                          quantization="int8", mm8_core=mm8_core,
-                          synthetic_config=dict(n_layer=L, n_embd=C, vocab_size=V))
-    torch.cuda.reset_peak_memory_stats(dev)
-    gen = torch.Generator().manual_seed(3)
-    # (prompt, prefill tokens, temperature, penalties): four short prompts that
-    # prefill in one chunk, one under min_forward_seq_len (ONE_PREFILL), and
-    # four long ones
-    requests = [(f"Request {i}: the port answers", None, temp, pen)
-                for i, (temp, pen) in enumerate([(0.0, 0.0), (0.0, 0.0), (1.0, 0.5),
-                                                 (1.0, 0.5)])]
-    requests.append(("Hi there", None, 0.0, 0.0))
-    requests += [("", torch.randint(1, V, (long_prompt,), generator=gen).tolist(), temp, 0.0)
-                 for temp in (0.0, 0.0, 1.0, 1.0)]
+    B, L, V = m0.batch_size, m0.config.n_layer, m0.config.vocab_size
+    models = {g: ServingModel(m0.config, m0.params, m0.runtime, B,
+                              prefill_chunk=m0.prefill_chunk, device=dev, seed=seed, graphs=g)
+              for g in (True, False)}
+    require(models[True].graphs == (dev.type == "cuda") and not models[False].graphs,
+            "graphs=True did not capture on the card, or graphs=False did")
+    carries = {g: m.init_carry() for g, m in models.items()}
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    kinds = (Greedy, Sampled, Hostile, WideK)
+    for g, m in models.items():
+        for s in range(B):
+            m.insert_slot(carries[g], s, None, Greedy)
+    shift = torch.randn(carries[True].state.shift.shape, generator=gen, device=dev)
+    for li in range(L):
+        w = (torch.randn(carries[True].state.wkv[li].shape, generator=gen, device=dev)
+             * 0.3).to(carries[True].state.wkv.dtype)
+        for c in carries.values():
+            c.state.wkv[li].copy_(w)
+    elapsed = torch.randint(0, 2 ** 20, (B,), generator=gen, device=dev, dtype=torch.int32)
+    for c in carries.values():
+        c.state.shift.copy_(shift)
+        c.state.elapsed.copy_(elapsed)
+    ptrs = {name: t.data_ptr() for name, t in (("wkv", carries[True].state.wkv),
+                                                ("occurrence", carries[True].occurrence))}
+    ones = np.ones((K, B), bool)
+    first = ones.copy()
+    first[0] = False
+    tokens = np.full((K, B), 300, np.int32)
+    mem0 = (torch.cuda.memory_allocated(dev), torch.cuda.memory_reserved(dev))
+    out, checks = {}, []
+
+    def same(label, results):
+        diff = carry_diff(carries[True], carries[False])
+        toks = [torch.equal(a, b) for a, b in zip(*results)]
+        require(not diff and all(toks), f"graphs against eager, {label}: carry fields that "
+                                        f"differ {diff}, outputs equal {toks}")
+        checks.append(label)
+
+    res = {True: models[True].decode_block(carries[True], tokens, first, ones, ones)[1:]}
+    torch.cuda.synchronize()
+    mem1 = (torch.cuda.memory_allocated(dev), torch.cuda.memory_reserved(dev))
+    res[False] = models[False].decode_block(carries[False], tokens, first, ones, ones)[1:]
+    same(f"greedy {K}-step block", (res[True], res[False]))
+    for g, m in models.items():
+        for s in range(B):
+            m._set_params(carries[g], s, kinds[s % 4])
+    res = {g: m.decode_block(carries[g], tokens, first, ones, ones)[1:]
+           for g, m in models.items()}
+    same(f"sampled {K}-step block (seed {seed}, penalties on, hostile rows)",
+         (res[True], res[False]))
+    res = {g: m.decode_step(carries[g], tokens[0], ones[0], ones[0], ones[0])[1:]
+           for g, m in models.items()}
+    same("decode_step (tokens and raw logits)", (res[True], res[False]))
+    rng = np.random.default_rng(seed)
+    for P, T in models[True].prefill_variants:
+        slot_idx = rng.permutation(B)[:P].astype(np.int32)
+        lengths = rng.integers(0, T + 1, P).astype(np.int32)
+        toks = rng.integers(1, V, (P, T)).astype(np.int32)
+        for g, m in models.items():
+            m.prefill_step_compact(carries[g], toks, lengths, slot_idx)
+        same(f"prefill_step_compact ({P}, {T}), ragged", ((), ()))
+    require(ptrs == {"wkv": carries[True].state.wkv.data_ptr(),
+                     "occurrence": carries[True].occurrence.data_ptr()},
+            "a serving program rebound a carry tensor")
+    # both variants of a batch-`prefill_batch` model (the batch-B model has one)
+    wide = {g: ServingModel(m0.config, m0.params, m0.runtime, prefill_batch,
+                            prefill_chunk=m0.prefill_chunk, device=dev, seed=seed, graphs=g)
+            for g in (True, False)}
+    wcarries = {g: m.init_carry() for g, m in wide.items()}
+    for li in range(L):
+        w = (torch.randn(wcarries[True].state.wkv[li].shape, generator=gen, device=dev)
+             * 0.3).to(wcarries[True].state.wkv.dtype)
+        for c in wcarries.values():
+            c.state.wkv[li].copy_(w)
+    for P, T in wide[True].prefill_variants:
+        slot_idx = rng.permutation(prefill_batch)[:P].astype(np.int32)
+        lengths = rng.integers(0, T + 1, P).astype(np.int32)
+        toks = rng.integers(1, V, (P, T)).astype(np.int32)
+        for g, m in wide.items():
+            m.prefill_step_compact(wcarries[g], toks, lengths, slot_idx)
+        diff = carry_diff(wcarries[True], wcarries[False])
+        require(not diff, f"graphs against eager, prefill_step_compact ({P}, {T}) at batch "
+                          f"{prefill_batch}: carry fields that differ {diff}")
+        checks.append(f"prefill_step_compact ({P}, {T}) at batch {prefill_batch}, ragged")
+    del wide, wcarries, w
+    # two consecutive replays draw different noise
+    gm, gcarry = models[True], carries[True]
+    prog = gcarry.programs[("block", K)]
+    noise = []
+    for _ in range(2):
+        gm.decode_block(gcarry, tokens, ones, ones, ones)
+        noise.append([t.clone() for t in prog.noise])
+    require(not torch.equal(noise[0][0], noise[1][0]) and not torch.equal(noise[0][1],
+                                                                            noise[1][1]),
+            "two consecutive replays drew the same noise")
+    # one replay under sync debug mode "error", its launches counted
+    torch.cuda.synchronize()
+    _kernels.reset_launches()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        gm.decode_block(gcarry, tokens, ones, ones, ones)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    per_step = {name: n / K for name, n in _kernels.LAUNCHES.items()}
+    expected = expected_launches(L, m0.mm8_core, "step")
+    require(per_step == expected, f"graph replay: launches per step {per_step}, "
+                                  f"expected {expected}")
+    seconds = {" ".join(map(str, key)): p.seconds for key, p in gcarry.programs.items()}
+    log(f"graphs against eager ({m0.mm8_core!r}, batch {B}, 7.2B width): bit-equal tokens and "
+        f"carry after: {'; '.join(checks)}; no carry tensor rebound; two consecutive replays "
+        f"drew different noise; a replay ran under sync debug mode 'error' with launches per "
+        f"step {per_step}; warm-up and capture seconds by program {seconds}; the block "
+        f"program's capture added {(mem1[0] - mem0[0]) / 2 ** 20:.1f} MiB allocated and "
+        f"{(mem1[1] - mem0[1]) / 2 ** 20:.1f} MiB reserved (graph pool)")
+    out.update(checks=checks, launches_per_step=per_step, capture_seconds=seconds,
+               block_capture_allocated_mib=(mem1[0] - mem0[0]) / 2 ** 20,
+               block_capture_reserved_mib=(mem1[1] - mem0[1]) / 2 ** 20)
+    return models, carries, out
+
+
+def serve_requests(dev, cfg, B, requests, n_tok, model_factory=None):
+    """Serve `requests` ((prompt, prefill tokens, temperature, penalty)) through
+    one AsyncEngineCore worker with warmup_programs=True: every serving
+    program runs (on the card: is captured) before the handshake. Returns
+    the worker's model and block size, the completions, prompt lengths,
+    texts, wall seconds, the launch counters over the requests, the rows fed
+    by each compact prefill chunk, the seconds to load and warm up, and the
+    warm-up and capture seconds of each program on the worker's carry."""
+    from chirrup_tpu_torch.engine.engine import AsyncEngineCore
+    from chirrup_tpu_torch.ops import _kernels
 
     async def serve():
         engine = AsyncEngineCore()
         t0 = time.perf_counter()
-        await engine.init(worker_num=1, model_config=cfg, batch_size=B, load_timeout=600,
-                          device=dev)
+        await engine.init(worker_num=1, model_config=cfg, batch_size=B, load_timeout=900,
+                          device=dev, model_factory=model_factory, warmup_programs=True)
+        load_s = time.perf_counter() - t0
         worker = engine.workers[0]
-        log(f"engine: INT8 model (L{L} C{C} V{V}, mm8_core {mm8_core!r}) loaded in "
-            f"{time.perf_counter() - t0:.1f} s, batch {B}, decode block "
-            f"{worker.decode_block_size}, prefill variants {worker.model.prefill_variants}, "
-            f"at most {worker.max_prefill_count} prompts prefilling")
         model = worker.model
-        numel, stored = code_bytes(model.params)
-        log(f"engine: int8 codes {numel / 2 ** 30:.3f} GiB in storages of "
-            f"{stored / 2 ** 30:.3f} GiB; device memory allocated "
-            f"{torch.cuda.memory_allocated(dev) / 2 ** 30:.2f} GiB after loading")
-        require(numel == stored, "a code tensor holds a second copy of its codes")
+        captures = {" ".join(map(str, key)): p.seconds
+                    for key, p in worker.carry.programs.items()}
         compact_calls = []
         compact = model.prefill_step_compact
 
@@ -1845,22 +2396,76 @@ def run_engine(dev, profile: bool, B=64, L=32, C=4096, V=65536, n_tok=32, blocks
             engine.join(timeout=30)
             del model.prefill_step_compact
         return (model, worker.decode_block_size, comps, n_prompt, texts, wall, launches,
-                compact_calls)
+                compact_calls, load_s, captures)
 
-    model, engine_block, comps, n_prompt, texts, wall, launches, compact_calls = \
-        asyncio.run(serve())
-    peak = torch.cuda.max_memory_allocated(dev)
-    n_gen = sum(len(c.task.generated_tokens) for c in comps)
+    return asyncio.run(serve())
+
+
+def report_requests(label, comps, n_prompt, texts, n_tok):
+    """Each request's status and time to first token; the TTFTs."""
     ttft = []
     for i, (c, text) in enumerate(zip(comps, texts)):
         require(c.task.is_finished() and len(c.task.generated_tokens) == n_tok and text,
-                f"request {i}: status {c.task.request_status}, "
+                f"{label} request {i}: status {c.task.request_status}, "
                 f"{len(c.task.generated_tokens)} tokens, text {text!r}")
         timing = c.task.timing
         ttft.append(timing["first_token"] - timing["enqueue"])
-        log(f"request {i}: {c.task.request_status}, prompt {n_prompt[i]} tokens, "
+        log(f"{label} request {i}: {c.task.request_status}, prompt {n_prompt[i]} tokens, "
             f"{len(c.task.generated_tokens)} generated, time to first token {ttft[-1]:.3f} s, "
             f"text {text[:40]!r}")
+    return ttft
+
+
+def run_engine(dev, profile: bool, B=64, L=32, C=4096, V=65536, n_tok=32, blocks=8,
+               long_prompt=1024, mm8_core="auto", tag="", eager_blocks=3, eager_engine=False,
+               graph_checks=True):
+    """The engine phase under mm8 core `mm8_core` ("auto": w8a8; "pallas":
+    w8a16, path A); `tag` names its profile files. The engine serves with
+    graphs (warmed and captured before the handshake); with `eager_engine`
+    the same requests again on a model with graphs=False sharing the
+    weights (time to first token, eager). Then steady decode with graphs
+    (launches a step over one replay under sync debug mode "error", `blocks`
+    timed blocks, one profiled) beside the same with graphs=False
+    (`eager_blocks` timed, one profiled); a profiled graph block with every
+    row greedy (no row flagged: no (B, V) sort, one exact-row launch a step);
+    and, with `graph_checks`, check_graphs."""
+    from chirrup_tpu_torch.engine.serving import ServingModel
+    from chirrup_tpu_torch.engine.structures import ModelLoadConfig
+    from chirrup_tpu_torch.ops import _kernels
+    from chirrup_tpu_torch.utils.tokenizer import WorldTokenizer
+
+    tmp = tempfile.TemporaryDirectory()
+    vocab = os.path.join(tmp.name, "vocab.txt")
+    write_vocab(vocab, V)
+    cfg = ModelLoadConfig(model_path="<synthetic>", vocab_path=vocab, vocab_size=V,
+                          quantization="int8", mm8_core=mm8_core,
+                          synthetic_config=dict(n_layer=L, n_embd=C, vocab_size=V))
+    torch.cuda.reset_peak_memory_stats(dev)
+    gen = torch.Generator().manual_seed(3)
+    # (prompt, prefill tokens, temperature, penalties): four short prompts that
+    # prefill in one chunk, one under min_forward_seq_len (ONE_PREFILL), and
+    # four long ones
+    requests = [(f"Request {i}: the port answers", None, temp, pen)
+                for i, (temp, pen) in enumerate([(0.0, 0.0), (0.0, 0.0), (1.0, 0.5),
+                                                 (1.0, 0.5)])]
+    requests.append(("Hi there", None, 0.0, 0.0))
+    requests += [("", torch.randint(1, V, (long_prompt,), generator=gen).tolist(), temp, 0.0)
+                 for temp in (0.0, 0.0, 1.0, 1.0)]
+
+    (model, K, comps, n_prompt, texts, wall, launches, compact_calls, load_s,
+     captures) = serve_requests(dev, cfg, B, requests, n_tok)
+    log(f"engine: INT8 model (L{L} C{C} V{V}, mm8_core {mm8_core!r}) loaded, warmed and "
+        f"captured in {load_s:.1f} s (graphs {model.graphs}), batch {B}, decode block {K}, "
+        f"prefill variants {model.prefill_variants}; warm-up and capture seconds by program "
+        f"on the worker's carry: {captures}")
+    numel, stored = code_bytes(model.params)
+    log(f"engine: int8 codes {numel / 2 ** 30:.3f} GiB in storages of "
+        f"{stored / 2 ** 30:.3f} GiB; device memory allocated "
+        f"{torch.cuda.memory_allocated(dev) / 2 ** 30:.2f} GiB after serving")
+    require(numel == stored, "a code tensor holds a second copy of its codes")
+    peak = torch.cuda.max_memory_allocated(dev)
+    n_gen = sum(len(c.task.generated_tokens) for c in comps)
+    ttft = report_requests("graphs:", comps, n_prompt, texts, n_tok)
     log(f"engine: {len(comps)} requests, {n_gen} tokens in {wall:.3f} s "
         f"({n_gen / wall:.1f} tok/s, {len(comps)} of {B} slots busy); "
         f"{len(compact_calls)} compact prefill chunks (rows fed {compact_calls}); "
@@ -1873,25 +2478,40 @@ def run_engine(dev, profile: bool, B=64, L=32, C=4096, V=65536, n_tok=32, blocks
     for name, count in launches.items():
         require((count > 0) == (name in on_path),
                 f"kernel {name} launched {count} times on the {mm8_core!r} engine path")
+    out = dict(engine_tok_s=n_gen / wall, ttft_s=ttft, compact_chunks=len(compact_calls),
+               engine_load_warm_s=load_s, block_steps=K, engine_capture_seconds=captures)
 
-    # steady decode: every slot decoding, K-step blocks on device feedback
-    class Sampled:
-        temperature, top_p, top_k = 1.0, 0.3, 0
-        frequency_penalty, presence_penalty, penalty_decay = 0.5, 0.5, 0.996
-        forbidden_tokens = ()
+    def eager_model():
+        return ServingModel(model.config, model.params, model.runtime, B,
+                            prefill_chunk=model.prefill_chunk, device=dev, graphs=False)
 
+    if eager_engine:
+        em, _, comps_e, n_prompt_e, texts_e, wall_e, _, _, load_e, _ = serve_requests(
+            dev, cfg, B, requests, n_tok,
+            model_factory=lambda: (eager_model(), WorldTokenizer(vocab)))
+        require(not em.graphs, "the eager engine's model captured graphs")
+        ttft_e = report_requests("eager:", comps_e, n_prompt_e, texts_e, n_tok)
+        n_gen_e = sum(len(c.task.generated_tokens) for c in comps_e)
+        log(f"engine, eager (graphs=False): {n_gen_e} tokens in {wall_e:.3f} s "
+            f"({n_gen_e / wall_e:.1f} tok/s); loaded and warmed in {load_e:.1f} s")
+        out.update(eager_engine_tok_s=n_gen_e / wall_e, eager_ttft_s=ttft_e)
+        del em, comps_e
+
+    # steady decode with graphs: every slot decoding, K-step blocks on device
+    # feedback, penalties on
     import numpy as np
     carry = model.init_carry()
     for s in range(B):
         model.insert_slot(carry, s, None, Sampled)
-    K = engine_block
     ones = np.ones((K, B), bool)
     first = ones.copy()
     first[0] = False
     tokens = np.full((K, B), 300, np.int32)
-    carry, sampled, _ = model.decode_block(carry, tokens, first, ones, ones)
+    t0 = time.perf_counter()
+    carry, sampled, _ = model.decode_block(carry, tokens, first, ones, ones)  # captures
     torch.cuda.synchronize()
-    # launches per step, counted over one block; the block must also run
+    first_call_s = time.perf_counter() - t0
+    # launches per step, counted over one replay; the replay must also run
     # without a host synchronisation
     _kernels.reset_launches()
     torch.cuda.set_sync_debug_mode("error")
@@ -1901,86 +2521,81 @@ def run_engine(dev, profile: bool, B=64, L=32, C=4096, V=65536, n_tok=32, blocks
         torch.cuda.set_sync_debug_mode("default")
     per_step = {name: n / K for name, n in _kernels.LAUNCHES.items()}
     torch.cuda.synchronize()
-    log(f"decode_block: no host synchronisation inside a block (sync debug mode 'error'); "
-        f"launches per step {per_step}")
+    log(f"decode_block: the first call on a new carry (warm-up and capture, then a replay) "
+        f"{first_call_s:.2f} s; no host synchronisation inside a replay (sync debug mode "
+        f"'error'); launches per step {per_step}")
     require(per_step == expected, f"launches per step {per_step}, expected {expected}")
     logits = model.decode_step(carry, tokens[0], ones[0], ones[0], ones[0])[2]
     require(tuple(logits.shape) == (B, V) and bool(torch.isfinite(logits).all()),
             "decode logits not finite or of the wrong shape")
-
-    # Steady decode as the worker runs it: one block, then its one host read.
-    # Per block: host dispatch (until decode_block returns), the main thread's
-    # CPU time within it, and the wall time through the read.
-    host_ms, cpu_ms, wall_ms = [], [], []
-    load_before = os.getloadavg()
-    for _ in range(blocks):
-        torch.cuda.synchronize()
-        t0, c0 = time.perf_counter(), time.thread_time()
-        carry, sampled, _ = model.decode_block(carry, tokens, ones, ones, ones)
-        t1, c1 = time.perf_counter(), time.thread_time()
-        sampled.cpu()
-        t2 = time.perf_counter()
-        host_ms.append((t1 - t0) * 1e3)
-        cpu_ms.append((c1 - c0) * 1e3)
-        wall_ms.append((t2 - t0) * 1e3)
-    load_after = os.getloadavg()
-    wall_total = sum(wall_ms) / 1e3
-    step_ms = sum(wall_ms) / (blocks * K)
-    tok_s = blocks * K * B / wall_total
-
-    def spread(xs):
-        return f"median {statistics.median(xs):.1f}, min {min(xs):.1f}, max {max(xs):.1f}"
-
-    log(f"steady decode at batch {B}: {step_ms:.3f} ms per step, {tok_s:.1f} tok/s "
-        f"(host clock over {blocks} blocks of {K}); per block: host dispatch ms "
-        f"{spread(host_ms)}; main-thread CPU ms {spread(cpu_ms)}; wall ms {spread(wall_ms)}; "
-        f"{os.cpu_count()} CPUs, load average {load_before[0]:.2f} -> {load_after[0]:.2f}")
-
-    # device busy time of one more block, from the profiler's kernel records
-    from torch.profiler import ProfilerActivity, profile as torch_profile
-
-    with torch_profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        carry, sampled, _ = model.decode_block(carry, tokens, ones, ones, ones)
-        sampled.cpu()
-    averages = prof.key_averages()
-    busy_ms = sum(e.self_device_time_total for e in averages
-                  if e.device_type.name == "CUDA") / 1e3
-    busy = busy_ms / K if busy_ms > 0 else None
-    # device ms a step by kernel name, with launches a step
-    by_kernel = sorted(((e.key, e.self_device_time_total / 1e3 / K, e.count / K)
-                        for e in averages
-                        if e.device_type.name == "CUDA" and e.self_device_time_total > 0),
-                       key=lambda kv: -kv[1])
-    groups = group_kernels(by_kernel)
+    steady = steady_decode(model, carry, K, blocks)
+    busy, by_kernel, groups, averages = profile_block(model, carry, K)
     os.makedirs(OUT_DIR, exist_ok=True)
     with open(os.path.join(OUT_DIR, f"chip_smoke{tag}_profile.txt"), "w") as f:
         f.write(averages.table(sort_by="self_cuda_time_total", row_limit=40))
-    if busy is None:
-        log("device busy per step: not measured (the profiler recorded no device time)")
-    else:
-        log(f"device busy per step {busy:.3f} ms (profiler, one block of {K}); against the "
-            f"steady wall {step_ms:.3f} ms the device is idle "
-            f"{100 * (1 - busy / step_ms):.1f}% of the time; a step by kernel (ms, launches): "
-            + "; ".join(f"{name[:60]} {ms:.4f} ({n:g})" for name, ms, n in by_kernel[:16])
-            + "; by group: " + "; ".join(f"{g} {ms:.4f} ({n:g})" for g, ms, n in groups))
+    idle = decode_report("graphs" if model.graphs else "eager (the CPU)", B, K, steady, busy,
+                         by_kernel, groups)
     if profile:
         log(averages.table(sort_by="self_cuda_time_total", row_limit=30))
-    return model, launches, per_step, dict(
-        engine_tok_s=n_gen / wall, ttft_s=ttft, compact_chunks=len(compact_calls),
-        step_ms=step_ms, decode_tok_s=tok_s, blocks=blocks,
-        block_steps=K, host_dispatch_ms=host_ms, host_cpu_ms=cpu_ms, block_wall_ms=wall_ms,
-        device_busy_step_ms=busy, device_ms_by_kernel_step=by_kernel,
-        device_ms_by_group_step=groups,
-        load_average=[load_before[0], load_after[0]],
-        peak_gib=peak / 2 ** 30)
+    out.update(steady, first_block_call_s=first_call_s, device_busy_step_ms=busy,
+               idle_share=idle, device_ms_by_kernel_step=by_kernel,
+               device_ms_by_group_step=groups)
+
+    # a greedy block: no row flagged, so the exact-row kernel returns at once
+    # on every row and nothing sorts a (B, V) row
+    for s in range(B):
+        model._set_params(carry, s, Greedy)
+    model.decode_block(carry, tokens, first, ones, ones)
+    g_busy, g_kernels, g_groups, g_avg = profile_block(model, carry, K)
+    with open(os.path.join(OUT_DIR, f"chip_smoke{tag}_greedy_profile.txt"), "w") as f:
+        f.write(g_avg.table(sort_by="self_cuda_time_total", row_limit=40))
+    if g_busy is not None:
+        exact = [(n, ms, c) for n, ms, c in g_kernels if "sample_exact_kernel" in n]
+        sorts = [(n, ms, c) for n, ms, c in g_kernels
+                 if re.search(STEP_GROUPS_SORT, n)]
+        log(f"graphs, every row greedy: device busy per step {g_busy:.3f} ms; the exact-row "
+            f"kernel {exact} (ms, launches a step); (B, V) sort kernels {sorts}")
+        require(not sorts and exact and exact[0][2] == 1,
+                f"a greedy graph step sorted a (B, V) row ({sorts}) or ran the exact-row "
+                f"kernel otherwise than once ({exact})")
+        out.update(greedy_device_busy_step_ms=g_busy,
+                   greedy_exact_rows_ms_step=exact[0][1])
+    else:
+        log("graphs, every row greedy: not measured (the profiler recorded no device time)")
+
+    # the same steady decode eagerly (graphs=False), on the same weights
+    if not eager_blocks:
+        torch.cuda.empty_cache()
+        out["peak_gib"] = torch.cuda.max_memory_allocated(dev) / 2 ** 30
+        return model, launches, per_step, out
+    em = eager_model()
+    ecarry = em.init_carry()
+    for s in range(B):
+        em.insert_slot(ecarry, s, None, Sampled)
+    em.decode_block(ecarry, tokens, first, ones, ones)
+    e_steady = steady_decode(em, ecarry, K, eager_blocks)
+    e_busy, e_kernels, e_groups, e_avg = profile_block(em, ecarry, K)
+    with open(os.path.join(OUT_DIR, f"chip_smoke{tag}_eager_profile.txt"), "w") as f:
+        f.write(e_avg.table(sort_by="self_cuda_time_total", row_limit=40))
+    e_idle = decode_report("eager (graphs=False)", B, K, e_steady, e_busy, e_kernels, e_groups)
+    out["eager"] = dict(e_steady, device_busy_step_ms=e_busy, idle_share=e_idle,
+                        device_ms_by_group_step=e_groups)
+    del em, ecarry
+    if graph_checks:
+        _, _, out["graphs"] = check_graphs(dev, model, K)
+    torch.cuda.empty_cache()
+    out["peak_gib"] = torch.cuda.max_memory_allocated(dev) / 2 ** 30
+    return model, launches, per_step, out
 
 
-def run_prefill(dev, engine_model, profile: bool, B=256, chunks=4, tag=""):
+def run_prefill(dev, engine_model, profile: bool, B=256, chunks=4, tag="", graphs=True):
     """Compact prefill at 7.2B width on a batch-B ServingModel that shares
-    the engine model's prepared weights, for each (P, T) variant: launches per
-    chunk (one chunk under sync debug mode "error"), then `chunks` chunks timed
-    on the host clock (dispatch, and wall through a synchronise), then one more
-    under the profiler for the device busy time by kernel."""
+    the engine model's prepared weights, with CUDA graphs or (graphs=False)
+    eagerly, for each (P, T) variant: the first chunk (with graphs: warm-up
+    and capture), launches per chunk (one chunk under sync debug mode
+    "error"), then `chunks` chunks timed on the host clock (dispatch, and
+    wall through a synchronise), then one more under the profiler for the
+    device busy time by kernel."""
     import numpy as np
     from chirrup_tpu_torch.engine.serving import ServingModel
     from chirrup_tpu_torch.ops import _kernels
@@ -1988,11 +2603,12 @@ def run_prefill(dev, engine_model, profile: bool, B=256, chunks=4, tag=""):
 
     m0 = engine_model
     model = ServingModel(m0.config, m0.params, m0.runtime, B,
-                         prefill_chunk=m0.prefill_chunk, device=dev)
+                         prefill_chunk=m0.prefill_chunk, device=dev, graphs=graphs)
     ptr = lambda w: getattr(w, "q", w).data_ptr()
     require(all(ptr(a) == ptr(b) for a, b in zip(model.params["blocks"]["att"].values(),
                                                  m0.params["blocks"]["att"].values())),
             "the batch-256 model copied the weights")
+    mode = "graphs" if model.graphs else "eager (graphs=False)"
     L, V = m0.config.n_layer, m0.config.vocab_size
     carry = model.init_carry()
     rng = np.random.default_rng(4)
@@ -2005,8 +2621,10 @@ def run_prefill(dev, engine_model, profile: bool, B=256, chunks=4, tag=""):
             tokens = rng.integers(1, V, (P, T)).astype(np.int32)
             return model.prefill_step_compact(carry, tokens, lengths, slot_idx)
 
+        t0 = time.perf_counter()
         chunk()
         torch.cuda.synchronize()
+        first_s = time.perf_counter() - t0
         _kernels.reset_launches()
         torch.cuda.set_sync_debug_mode("error")
         try:
@@ -2040,15 +2658,16 @@ def run_prefill(dev, engine_model, profile: bool, B=256, chunks=4, tag=""):
                       + averages.table(sort_by="self_cuda_time_total", row_limit=30))
         wall = statistics.median(wall_ms)
         top = "; ".join(f"{name[:48]} {ms:.2f}" for name, ms in kernels[:6])
-        log(f"prefill ({P}, {T}) at batch {B}, 7.2B width, mm8_core {m0.mm8_core!r}: launches "
-            f"per chunk {per_chunk} "
+        log(f"prefill ({P}, {T}) at batch {B}, 7.2B width, mm8_core {m0.mm8_core!r}, {mode}: "
+            f"first chunk {first_s:.2f} s; launches per chunk {per_chunk} "
             f"(no host synchronisation: sync debug mode 'error'); {tok_s:.1f} prompt tok/s "
             f"over {chunks} chunks; per chunk host dispatch ms "
             f"{statistics.median(host_ms):.1f} (min {min(host_ms):.1f}, max {max(host_ms):.1f}), "
             f"wall ms {wall:.1f} (min {min(wall_ms):.1f}, max {max(wall_ms):.1f}); device busy "
             f"{busy:.2f} ms a chunk (profiler), idle {100 * (1 - busy / wall):.1f}% of the "
             f"median wall; by kernel (ms): {top}")
-        results.append(dict(variant=[P, T], launches_per_chunk=per_chunk, prompt_tok_s=tok_s,
+        results.append(dict(variant=[P, T], graphs=model.graphs, first_chunk_s=first_s,
+                            launches_per_chunk=per_chunk, prompt_tok_s=tok_s,
                             host_dispatch_ms=host_ms, chunk_wall_ms=wall_ms,
                             device_busy_chunk_ms=busy, device_ms_by_kernel=kernels[:12]))
     os.makedirs(OUT_DIR, exist_ok=True)
@@ -2301,7 +2920,7 @@ def run_unfused(dev, m, B=64, P=8, T=256, tol=3e-2, precision="default"):
         (l_f, s_f, ms_f, _), (l_u, s_u, ms_u, launches) = runs["fused"], runs["unfused"]
         expected = expected_launches(L, m.mm8_core, kind)
         expected.update({"wkv7_step_fused": 0, "wkv7_chunk_fused": 0, "penalty_tail": 0,
-                         "wkv7_batch_bf16" if bf16 else "wkv7_batch": L})
+                         "sample_exact_rows": 0, "wkv7_batch_bf16" if bf16 else "wkv7_batch": L})
         require(launches == expected,
                 f"path B {precision} {kind}: launches {launches}, expected {expected}")
         errs, excess = {}, {}
@@ -2486,15 +3105,41 @@ def compare_batch(dev, C=4096, L=32):
     return out
 
 
-def compare_engine(dev, tag):
-    """The w8a8 engine phase (run_engine, two steady blocks) on whichever
-    chirrup_tpu_torch is imported: the decode step's device busy time and
-    its kernels by group, from the profiler."""
-    model, _, _, path = run_engine(dev, False, blocks=2, tag=tag)
-    del model
+def compare_engine(dev, tag, B=64, L=32, C=4096, V=65536, K=16, blocks=2):
+    """The w8a8 decode step at the engine's width on whichever
+    chirrup_tpu_torch is imported (through engine.build_model_factory and
+    ServingModel.decode_block, which every tree of the port has): every
+    slot sampling with penalties, one block to warm up, `blocks` steady
+    blocks and one profiled. Returns the step's device busy time, its
+    kernels by group, the steady step time and the decode rate."""
+    import numpy as np
+    from chirrup_tpu_torch.engine.engine import build_model_factory
+    from chirrup_tpu_torch.engine.structures import ModelLoadConfig
+
+    tmp = tempfile.TemporaryDirectory()
+    vocab = os.path.join(tmp.name, "vocab.txt")
+    write_vocab(vocab, V)
+    cfg = ModelLoadConfig(model_path="<synthetic>", vocab_path=vocab, vocab_size=V,
+                          quantization="int8",
+                          synthetic_config=dict(n_layer=L, n_embd=C, vocab_size=V))
+    model, _ = build_model_factory(cfg, B, device=dev)()
+    carry = model.init_carry()
+    for s in range(B):
+        model.insert_slot(carry, s, None, Sampled)
+    ones = np.ones((K, B), bool)
+    first = ones.copy()
+    first[0] = False
+    model.decode_block(carry, np.full((K, B), 300, np.int32), first, ones, ones)
+    steady = steady_decode(model, carry, K, blocks)
+    busy, by_kernel, groups, averages = profile_block(model, carry, K)
+    os.makedirs(OUT_DIR, exist_ok=True)
+    with open(os.path.join(OUT_DIR, f"chip_smoke{tag}_profile.txt"), "w") as f:
+        f.write(averages.table(sort_by="self_cuda_time_total", row_limit=40))
+    decode_report(f"compare{tag}", B, K, steady, busy, by_kernel, groups)
+    del model, carry
     torch.cuda.empty_cache()
-    return {k: path[k] for k in ("device_busy_step_ms", "device_ms_by_group_step", "step_ms",
-                                 "decode_tok_s")}
+    return dict(device_busy_step_ms=busy, device_ms_by_group_step=groups,
+                step_ms=steady["step_ms"], decode_tok_s=steady["decode_tok_s"])
 
 
 # one tree's run of the comparison, in a process of its own started in that
@@ -2633,6 +3278,10 @@ def main(argv=None) -> int:
     kernels = [check_wkv(dev, gen), check_chunk(dev, gen), check_wkv_batch(dev, gen),
                *check_mm8(dev, gen), check_w16(dev, gen), check_penalty_tail(dev, gen)]
     torch.cuda.empty_cache()
+    # the exact-row sampler, from a generator of its own (the draws above stay
+    # those of earlier trees)
+    kernels.append(check_sample_exact(dev, torch.Generator(device=dev).manual_seed(11)))
+    torch.cuda.empty_cache()
     # the WKV kernels' precision="bf16" instances, from a generator of their
     # own (the draws above stay those of earlier trees)
     gen_bf16 = torch.Generator(device=dev).manual_seed(9)
@@ -2670,14 +3319,20 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
     # the w8a8 serving path, then path A (w8a16) once the first model is
     # freed, then path B (unfused TMix) on path A's weights
-    model, launches, per_step, path = run_engine(dev, args.profile)
+    model, launches, per_step, path = run_engine(dev, args.profile, eager_engine=True)
     prefill = run_prefill(dev, model, args.profile)
+    path["prefill_eager"] = run_prefill(dev, model, False, chunks=2, tag="_eager",
+                                        graphs=False)
     bf16_path = run_bf16_mode(dev, model, path["block_steps"])
     del model
+    gc.collect()
     torch.cuda.empty_cache()
     model, w16_launches, w16_step, path_a = run_engine(dev, args.profile, blocks=4,
-                                                       mm8_core="pallas", tag="_w16")
+                                                       mm8_core="pallas", tag="_w16",
+                                                       eager_blocks=2)
     path_a["prefill"] = run_prefill(dev, model, args.profile, B=64, chunks=4, tag="_w16")
+    path_a["prefill_eager"] = run_prefill(dev, model, False, B=64, chunks=2,
+                                          tag="_w16_eager", graphs=False)
     path_b = run_unfused(dev, model)
     path_b_bf16 = run_unfused(dev, model, precision="bf16")
     del model

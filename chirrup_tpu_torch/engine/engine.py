@@ -103,10 +103,13 @@ class AsyncEngineCore:
     async def init(self, worker_num: int, model_config: ModelLoadConfig,
                    batch_size: int = 32, *, load_timeout: float = 300.0,
                    decode_block_size: Optional[int] = None,
-                   model_factory: Optional[Callable] = None, device=None) -> None:
+                   model_factory: Optional[Callable] = None, device=None,
+                   warmup_programs: bool = False) -> None:
         """Spawn workers and wait for their worker_loaded handshake. Worker k
         runs on `device`, or on CUDA device k mod the device count when none is
-        given; model_factory replaces the synthetic-model factory."""
+        given; model_factory replaces the synthetic-model factory.
+        warmup_programs: each worker runs every serving program once (on
+        CUDA: captures its graphs) before it reports itself loaded."""
         if self.is_initialized:
             raise RuntimeError("Workers already initialized")
         if self.is_shutdown:
@@ -128,7 +131,8 @@ class AsyncEngineCore:
             worker = Worker(worker_id=f"worker_{k}", model_factory=factory,
                             task_queue=self.task_queue, master_event_queue=master_q,
                             worker_event_queue=self.worker_event_queue,
-                            batch_size=batch_size, decode_block_size=decode_block_size)
+                            batch_size=batch_size, decode_block_size=decode_block_size,
+                            warmup_programs=warmup_programs)
             self.workers.append(worker)
             self.worker_threads.append(start_worker_thread(worker))
 

@@ -16,12 +16,27 @@ jitted programs with donated buffers; here the buffers are simply written):
 
 Shapes never depend on occupancy: slots are masked, never moved (the compact
 prefill gathers its rows and writes them back).
+
+On a CUDA device, decode_block (at each K), decode_step and
+prefill_step_compact (at each of its `prefill_variants`) each run as one
+CUDA graph per carry and shape, the counterpart of the JAX package's jitted
+programs: the first call on a carry, or Worker's warm-up, runs the body
+twice on all-inactive inputs (which leave the carry as it is) on a side
+stream and captures it; every call then stages its host arrays into the
+program's static device buffers (one copy from a pinned buffer, two used in
+turn), draws the program's noise from carry.rng into static buffers, and
+replays the graph. The graphs hold the addresses of the weights, the
+carry's tensors and their own intermediates, so no carry tensor is ever
+rebound. `ServingModel(..., graphs=False)` runs the same bodies eagerly on
+the same staged inputs and noise (the reference the graphs are held to);
+the CPU always runs them eagerly.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Callable, Dict, Optional, Union
+import time
+from typing import Any, Callable, Dict, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -31,8 +46,8 @@ from chirrup_tpu_torch.engine.structures import NO_PENALTY_TOKEN_IDS, RequestSta
 from chirrup_tpu_torch.models import rwkv7 as model
 from chirrup_tpu_torch.models.config import RWKV7Config, RuntimeConfig
 from chirrup_tpu_torch.models.rwkv7 import RWKVState
-from chirrup_tpu_torch.ops import mm8
-from chirrup_tpu_torch.ops.sampling_cuda import penalty_tail, sample_from_chunks
+from chirrup_tpu_torch.ops import _kernels, mm8
+from chirrup_tpu_torch.ops.sampling_cuda import CHUNK, penalty_tail, sample_from_chunks
 
 
 @dataclasses.dataclass
@@ -53,6 +68,9 @@ class BatchCarry:
     penalty_decay: torch.Tensor      # (B,) f32
     last_sampled: torch.Tensor     # (B,) i32 — device-resident decode feedback
     rng: torch.Generator
+    # the serving programs of this carry by (kind, shape); a captured graph
+    # holds the addresses of the carry's tensors
+    programs: Dict[Tuple, "_Program"] = dataclasses.field(default_factory=dict, repr=False)
 
 
 def forbidden_bias_row(forbidden_ids, V) -> np.ndarray:
@@ -150,18 +168,140 @@ def _pack_att_lora(params):
     return {**params, "blocks": {**params["blocks"], "att": att}}
 
 
+_ALIGN = 16  # int32 elements: each staged input starts on a 64-byte boundary
+
+
+class _Staging:
+    """A program's host inputs in one static int32 device buffer. On CUDA
+    the host writes a pinned buffer and copies it asynchronously; two
+    pinned buffers are used in turn, each with an event, so the host never
+    rewrites one whose copy is still queued."""
+
+    def __init__(self, shapes: Sequence[Tuple[int, ...]], device: torch.device):
+        self.shapes = [tuple(sh) for sh in shapes]
+        self.offsets = []
+        n = 0
+        for sh in self.shapes:
+            self.offsets.append(n)
+            n += -(-int(np.prod(sh, dtype=np.int64)) // _ALIGN) * _ALIGN
+        self.host = np.zeros((n,), np.int32)
+        self.buffer = torch.zeros((n,), dtype=torch.int32, device=device)
+        self.cuda = device.type == "cuda"
+        if self.cuda:
+            self.pinned = [torch.zeros((n,), dtype=torch.int32).pin_memory() for _ in range(2)]
+            self.events = [torch.cuda.Event(), torch.cuda.Event()]
+            self.used = [False, False]
+            self.turn = 0
+
+    def views(self) -> Tuple[torch.Tensor, ...]:
+        """The device buffer's view of each input."""
+        return tuple(self.buffer[o:o + int(np.prod(sh, dtype=np.int64))].view(sh)
+                     for o, sh in zip(self.offsets, self.shapes))
+
+    def put(self, arrays: Sequence[np.ndarray]) -> None:
+        """Stage the host arrays (one for each shape) on the current stream."""
+        for o, sh, a in zip(self.offsets, self.shapes, arrays):
+            self.host[o:o + int(np.prod(sh, dtype=np.int64))] = np.asarray(a).reshape(-1)
+        if not self.cuda:
+            self.buffer.copy_(torch.from_numpy(self.host))
+            return
+        i, self.turn = self.turn, self.turn ^ 1
+        if self.used[i] and not self.events[i].query():
+            self.events[i].synchronize()
+        self.pinned[i].numpy()[:] = self.host
+        self.buffer.copy_(self.pinned[i], non_blocking=True)
+        self.events[i].record(torch.cuda.current_stream(self.buffer.device))
+        self.used[i] = True
+
+
+class _Program:
+    """One serving program on one carry: its staged inputs, its noise
+    buffers (gumbel (K, B, k) and seeds (K, B), drawn before every run) and
+    its body, a function of the carry (the program holds no reference to
+    the carry, which holds it); with `graph`, the CUDA graph of the body on
+    that carry, its static outputs and the kernel launches one replay
+    makes."""
+
+    def __init__(self, staging: _Staging,
+                 body: Callable[["BatchCarry"], Tuple[torch.Tensor, ...]],
+                 noise: Optional[Tuple[torch.Tensor, torch.Tensor]] = None):
+        self.staging = staging
+        self.body = body
+        self.noise = noise
+        self.graph = None
+        self.outputs: Tuple[torch.Tensor, ...] = ()
+        self.launches: Dict[str, int] = {}
+        self.seconds: Dict[str, float] = {}  # host wall of the warm-up and of the capture
+
+    def capture(self, carry: "BatchCarry", pool, stream: torch.cuda.Stream,
+                warmup: int = 2) -> None:
+        """Warm up on `stream` (every library built, every first-use step
+        run outside the capture), then capture the body into a graph whose
+        memory comes from `pool`. The staged inputs must be all-inactive:
+        the warm-up runs the body for real. Raises if the capture fails."""
+        dev = self.staging.buffer.device
+        t0 = time.perf_counter()
+        stream.wait_stream(torch.cuda.current_stream(dev))
+        with torch.cuda.stream(stream):
+            for _ in range(warmup):
+                self.body(carry)
+        torch.cuda.current_stream(dev).wait_stream(stream)
+        torch.cuda.synchronize(dev)
+        t1 = time.perf_counter()
+        graph = torch.cuda.CUDAGraph()
+
+        def capture():
+            # thread_local: other workers' threads may allocate or launch
+            # on their own devices while this one captures
+            with torch.cuda.graph(graph, pool=pool, stream=stream,
+                                  capture_error_mode="thread_local"):
+                return self.body(carry)
+
+        self.outputs, self.launches = _kernels.record_launches(capture)
+        self.graph = graph
+        # capture includes the instantiation (CUDAGraph.capture_end)
+        self.seconds = dict(warmup=t1 - t0, capture=time.perf_counter() - t1)
+
+    def run(self, carry: "BatchCarry") -> Tuple[torch.Tensor, ...]:
+        """The body's outputs for the staged inputs: by a replay of the
+        graph captured on `carry`, returned as copies made on the stream
+        right after it (the next replay rewrites the static outputs), or
+        eagerly."""
+        if self.graph is None:
+            return self.body(carry)
+        self.graph.replay()
+        _kernels.add_launches(self.launches)
+        return tuple(t.clone() for t in self.outputs)
+
+
+def draw_noise(rng: torch.Generator, gumbel: torch.Tensor, seeds: torch.Tensor) -> None:
+    """Fill a program's noise buffers, gumbel (K, B, k) and seeds (K, B),
+    from the carry's generator: standard Gumbel noise for the candidate draw
+    (-log(E), E ~ Exp(1), as ops.sampling.gumbel_like) and int64 seeds for
+    the exact draw's generator. Step by step, in the order K single steps
+    draw them, so a K-step block samples what K decode_step calls do."""
+    for k in range(gumbel.shape[0]):
+        gumbel[k].exponential_(generator=rng)
+        seeds[k].random_(0, 2 ** 62, generator=rng)
+    gumbel.log_().neg_()
+
+
 class ServingModel:
     """Owns prepared parameters and the step functions for one worker.
 
     `params` is the parameter tree, or a function of no arguments that makes
     it: then the model holds the only reference to the tree while it prepares
     it, so each code tensor it replaces (merged R/K/V, K-major codes) is freed
-    at once and loading costs at most one code tensor more than the result."""
+    at once and loading costs at most one code tensor more than the result.
+
+    `graphs`: on a CUDA device, run the serving programs as captured CUDA
+    graphs (True) or eagerly (False: the reference the graphs are held to).
+    The CPU never captures."""
 
     def __init__(self, config: RWKV7Config,
                  params: Union[Dict[str, Any], Callable[[], Dict[str, Any]]],
                  runtime: RuntimeConfig, batch_size: int, prefill_chunk: int = 64, *,
-                 device=None, seed: int = 0):
+                 device=None, seed: int = 0, graphs: bool = True):
         self.config = config
         self.runtime = runtime
         self.batch_size = batch_size
@@ -192,6 +332,13 @@ class ServingModel:
         self._no_penalty_ids = torch.tensor(sorted(NO_PENALTY_TOKEN_IDS),
                                             dtype=torch.int32, device=self.device)
         self._seed = seed
+        # the candidate draw's noise width (sample_from_chunks' k_max)
+        self._noise_k = min(runtime.sampler_k_max, -(-config.vocab_size // CHUNK))
+        self.graphs = bool(graphs) and self.device.type == "cuda"
+        if self.graphs:
+            # one memory pool for every graph of this model, captured on one stream
+            self._pool = torch.cuda.graph_pool_handle()
+            self._capture_stream = torch.cuda.Stream(self.device)
 
     # ------------------------------------------------------------------ carry
 
@@ -213,26 +360,24 @@ class ServingModel:
             last_sampled=torch.full((B,), -1, dtype=torch.int32, device=dev),
             rng=torch.Generator(device=dev).manual_seed(self._seed))
 
-    def _upload(self, arr, dtype) -> torch.Tensor:
-        """Host array -> device tensor without a host synchronisation (pinned
-        staging buffer, asynchronous copy on the current stream)."""
-        t = torch.from_numpy(np.ascontiguousarray(arr)).to(dtype)
-        if self.device.type == "cuda":
-            t = t.pin_memory()
-        return t.to(self.device, non_blocking=True)
+    def _noise_buffers(self, K: int) -> Tuple[torch.Tensor, torch.Tensor]:
+        B = self.batch_size
+        return (torch.zeros((K, B, self._noise_k), dtype=torch.float32, device=self.device),
+                torch.zeros((K, B), dtype=torch.int64, device=self.device))
 
     # ------------------------------------------------------------ step bodies
 
     def _decode_step_impl(self, carry: BatchCarry, host_tokens, feedback_mask,
-                          active_mask, decode_mask):
+                          active_mask, decode_mask, gumbel, seeds):
         """One token step over the whole batch (device tensors in, device out).
 
         host_tokens: (B,) int32 input token per slot (ignored where inactive).
         feedback_mask: slots whose input is the previous step's on-device sample.
         active_mask: slots whose state advances (decode + token-by-token prefill).
         decode_mask: the subset that gets penalties and sampling.
+        gumbel (B, k), seeds (B,): the step's noise (draw_noise).
 
-        Returns (carry, sampled (B,) int32 [-1 where not decoding], raw logits
+        Returns (sampled (B,) int32 [-1 where not decoding], raw logits
         (B, V) pre-penalty)."""
         last = carry.last_sampled
         tokens = torch.where(feedback_mask, last.clamp_min(0), host_tokens)
@@ -249,12 +394,120 @@ class ServingModel:
             logits, carry.occurrence, carry.presence_vec, carry.penalty_decay,
             carry.frequency_penalty, carry.presence_penalty, last, upd, decode_mask)
         sampled = sample_from_chunks(
-            cval, cidx, lse, carry.temperature, carry.top_p, carry.top_k, carry.rng,
+            cval, cidx, lse, carry.temperature, carry.top_p, carry.top_k, None,
             (logits, carry.presence_vec, carry.occurrence, carry.frequency_penalty),
-            row_mask=decode_mask, k_max=self.runtime.sampler_k_max)
+            row_mask=decode_mask, k_max=self.runtime.sampler_k_max, gumbel=gumbel,
+            seeds=seeds)
         sampled = torch.where(decode_mask, sampled, -1)
         last.copy_(torch.where(decode_mask, sampled, last))
-        return carry, sampled, logits
+        return sampled, logits
+
+    def _block_body(self, carry: BatchCarry, K: int, inputs, noise, logit_rows=None):
+        """K decode steps from the (K, B) int32 tokens and masks and (B, 2)
+        votes: (sampled (K, B) int32, vote sums (2,)[, the raw logits of
+        the slots `logit_rows` (M,) at each step (K, M, V)])."""
+        toks, fb, act, dec, votes = inputs
+        fb, act, dec = fb != 0, act != 0, dec != 0
+        gumbel, seeds = noise
+        sampled = torch.empty((K, self.batch_size), dtype=torch.int32, device=self.device)
+        marked = None
+        for k in range(K):
+            s, raw = self._decode_step_impl(carry, toks[k], fb[k], act[k], dec[k], gumbel[k],
+                                            seeds[k])
+            sampled[k].copy_(s)
+            if logit_rows is not None:
+                if marked is None:
+                    marked = torch.empty((K, logit_rows.shape[0], raw.shape[1]),
+                                         dtype=torch.float32, device=self.device)
+                marked[k].copy_(raw.index_select(0, logit_rows))
+        if logit_rows is None:
+            return sampled, votes.sum(0)
+        return sampled, votes.sum(0), marked
+
+    def _step_body(self, carry: BatchCarry, inputs, noise):
+        """One decode step from the staged (B,) arrays: (sampled, raw logits)."""
+        toks, fb, act, dec = inputs
+        gumbel, seeds = noise
+        return self._decode_step_impl(carry, toks, fb != 0, act != 0, dec != 0, gumbel[0],
+                                      seeds[0])
+
+    def _compact_body(self, carry: BatchCarry, inputs):
+        """One chunk over the staged (P, T) tokens, (P,) lengths and (P,)
+        slot indices: the rows' shift, wkv and elapsed gathered, advanced by
+        forward_chunk and written back."""
+        tokens, lengths, slot_idx = inputs
+        st = carry.state
+        idx = slot_idx.long()
+        rows = RWKVState(shift=st.shift.index_select(2, idx),
+                         wkv=st.wkv.index_select(1, idx),
+                         elapsed=st.elapsed.index_select(0, idx))
+        self._forward_chunk(rows, tokens, lengths)
+        st.shift.index_copy_(2, idx, rows.shift)
+        st.wkv.index_copy_(1, idx, rows.wkv)
+        st.elapsed.index_copy_(0, idx, rows.elapsed)
+        return ()
+
+    def _forward_chunk(self, state: RWKVState, tokens, lengths) -> None:
+        model.forward_chunk(self.params, tokens, state, lengths,
+                            compute_dtype=self.runtime.activation_dtype,
+                            use_dither=self.runtime.use_dither, mm8_core=self.mm8_core,
+                            wkv_precision=self.runtime.wkv_precision)
+
+    # --------------------------------------------------------------- programs
+
+    def _program(self, carry: BatchCarry, key: Tuple) -> _Program:
+        """The program `key` of this carry: ("block", K), ("step",) or
+        ("compact", P, T), built and, with graphs, captured at first use;
+        or one that always runs eagerly: ("marked", K, M), a block that also
+        gathers M rows' raw logits, and ("full", T), a chunk over the whole
+        batch."""
+        prog = carry.programs.get(key)
+        if prog is not None:
+            return prog
+        B = self.batch_size
+        kind = key[0]
+        if kind == "block":
+            K = key[1]
+            staging = _Staging([(K, B)] * 4 + [(B, 2)], self.device)
+            noise = self._noise_buffers(K)
+            inputs = staging.views()
+            prog = _Program(staging, lambda c: self._block_body(c, K, inputs, noise), noise)
+        elif kind == "step":
+            staging = _Staging([(B,)] * 4, self.device)
+            noise = self._noise_buffers(1)
+            inputs = staging.views()
+            prog = _Program(staging, lambda c: self._step_body(c, inputs, noise), noise)
+        elif kind == "compact":
+            P, T = key[1:]
+            staging = _Staging([(P, T), (P,), (P,)], self.device)
+            inputs = staging.views()
+            prog = _Program(staging, lambda c: self._compact_body(c, inputs))
+            # all-inactive: length 0 on distinct slots
+            staging.put([np.zeros((P, T)), np.zeros(P), np.arange(P)])
+        elif kind == "marked":
+            K, M = key[1:]
+            staging = _Staging([(K, B)] * 4 + [(B, 2), (M,)], self.device)
+            noise = self._noise_buffers(K)
+            *inputs, rows = staging.views()
+            prog = _Program(staging, lambda c: self._block_body(c, K, inputs, noise, rows.long()),
+                            noise)
+        elif kind == "full":
+            staging = _Staging([(B, key[1]), (B,)], self.device)
+            inputs = staging.views()
+            prog = _Program(staging, lambda c: self._forward_chunk(c.state, *inputs))
+        else:
+            raise ValueError(f"unknown serving program {key!r}")
+        if self.graphs and kind in ("block", "step", "compact"):
+            prog.capture(carry, self._pool, self._capture_stream)
+        carry.programs[key] = prog
+        return prog
+
+    def _run(self, carry: BatchCarry, key: Tuple, host: Sequence[np.ndarray]):
+        prog = self._program(carry, key)
+        prog.staging.put(host)
+        if prog.noise is not None:
+            draw_noise(carry.rng, *prog.noise)
+        return prog.run(carry)
 
     # ------------------------------------------------------------- public API
 
@@ -264,11 +517,9 @@ class ServingModel:
         B = self.batch_size
         if feedback_mask is None:
             feedback_mask = np.zeros((B,), bool)
-        return self._decode_step_impl(
-            carry, self._upload(np.asarray(tokens), torch.int32),
-            self._upload(np.asarray(feedback_mask), torch.bool),
-            self._upload(np.asarray(active_mask), torch.bool),
-            self._upload(np.asarray(decode_mask), torch.bool))
+        sampled, logits = self._run(carry, ("step",),
+                                    (tokens, feedback_mask, active_mask, decode_mask))
+        return carry, sampled, logits
 
     def decode_block(self, carry, tokens, feedback_mask, active_mask, decode_mask,
                      stop_votes=None, logit_rows=None):
@@ -279,49 +530,32 @@ class ServingModel:
         stop_votes: optional (B,) or (B, 2) int votes, summed per column;
         logit_rows: optional (M,) slot rows whose per-step raw logits are
         gathered. Returns (carry, sampled (K, B) int32, vote sums (2,)
-        [, marked logits (K, M, V)]), all device tensors."""
+        [, marked logits (K, M, V)]), all device tensors. With logit_rows
+        the block runs eagerly even where graphs are on: the port's worker
+        never asks for it (it runs single steps while a slot wants logits)."""
         B = self.batch_size
         if stop_votes is None:
             stop_votes = np.zeros((B, 2), np.int32)
         stop_votes = np.asarray(stop_votes, np.int32)
         if stop_votes.ndim == 1:
             stop_votes = np.stack([stop_votes, np.zeros_like(stop_votes)], axis=1)
-        host = (np.asarray(tokens, np.int32), np.asarray(feedback_mask, bool),
-                np.asarray(active_mask, bool), np.asarray(decode_mask, bool), stop_votes)
-        if logit_rows is not None:
-            host += (np.asarray(logit_rows, np.int64),)
-        dtypes = (torch.int32, torch.bool, torch.bool, torch.bool, torch.int32, torch.int64)
-        dev = tuple(self._upload(a, d) for a, d in zip(host, dtypes))
-        toks, fb, act, dec, votes = dev[:5]
-        K = toks.shape[0]
-        sampled = torch.empty((K, B), dtype=torch.int32, device=self.device)
-        marked = None
-        for k in range(K):
-            carry, s, raw = self._decode_step_impl(carry, toks[k], fb[k], act[k], dec[k])
-            sampled[k].copy_(s)
-            if logit_rows is not None:
-                if marked is None:
-                    marked = torch.empty((K, dev[5].shape[0], raw.shape[1]),
-                                         dtype=torch.float32, device=self.device)
-                marked[k].copy_(raw.index_select(0, dev[5]))
-        vote_sums = votes.sum(0)
+        tokens = np.asarray(tokens, np.int32)
+        K = tokens.shape[0]
+        host = (tokens, feedback_mask, active_mask, decode_mask, stop_votes)
         if logit_rows is None:
-            return carry, sampled, vote_sums
-        return carry, sampled, vote_sums, marked
-
-    def _forward_chunk(self, state: RWKVState, tokens, lengths) -> None:
-        model.forward_chunk(self.params, self._upload(np.asarray(tokens), torch.int32),
-                            state, self._upload(np.asarray(lengths), torch.int32),
-                            compute_dtype=self.runtime.activation_dtype,
-                            use_dither=self.runtime.use_dither, mm8_core=self.mm8_core,
-                            wkv_precision=self.runtime.wkv_precision)
+            return (carry,) + self._run(carry, ("block", K), host)
+        logit_rows = np.asarray(logit_rows, np.int32).reshape(-1)
+        return (carry,) + self._run(carry, ("marked", K, logit_rows.size),
+                                    host + (logit_rows,))
 
     def prefill_step(self, carry: BatchCarry, tokens, lengths) -> BatchCarry:
         """One chunk over the whole batch: tokens (B, T) and lengths (B,) host
         arrays, length 0 for slots that are not prefilling (their state is
         left bit-unchanged). No logits: the last prompt token always goes
-        through the decode step."""
-        self._forward_chunk(carry.state, tokens, lengths)
+        through the decode step. Eager (the worker prefills through the
+        compact form, which is captured)."""
+        tokens = np.asarray(tokens)
+        self._run(carry, ("full", tokens.shape[1]), (tokens, lengths))
         return carry
 
     def prefill_step_compact(self, carry: BatchCarry, tokens, lengths,
@@ -331,15 +565,8 @@ class ServingModel:
         point at idle slots, which come back bit-unchanged. The rows' shift,
         wkv and elapsed are gathered, advanced by forward_chunk and written
         back, all on the device."""
-        st = carry.state
-        idx = self._upload(np.asarray(slot_idx), torch.int64)
-        rows = RWKVState(shift=st.shift.index_select(2, idx),
-                         wkv=st.wkv.index_select(1, idx),
-                         elapsed=st.elapsed.index_select(0, idx))
-        self._forward_chunk(rows, tokens, lengths)
-        st.shift.index_copy_(2, idx, rows.shift)
-        st.wkv.index_copy_(1, idx, rows.wkv)
-        st.elapsed.index_copy_(0, idx, rows.elapsed)
+        tokens = np.asarray(tokens)
+        self._run(carry, ("compact",) + tokens.shape, (tokens, lengths, slot_idx))
         return carry
 
     def insert_slot(self, carry: BatchCarry, slot: int,

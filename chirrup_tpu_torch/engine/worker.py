@@ -77,7 +77,8 @@ class Worker:
                  model_factory: Callable[[], Tuple[ServingModel, WorldTokenizer]],
                  task_queue: "queue.Queue[Task]", master_event_queue: queue.Queue,
                  worker_event_queue: Any, batch_size: int = 32,
-                 decode_block_size: Optional[int] = None, idle_sleep: float = 0.05):
+                 decode_block_size: Optional[int] = None, idle_sleep: float = 0.05,
+                 warmup_programs: bool = False):
         self.worker_id = worker_id
         self._model_factory = model_factory
         self.task_queue = task_queue
@@ -88,6 +89,8 @@ class Worker:
         self.max_prefill_count = max(int(batch_size * 0.125), 1)
         self.decode_block_size = decode_block_size  # None = by device
         self.idle_sleep = idle_sleep
+        # run (on CUDA: capture) every serving program before the first request
+        self.warmup_programs = warmup_programs
 
         self.slots: List[SlotData] = [SlotData() for _ in range(batch_size)]
         self.model: Optional[ServingModel] = None
@@ -111,6 +114,32 @@ class Worker:
         if self.decode_block_size is None:
             self.decode_block_size = (GPU_DECODE_BLOCK if self.model.device.type == "cuda"
                                       else 1)
+
+    def _warmup_programs(self):
+        """Run every serving program once on all-inactive inputs before the
+        first request: decode_block at the worker's K (when K > 1),
+        decode_step and each compact prefill variant. On CUDA this captures
+        their graphs (ServingModel), which otherwise happens mid-serving the
+        first time each program shape is hit. All-inactive masks and zero
+        lengths leave the carry exactly as it is; only the sampler's
+        generator advances."""
+        m, B = self.model, self.batch_size
+        K = max(self.decode_block_size, 1)
+        t0 = time.time()
+        if K > 1:
+            fK = np.zeros((K, B), bool)
+            self.carry, _, _ = m.decode_block(self.carry, np.zeros((K, B), np.int32), fK, fK,
+                                              fK)
+        self.carry, _, _ = m.decode_step(self.carry, np.zeros((B,), np.int32),
+                                         np.zeros((B,), bool), np.zeros((B,), bool))
+        for P, T in m.prefill_variants:
+            self.carry = m.prefill_step_compact(self.carry, np.zeros((P, T), np.int32),
+                                                np.zeros((P,), np.int32),
+                                                np.arange(P, dtype=np.int32))
+        if m.device.type == "cuda":
+            torch.cuda.synchronize(m.device)
+        print(f"[{self.worker_id}] serving programs warmed in {time.time() - t0:.1f}s"
+              + (" (captured as CUDA graphs)" if m.graphs else ""), flush=True)
 
     def _emit_worker_event(self, kind: str, payload: Dict):
         if self.worker_event_queue is not None:
@@ -452,6 +481,10 @@ class Worker:
         try:
             if self.model is None:
                 self._init_worker()
+            if self.warmup_programs:
+                # the success handshake only after the warm-up: a failure
+                # there (a capture that fails, memory) reaches the engine
+                self._warmup_programs()
             self._emit_worker_event("worker_loaded", {
                 "status": "success", "worker_id": self.worker_id,
                 "batch_size": self.batch_size})

@@ -13,9 +13,14 @@ wrapper builds its library the first time it runs on a CUDA tensor, and
 with ctypes; every entry returns ``cudaGetLastError()`` and the wrappers raise
 on anything but 0.
 
-Each wrapper adds one to its entry in ``LAUNCHES`` exactly where it launches
-its kernel, so a run can show which kernels its main path went through (the
-WKV kernels' precision="bf16" instances count under ``<name>_bf16``).
+Each wrapper counts one launch (``count_launch``) exactly where it launches
+its kernel, so a run can show in ``LAUNCHES`` which kernels its main path
+went through (the WKV kernels' precision="bf16" instances count under
+``<name>_bf16``). A wrapper called while its thread captures a CUDA graph
+launches nothing: its counts go to that capture's own tally
+(``record_launches``), never to ``LAUNCHES``, so other threads' launches
+meanwhile are counted as they happen; each replay of the graph adds the
+tally (``add_launches``).
 """
 
 from __future__ import annotations
@@ -27,23 +32,27 @@ import shutil
 import subprocess
 import threading
 from pathlib import Path
-from typing import Dict, Iterable, Sequence
+from typing import Any, Callable, Dict, Iterable, Sequence, Tuple
 
 import torch
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = CSRC / "build"
-SOURCES = ("wkv7_step", "wkv7_chunk", "wkv7_batch", "mm8_a8", "mm8_w16", "penalty_tail")
+SOURCES = ("wkv7_step", "wkv7_chunk", "wkv7_batch", "mm8_a8", "mm8_w16", "penalty_tail",
+           "sample_exact")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC")
 
-# launch counts by kernel name; plain integers, reset with reset_launches()
+# launch counts by kernel name; plain integers, reset with reset_launches(),
+# changed under _count_lock
 LAUNCHES: Dict[str, int] = {"wkv7_step_fused": 0, "wkv7_chunk_fused": 0, "wkv7_batch": 0,
                             "wkv7_step_fused_bf16": 0, "wkv7_chunk_fused_bf16": 0,
                             "wkv7_batch_bf16": 0, "mm8_a8_quant_rows": 0, "mm8_a8_gemm": 0,
-                            "mm8_w16_gemm": 0, "penalty_tail": 0}
+                            "mm8_w16_gemm": 0, "penalty_tail": 0, "sample_exact_rows": 0}
 
 _lock = threading.Lock()
+_count_lock = threading.Lock()
+_capturing = threading.local()  # .tally: the counts of this thread's capture
 _libs: Dict[str, ctypes.CDLL] = {}
 
 P = ctypes.c_void_p
@@ -51,8 +60,40 @@ I = ctypes.c_int
 
 
 def reset_launches() -> None:
-    for name in LAUNCHES:
-        LAUNCHES[name] = 0
+    with _count_lock:
+        for name in LAUNCHES:
+            LAUNCHES[name] = 0
+
+
+def count_launch(name: str) -> None:
+    """One launch of kernel `name`: into LAUNCHES, or into the tally of the
+    graph this thread is capturing."""
+    tally = getattr(_capturing, "tally", None)
+    if tally is not None:
+        tally[name] = tally.get(name, 0) + 1
+        return
+    with _count_lock:
+        LAUNCHES[name] += 1
+
+
+def record_launches(fn: Callable[[], Any]) -> Tuple[Any, Dict[str, int]]:
+    """Run fn (a graph capture) on this thread and return (its result, the
+    launches its wrappers counted), none of them in LAUNCHES: a capture
+    runs no kernel."""
+    outer = getattr(_capturing, "tally", None)
+    _capturing.tally = tally = {}
+    try:
+        out = fn()
+    finally:
+        _capturing.tally = outer
+    return out, tally
+
+
+def add_launches(counts: Dict[str, int]) -> None:
+    """Count the launches of one replay of a captured graph."""
+    with _count_lock:
+        for name, n in counts.items():
+            LAUNCHES[name] += n
 
 
 def _nvcc() -> str:

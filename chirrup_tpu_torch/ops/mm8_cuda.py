@@ -237,7 +237,7 @@ def quant_rows_planned(plan: Optional[QuantPlan], x, ry, my, *, xx=None, mu=None
         mu.data_ptr() if mode == 1 else None, ry.data_ptr(), my.data_ptr(), x8.data_ptr(),
         stats.data_ptr(), B, K, n, mode, _kernels.dtype_code(x, "x"), plan.threads,
         plan.elems, _kernels.stream_of(x))
-    _kernels.LAUNCHES["mm8_a8_quant_rows"] += 1
+    _kernels.count_launch("mm8_a8_quant_rows")
     _kernels.check(lib, _SOURCE, "mm8_a8_quant_rows", err)
     return x8, stats
 
@@ -390,7 +390,7 @@ def gemm(x8, stats, q, mx, rx, *, layer: Optional[int] = None, relu2=False,
         x8.data_ptr(), stats.data_ptr(), qmap, mx.data_ptr(), rx.data_ptr(), out.data_ptr(),
         B, K, M, n, 0 if layer is None else layer, _OUT_MODES[out_dtype], int(relu2),
         plan.bm, plan.bn, plan.stages, plan.split, _kernels.stream_of(x8))
-    _kernels.LAUNCHES["mm8_a8_gemm"] += 1
+    _kernels.count_launch("mm8_a8_gemm")
     _kernels.check(lib, _SOURCE, "mm8_a8_gemm", err)
     return out
 
@@ -425,7 +425,7 @@ def mm8_core_w16(xs, q, *, layer: Optional[int] = None):
     err = lib.mm8_w16_gemm(xs.data_ptr(), qmap, q_layer.data_ptr(), out.data_ptr(), B, K, M,
                            0 if layer is None else layer, code, plan.bm, plan.bn, plan.stages,
                            plan.split, _kernels.stream_of(xs))
-    _kernels.LAUNCHES["mm8_w16_gemm"] += 1
+    _kernels.count_launch("mm8_w16_gemm")
     _kernels.check(lib, _W16_SOURCE, "mm8_w16_gemm", err)
     return out
 

@@ -15,12 +15,19 @@ last_sampled: recording at the end of step t and decaying at the start of t+1
 
 The kernel splits each row's vocabulary over the CTAs of a thread-block
 cluster, each owning whole 128-column chunks; ``tail_plan`` gives the split.
+
+The sampler draws from the tail's candidates; the rows those cannot serve
+exactly take the exact rwkv-pip draw of ``sample_exact_rows`` (CUDA kernel
+csrc/sample_exact.cu, one cluster of CTAs a row that returns at once for a
+row that is not flagged, and its plain version), so a hostile request costs
+only its own row.
 """
 
 from __future__ import annotations
 
 from typing import NamedTuple, Optional, Tuple
 
+import numpy as np
 import torch
 
 from chirrup_tpu_torch.ops import _kernels
@@ -32,6 +39,11 @@ _SOURCE = "penalty_tail"
 _P, _I = _kernels.P, _kernels.I
 _SIGNATURES = {"penalty_tail": [_P] * 12 + [_I] * 7 + [_P]}
 MAX_SPLIT = 8  # CTAs a row: the portable thread-block cluster size
+_EXACT_SOURCE = "sample_exact"
+_EXACT_SIGNATURES = {"sample_exact_rows": [_P] * 13 + [_I] * 5 + [_P]}
+# the exact kernel's launch, fixed in csrc/sample_exact.cu: a row on the
+# EXACT_SPLIT CTAs of one cluster, EXACT_THREADS threads each
+EXACT_THREADS, EXACT_SPLIT = 1024, 4
 
 
 class TailPlan(NamedTuple):
@@ -160,35 +172,146 @@ def penalty_tail_planned(plan: Optional[TailPlan], logits, occurrence, presence_
         decode_mask.data_ptr(), cval.data_ptr(), cidx.data_ptr(), lse.data_ptr(),
         B, V, code, plan.split, plan.chunks_per_cta, plan.threads, plan.chunks_in_flight,
         _kernels.stream_of(logits))
-    _kernels.LAUNCHES["penalty_tail"] += 1
+    _kernels.count_launch("penalty_tail")
     _kernels.check(lib, _SOURCE, "penalty_tail", err)
     return occurrence, presence_vec, cval, cidx, lse
 
 
+_PHILOX_M = (0xD2511F53, 0xCD9E8D57)
+_PHILOX_W = (0x9E3779B9, 0xBB67AE85)
+_U32 = np.uint64(0xFFFFFFFF)
+
+
+def philox4x32(counter: np.ndarray, key: Tuple[int, int]) -> np.ndarray:
+    """Philox4x32-10 (Salmon et al., SC'11) of counters (c, 0, 0, 0), c an
+    array of uint32, under one 64-bit key (k0, k1): (..., 4) uint32. The
+    generator csrc/sample_exact.cu runs inside the kernel."""
+    x = [np.asarray(counter, np.uint64) & _U32] + [np.zeros(np.shape(counter), np.uint64)] * 3
+    k0, k1 = np.uint64(key[0]), np.uint64(key[1])
+    m0, m1 = np.uint64(_PHILOX_M[0]), np.uint64(_PHILOX_M[1])
+    for _ in range(10):
+        p0, p1 = m0 * x[0], m1 * x[2]  # exact: both factors < 2^32
+        x = [(p1 >> np.uint64(32)) ^ x[1] ^ k0, p1 & _U32,
+             (p0 >> np.uint64(32)) ^ x[3] ^ k1, p0 & _U32]
+        k0 = (k0 + np.uint64(_PHILOX_W[0])) & _U32
+        k1 = (k1 + np.uint64(_PHILOX_W[1])) & _U32
+    return np.stack(x, axis=-1).astype(np.uint32)
+
+
+def philox_gumbel(seeds: torch.Tensor, V: int) -> torch.Tensor:
+    """The exact kernel's Gumbel noise for rows with these int64 seeds: (n,
+    V) float32. Column v takes word v % 4 of Philox4x32-10 at counter v // 4
+    under key (seed mod 2^32, seed >> 32); u = (x >> 9 + 0.5) 2^-23 (exact
+    in float32, inside (0, 1)), g = -log(-log(u)), in float32."""
+    out = np.empty((seeds.numel(), V), np.float32)
+    counters = np.arange(-(-V // 4), dtype=np.uint64)
+    for i, seed in enumerate(seeds.reshape(-1).tolist()):
+        seed &= 2 ** 64 - 1
+        words = philox4x32(counters, (seed & 0xFFFFFFFF, seed >> 32)).reshape(-1)[:V]
+        u = ((words >> 9).astype(np.float32) + np.float32(0.5)) * np.float32(2.0 ** -23)
+        out[i] = -np.log(-np.log(u))
+    return torch.from_numpy(out)
+
+
+def sample_exact_rows_reference(tokens, need, logits, pres2, occ2, freq, lse, temperature,
+                                top_p, top_k, *, seeds=None, gumbel=None):
+    """Plain version of sample_exact_rows: the flagged rows' penalized logits
+    (adj = logits - pres2 - occ2 * freq, the tail's order) through
+    sample_logits_rwkv_pip_compatible with the rows' noise, gumbel's rows or
+    philox_gumbel of their seeds; tokens is written at those rows, IN PLACE,
+    and returned. It reads the flags on the host (the kernel never does).
+    lse is the kernel's input only (the softmax here recomputes it)."""
+    rows = torch.nonzero(need.reshape(-1)).reshape(-1)
+    if rows.numel() == 0:
+        return tokens
+    V = logits.shape[1]
+    adj = (logits[rows].to(torch.float32) - pres2[rows]
+           - occ2[rows] * freq.reshape(-1)[rows].reshape(-1, 1))
+    if gumbel is not None:
+        noise = gumbel[rows]
+    else:
+        noise = philox_gumbel(seeds.reshape(-1)[rows].cpu(), V).to(logits.device)
+    drawn = sample_logits_rwkv_pip_compatible(
+        adj, temperature.reshape(-1)[rows], top_p.reshape(-1)[rows],
+        top_k.reshape(-1)[rows], gumbel=noise)
+    tokens[rows] = drawn.to(tokens.dtype)
+    return tokens
+
+
+def sample_exact_rows(tokens, need, logits, pres2, occ2, freq, lse, temperature, top_p, top_k,
+                      *, seeds=None, gumbel=None):
+    """The exact rwkv-pip draw for the rows where `need` (B,) bool is true,
+    written into tokens (B,) int32 IN PLACE (returned); other rows keep
+    their tokens. logits (B, V) float32 or bfloat16 (raw, before the
+    penalties); pres2, occ2 (B, V) float32 (the tail's outputs); freq,
+    temperature, top_p (B,) float32; top_k (B,) int32; lse (B,) or (B, 1)
+    float32, the tail's logsumexp of the penalized row. Noise: gumbel (B, V)
+    float32, or seeds (B,) int64 for the generator inside the kernel
+    (philox_gumbel). The kernel on CUDA tensors (one launch whatever the
+    flags), the plain version on CPU."""
+    if (seeds is None) == (gumbel is None):
+        raise ValueError("sample_exact_rows: give exactly one of seeds and gumbel")
+    if logits.device.type == "cpu":
+        return sample_exact_rows_reference(tokens, need, logits, pres2, occ2, freq, lse,
+                                           temperature, top_p, top_k, seeds=seeds,
+                                           gumbel=gumbel)
+    if not logits.is_cuda:
+        raise ValueError(f"sample_exact_rows: no kernel for device {logits.device}")
+    B, V = logits.shape
+    dev = logits.device
+    _kernels.require(logits, "logits", device=dev)
+    code = _kernels.dtype_code(logits, "logits")
+    for name, t in (("pres2", pres2), ("occ2", occ2)):
+        _kernels.require(t, name, dtype=torch.float32, shape=(B, V), device=dev)
+    lse = lse.reshape(-1)
+    for name, t in (("freq", freq), ("lse", lse), ("temperature", temperature),
+                    ("top_p", top_p)):
+        _kernels.require(t, name, dtype=torch.float32, shape=(B,), device=dev)
+    _kernels.require(top_k, "top_k", dtype=torch.int32, shape=(B,), device=dev)
+    _kernels.require(need, "need", dtype=torch.bool, shape=(B,), device=dev)
+    _kernels.require(tokens, "tokens", dtype=torch.int32, shape=(B,), device=dev)
+    if gumbel is not None:
+        _kernels.require(gumbel, "gumbel", dtype=torch.float32, shape=(B, V), device=dev)
+    else:
+        _kernels.require(seeds, "seeds", dtype=torch.int64, shape=(B,), device=dev)
+    scratch = torch.empty((B, V), dtype=torch.float32, device=dev)
+    lib = _kernels.library(_EXACT_SOURCE, _EXACT_SIGNATURES)
+    ptr = lambda t: None if t is None else t.data_ptr()
+    err = lib.sample_exact_rows(
+        logits.data_ptr(), pres2.data_ptr(), occ2.data_ptr(), freq.data_ptr(), lse.data_ptr(),
+        temperature.data_ptr(), top_p.data_ptr(), top_k.data_ptr(), need.data_ptr(),
+        ptr(gumbel), ptr(seeds), scratch.data_ptr(), tokens.data_ptr(), B, V, code,
+        EXACT_THREADS, EXACT_SPLIT, _kernels.stream_of(logits))
+    _kernels.count_launch("sample_exact_rows")
+    _kernels.check(lib, _EXACT_SOURCE, "sample_exact_rows", err)
+    return tokens
+
+
 def sample_from_chunks(chunk_val, chunk_idx, lse, temperature, top_p, top_k,
                        generator: Optional[torch.Generator], adj_args, row_mask=None,
-                       k_max: int = 128, gumbel=None, gumbel_exact=None):
+                       k_max: int = 128, gumbel=None, gumbel_exact=None, seeds=None):
     """rwkv-pip-compatible draw from the penalty_tail candidate set.
 
     Same algorithm and order as ops.sampling.sample_logits_rwkv_pip_fast, with
-    the candidates = the per-chunk maxima (already penalized). adj_args =
-    (logits, pres2, occ2, freq) rebuild the penalized rows for the exact
-    resample of rows whose candidates do not cover top_p (or top_k > k_max).
+    the candidates = the per-chunk maxima (already penalized). Rows whose
+    candidates do not cover top_p (or whose top_k > k_max) are flagged, and
+    sample_exact_rows redraws exactly those from their penalized logits,
+    rebuilt from adj_args = (logits, pres2, occ2, freq): on CUDA one launch
+    that does work for flagged rows only, so the flags are never read on the
+    host, as the JAX package's lax.cond and while_loop over 8-row windows of
+    flagged rows keep its count on the device.
 
-    No host synchronisation: which rows need the exact path is never read on
-    the host. Instead every row runs it and torch.where keeps it only for the
-    flagged rows. That costs one (B, V) adjusted-logits pass, one (B, V) sort
-    and (B, V) noise per call; the JAX package instead loops over 8-row groups
-    of flagged rows only, which needs the flagged count on the host.
-
-    gumbel (B, k_max') / gumbel_exact (B, V): optional noise handed in (tests);
-    drawn from `generator` otherwise."""
+    Noise: gumbel (B, k_max') for the candidate draw, and for the exact
+    draw gumbel_exact (B, V) or seeds (B,) int64 (the kernel's generator),
+    each handed in or drawn from `generator`."""
     logits_raw, pres2, occ2, freq = adj_args
     B, NC = chunk_val.shape
     k_max = min(k_max, NC)
-    temperature = temperature.reshape(B, 1).to(torch.float32)
-    top_p = top_p.reshape(B, 1).to(torch.float32)
-    top_k = top_k.reshape(B, 1).to(torch.int32)
+    temp_rows = temperature.reshape(B).to(torch.float32)
+    top_p_rows = top_p.reshape(B).to(torch.float32)
+    top_k_rows = top_k.reshape(B).to(torch.int32)
+    temperature, top_p, top_k = (temp_rows.reshape(B, 1), top_p_rows.reshape(B, 1),
+                                 top_k_rows.reshape(B, 1))
 
     zero_temp = temperature == 0.0
     temperature_eff = torch.where(zero_temp, 1.0, temperature)
@@ -222,8 +345,10 @@ def sample_from_chunks(chunk_val, chunk_idx, lse, temperature, top_p, top_k,
     greedy = torch.gather(chunk_idx, 1, torch.argmax(chunk_val, dim=-1, keepdim=True))[:, 0]
     fast = torch.where(zero_temp[:, 0], greedy, picked).to(torch.int32)
 
-    adj = (logits_raw.to(torch.float32) - pres2 - occ2 * freq.reshape(B, 1))
-    exact = sample_logits_rwkv_pip_compatible(
-        adj, temperature[:, 0], top_p[:, 0], top_k[:, 0], generator,
-        gumbel=gumbel_exact)
-    return torch.where(need[:, 0], exact, fast)
+    if gumbel_exact is None and seeds is None:
+        seeds = torch.randint(0, 2 ** 62, (B,), dtype=torch.int64, generator=generator,
+                              device=chunk_val.device)
+    return sample_exact_rows(fast, need[:, 0].contiguous(), logits_raw, pres2, occ2,
+                             freq.reshape(B).to(torch.float32), lse, temp_rows, top_p_rows,
+                             top_k_rows, seeds=None if gumbel_exact is not None else seeds,
+                             gumbel=gumbel_exact)

@@ -272,7 +272,7 @@ def wkv7_step_fused(state, layer: int, r, w_raw, k_raw, a_iclr, v, k_k, k_a, r_k
         int(use_dither), *(t.stride(0) for t in rows), _kernels.dtype_code(r, "r"),
         _kernels.dtype_code(state, "state"), int(bf16), plan.heads_per_block,
         plan.rows_per_thread, plan.threads_per_row, plan.threads, _kernels.stream_of(state))
-    _kernels.LAUNCHES["wkv7_step_fused_bf16" if bf16 else "wkv7_step_fused"] += 1
+    _kernels.count_launch("wkv7_step_fused_bf16" if bf16 else "wkv7_step_fused")
     _kernels.check(lib, "wkv7_step", "wkv7_step_fused", code)
     return y
 
@@ -368,7 +368,7 @@ def wkv7_chunk_fused(state, layer: int, r, w_raw, k_raw, a_iclr, v, k_k, k_a, r_
         elapsed.data_ptr(), lengths.data_ptr(), y.data_ptr(), B, T, C, layer,
         int(use_dither), *strides, _kernels.dtype_code(r, "r"),
         _kernels.dtype_code(state, "state"), int(bf16), _kernels.stream_of(state))
-    _kernels.LAUNCHES["wkv7_chunk_fused_bf16" if bf16 else "wkv7_chunk_fused"] += 1
+    _kernels.count_launch("wkv7_chunk_fused_bf16" if bf16 else "wkv7_chunk_fused")
     _kernels.check(lib, "wkv7_chunk", "wkv7_chunk_fused", code)
     return y
 
@@ -640,6 +640,6 @@ def wkv7_batch(state, r, w_raw, k, v, a, b, elapsed, lengths=None, layer: int = 
         _kernels.dtype_code(state, "state"), int(bf16), BATCH_PATHS[plan.path], plan.threads,
         plan.heads_per_block, plan.rows_per_thread, plan.threads_per_row, plan.tile_tokens,
         _kernels.stream_of(state))
-    _kernels.LAUNCHES["wkv7_batch_bf16" if bf16 else "wkv7_batch"] += 1
+    _kernels.count_launch("wkv7_batch_bf16" if bf16 else "wkv7_batch")
     _kernels.check(lib, "wkv7_batch", "wkv7_batch", code)
     return y
