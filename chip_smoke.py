@@ -96,18 +96,35 @@ Phases, in order; any failure ends the run with a non-zero exit:
    decode step against the default mode's from the same state, launches per
    step over one decode block and per chunk at (8, 256) and (32, 64) at batch
    256, and the device busy time and WKV kernels' ms in both modes;
-7. path A, the exact w8a16 configuration: phases 5 and 6 again with
+7. the prefix-state cache path on the same weights (run_prefix_cache),
+   through AsyncEngineCore with graphs and warmup_programs=True: with a state
+   pool (state_pool_size=8, 12 rows), a 1,024-token prompt with
+   cache_prefill and padding 3, greedy, 16 tokens, then the same prompt
+   resumed from its PoolHandle with the 3-token suffix (tokens equal, both
+   times to first token, launch counters set to 0 before the two and read
+   after: each kernel of the path launched, no other), then 16 snapshots of
+   128-token prompts into a PrefixStateCache while the first row is pinned
+   by an in-flight resume (evictions counted, no skip, the pinned row never
+   revoked, its resume's tokens equal); with the pool off, the same through
+   a host snapshot (extract_slot_async), equal to the pool row bit for bit;
+   then on a carry with a random state, pool rows against the carry rows
+   (bit-equal), pool_store_many, pool_load and extract_slot_async under sync
+   debug mode "error", their host time a call and device time a row against
+   the bound, a host snapshot held to the state at its call, its move
+   against the card's device-to-host rate, and a wave of 8 admissions
+   through insert_slots_batched against insert_slot each;
+8. path A, the exact w8a16 configuration: phases 5 and 6 again with
    ModelLoadConfig(mm8_core="pallas") after the first engine is freed (4
    steady blocks with graphs, 2 without; no eager engine run; prefill on the
    batch-64 variant (8, 64)), every int8 product on mm8_w16_gemm and none on
    the w8a8 kernels;
-8. path B, the unfused TMix on that model: one forward_step at batch 64 and
+9. path B, the unfused TMix on that model: one forward_step at batch 64 and
    one forward_chunk at (8, 256) with wkv_fn=wkv7_batch, every WKV on the bare
    kernel, against the fused kernels from the same state; then both on layer 0
    alone at float32, held per element to the WKV kernels' limit; then the
    same two calls in the bf16 mode (functools.partial(wkv7_batch,
    precision="bf16") against wkv_precision="bf16");
-9. one JSON line with every kernel's numbers, then the result line.
+10. one JSON line with every kernel's numbers, then the result line.
 
 Without a CUDA device, or without the chirrup_tpu_torch package beside it,
 the script exits non-zero and prints no result.
@@ -2588,6 +2605,331 @@ def run_engine(dev, profile: bool, B=64, L=32, C=4096, V=65536, n_tok=32, blocks
     return model, launches, per_step, out
 
 
+PREFIX_GREEDY = dict(temperature=0.0, presence_penalty=0.0, frequency_penalty=0.0,
+                     stop_tokens=())
+
+
+async def cache_request(engine, ids, n_tok, on_snapshot=None, **kw):
+    """One greedy request: (tokens, its cache_prefill payload or None, time to
+    first token in s); on_snapshot(payload) runs as the event arrives, as a
+    server caches it."""
+    comp = engine.completion("", prefill_tokens=list(ids), max_tokens=n_tok, **PREFIX_GREEDY,
+                             **kw)
+    toks, snap = [], None
+    async for ev in comp:
+        if ev[0] == "token":
+            toks.append(ev[1])
+        elif ev[0] == "cache_prefill":
+            snap = ev[1]
+            if on_snapshot is not None:
+                on_snapshot(snap)
+    timing = comp.task.timing
+    require(comp.task.is_finished() and "first_token" in timing,
+            f"prefix cache: a request ended {comp.task.request_status} with {len(toks)} tokens")
+    return toks, snap, timing["first_token"] - timing["enqueue"]
+
+
+def pcie_d2h_ms(dev, nbytes):
+    """Device time of one copy of `nbytes` from the device into pinned host
+    memory (CUDA events, device_ms): the rate a host snapshot's move gets."""
+    src = torch.empty((nbytes,), dtype=torch.uint8, device=dev)
+    dst = torch.empty((nbytes,), dtype=torch.uint8, pin_memory=True)
+    return device_ms(lambda: dst.copy_(src, non_blocking=True), iters=10, reps=5)
+
+
+def host_us(fn, reps=20):
+    """Median host microseconds of fn() (its dispatch), each call after a
+    synchronise."""
+    times = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        times.append((time.perf_counter() - t0) * 1e6)
+    torch.cuda.synchronize()
+    return statistics.median(times)
+
+
+def run_prefix_cache(dev, m0, B=64, n_tok=16, long_prompt=1024, pad=3, state_pool_size=8,
+                     burst=16, burst_prompt=128, wave=8):
+    """The prefix-state cache path on the engine model's weights (w8a8, 7.2B
+    width), through AsyncEngineCore with graphs and warmup_programs=True:
+
+    - state pool on (state_pool_size + 4 rows): a `long_prompt`-token prompt
+      with cache_prefill and padding `pad`, greedy, `n_tok` tokens (the
+      miss), then the same prompt resumed from its PoolHandle with the
+      `pad`-token suffix (the hit): equal tokens, both times to first token,
+      and the kernels' launches over the two (each kernel of the path at
+      least once, no other); then `burst` snapshots of `burst_prompt`-token
+      prompts into a PrefixStateCache while the first row is pinned by an
+      in-flight resume: evictions counted, no skip, the pinned row never
+      revoked, and its resume still gives the miss's tokens;
+    - state pool off: the same miss and hit through a host snapshot
+      (extract_slot_async), whose tensors equal the pool row bit for bit;
+    - on a carry of the engine's model with a random state: pool rows
+      against the carry rows they came from and a load back (bit-equal),
+      pool_store_many / pool_load / extract_slot_async under sync debug mode
+      "error" (no host synchronisation), their host time a call and device
+      time a row against the bound (a row read and written), the host
+      snapshot taken before a write that follows it on the stream, its move
+      against the card's device-to-host rate, and a wave of `wave`
+      admissions through insert_slots_batched against insert_slot each."""
+    import warnings
+
+    import numpy as np
+    from chirrup_tpu_torch.engine.engine import AsyncEngineCore
+    from chirrup_tpu_torch.engine.serving import ServingModel
+    from chirrup_tpu_torch.engine.state_cache import PrefixStateCache
+    from chirrup_tpu_torch.engine.structures import ModelLoadConfig, PoolHandle, RequestState
+    from chirrup_tpu_torch.ops import _kernels
+    from chirrup_tpu_torch.utils.tokenizer import WorldTokenizer
+
+    mc = m0.config
+    L, C, V = mc.n_layer, mc.n_embd, mc.vocab_size
+    tmp = tempfile.TemporaryDirectory()
+    vocab = os.path.join(tmp.name, "vocab.txt")
+    write_vocab(vocab, V)
+    cfg = ModelLoadConfig(model_path="<synthetic>", vocab_path=vocab, vocab_size=V,
+                          quantization="int8",
+                          synthetic_config=dict(n_layer=L, n_embd=C, vocab_size=V))
+    models = []
+
+    def factory():
+        models.append(ServingModel(mc, m0.params, m0.runtime, B, prefill_chunk=m0.prefill_chunk,
+                                   device=dev))
+        return models[-1], WorldTokenizer(vocab)
+
+    gen = torch.Generator().manual_seed(5)
+    prompt = torch.randint(1, V, (long_prompt,), generator=gen).tolist()
+    bursts = [torch.randint(1, V, (burst_prompt,), generator=gen).tolist()
+              for _ in range(burst)]
+    on_path = {n for kind in ("step", "chunk")
+               for n, c in expected_launches(L, "auto", kind).items() if c > 0}
+    out = {}
+
+    async def serve(pool_size, body):
+        engine = AsyncEngineCore()
+        t0 = time.perf_counter()
+        await engine.init(worker_num=1, model_config=cfg, batch_size=B, load_timeout=900,
+                          device=dev, model_factory=factory, warmup_programs=True,
+                          state_pool_size=pool_size)
+        load_s = time.perf_counter() - t0
+        try:
+            return load_s, await body(engine, engine.workers[0])
+        finally:
+            engine.shutdown()
+            engine.join(timeout=30)
+
+    async def with_pool(engine, worker):
+        _kernels.reset_launches()
+        miss, snap, ttft_miss = await cache_request(engine, prompt, n_tok, cache_prefill=True,
+                                                    cache_prefill_padding=pad)
+        handle = snap["state"]
+        require(isinstance(handle, PoolHandle) and snap["prefilled_tokens"] == tuple(
+            prompt[:-pad]), f"prefix cache: the pool snapshot is {snap}")
+        row = {k: worker.state_pool[k][handle.row].cpu() for k in ("shift", "wkv", "elapsed")}
+        cache = PrefixStateCache(max_size=100)
+        cache.cache(snap["prefilled_tokens"], handle)
+        require(handle.try_acquire(), "prefix cache: the snapshot's handle is dead")
+        hit, _, ttft_hit = await cache_request(engine, prompt[-pad:], n_tok, state=handle)
+        launches = dict(_kernels.LAUNCHES)
+        require(hit == miss, f"prefix cache: pool hit tokens {hit} != uncached {miss}")
+        for name, count in launches.items():
+            require((count > 0) == (name in on_path),
+                    f"prefix cache: kernel {name} launched {count} times on the cache path")
+        require(handle.refs == 1 and worker.pool_allocator.available() == worker.pool_allocator.size - 1,
+                "prefix cache: the resume did not release its reference")
+        # a burst of more snapshots than rows while an in-flight resume pins the row
+        require(handle.try_acquire(), "prefix cache: the snapshot's handle is dead")
+        evictions = worker.snapshot_evictions
+        snaps = await asyncio.gather(*[
+            cache_request(engine, ids, 2, cache_prefill=True, cache_prefill_padding=pad,
+                          on_snapshot=lambda s: cache.cache(s["prefilled_tokens"], s["state"]))
+            for ids in bursts])
+        handles = [s for _, s, _ in snaps]
+        for s in handles:
+            require(s is not None and isinstance(s["state"], PoolHandle),
+                    f"prefix cache: a burst snapshot was {s}")
+        evicted = worker.snapshot_evictions - evictions
+        revoked = sum(s["state"].revoked for s in handles)
+        require(evicted == revoked == burst + 1 - worker.pool_allocator.size
+                and worker.snapshot_skips == 0 and handle.alive and handle.refs == 2,
+                f"prefix cache: {burst} snapshots into {worker.pool_allocator.size} rows: "
+                f"{evicted} evictions, {revoked} revoked, {worker.snapshot_skips} skips, the "
+                f"pinned handle alive {handle.alive} with {handle.refs} refs")
+        again, _, ttft_again = await cache_request(engine, prompt[-pad:], n_tok, state=handle)
+        require(again == miss, f"prefix cache: the pinned row's resume {again} != {miss}")
+        return dict(miss=miss, row=row, ttft_miss_s=ttft_miss, ttft_hit_s=ttft_hit,
+                    ttft_hit_after_burst_s=ttft_again, launches=launches, evictions=evicted,
+                    rows=worker.pool_allocator.size, row_bytes=handle.device_bytes)
+
+    async def without_pool(engine, worker):
+        miss, snap, ttft_miss = await cache_request(engine, prompt, n_tok, cache_prefill=True,
+                                                    cache_prefill_padding=pad)
+        state = snap["state"]
+        require(isinstance(state, RequestState) and state.wkv.is_pinned()
+                and snap["prefilled_tokens"] == tuple(prompt[:-pad]),
+                f"prefix cache: the host snapshot is {snap}")
+        hit, _, ttft_hit = await cache_request(engine, prompt[-pad:], n_tok, state=state)
+        require(worker.state_pool is None and hit == miss,
+                f"prefix cache: host hit tokens {hit} != uncached {miss}")
+        return dict(miss=miss, state=state, ttft_miss_s=ttft_miss, ttft_hit_s=ttft_hit)
+
+    load_pool, pooled = asyncio.run(serve(state_pool_size, with_pool))
+    load_host, host = asyncio.run(serve(0, without_pool))
+    row, state = pooled.pop("row"), host.pop("state")
+    require(host["miss"] == pooled["miss"], "prefix cache: the two engines' tokens differ")
+    require(torch.equal(row["shift"], state.shift) and torch.equal(row["wkv"], state.wkv)
+            and int(row["elapsed"]) == state.elapsed == long_prompt - pad,
+            "prefix cache: the pool row and the host snapshot of one prompt differ")
+    log(f"prefix cache, state pool of {pooled['rows']} rows ({pooled['row_bytes']:,} bytes a "
+        f"row; engine loaded, warmed and captured in {load_pool:.1f} s): {long_prompt}-token "
+        f"prompt, padding {pad}: time to first token uncached (snapshot on the way) "
+        f"{pooled['ttft_miss_s']:.3f} s, resumed from its PoolHandle with the {pad}-token "
+        f"suffix {pooled['ttft_hit_s']:.3f} s, {n_tok} greedy tokens equal; launches over "
+        f"the two {pooled['launches']}; {burst} snapshots of {burst_prompt} tokens into the "
+        f"pool with its first row pinned: {pooled['evictions']} evictions, 0 skips, the "
+        f"pinned row's resume {pooled['ttft_hit_after_burst_s']:.3f} s to first token, tokens "
+        f"equal")
+    log(f"prefix cache, state pool off (host snapshots; engine loaded in {load_host:.1f} s): "
+        f"time to first token uncached {host['ttft_miss_s']:.3f} s, resumed from the host "
+        f"RequestState {host['ttft_hit_s']:.3f} s, tokens equal to the pool run's; the host "
+        f"snapshot equals the pool row bit for bit")
+    out.update(pool=pooled, host=host, load_s=dict(pool=load_pool, host=load_host))
+
+    # the pool operations and the admission on a carry of the engine's model
+    model = models[0]
+    carry = model.init_carry()
+    st = carry.state
+    g = torch.Generator(device=dev).manual_seed(6)
+    st.shift.copy_(torch.randn(st.shift.shape, generator=g, device=dev))
+    st.wkv.copy_(torch.randn(st.wkv.shape, generator=g, device=dev))
+    st.elapsed.copy_(torch.randint(0, 10_000, (B,), generator=g, device=dev))
+    pool = model.init_state_pool(wave + 1)
+    row_bytes = model.pool_row_bytes()
+    pairs = [((3 + 7 * i) % B, 1 + i) for i in range(wave)]
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        model.pool_store_many(carry, pool, pairs)
+        model.pool_load(carry, pool, 1, 2)
+        resolve = model.extract_slot_async(carry, 5)
+        before = model.extract_slot_async(carry, 9)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    for slot, r in pairs:
+        require(torch.equal(pool["shift"][r], st.shift[:, :, slot])
+                and torch.equal(pool["wkv"][r], st.wkv[:, slot])
+                and torch.equal(pool["elapsed"][r], st.elapsed[slot]),
+                f"prefix cache: pool row {r} differs from carry slot {slot}")
+    require(torch.equal(st.shift[:, :, 2], st.shift[:, :, 3]) and torch.equal(
+        st.wkv[:, 2], st.wkv[:, 3]) and torch.equal(st.elapsed[2], st.elapsed[3]),
+        "prefix cache: pool_load did not give slot 2 the row of slot 3")
+    # a snapshot is taken at its call: a write queued after it must not reach it
+    ref = model.extract_slot(carry, 9)
+    st.wkv.add_(1)
+    snap9 = before()
+    require(torch.equal(snap9.wkv, ref.wkv) and torch.equal(snap9.shift, ref.shift),
+            "prefix cache: the host snapshot holds a write queued after it")
+    resolve()
+    store1_us = host_us(lambda: model.pool_store_many(carry, pool, pairs[:1]))
+    store8_us = host_us(lambda: model.pool_store_many(carry, pool, pairs))
+    load_us = host_us(lambda: model.pool_load(carry, pool, 1, 2))
+    extract_us = host_us(lambda: model.extract_slot_async(carry, 5))
+    resolve_ms = []
+    for _ in range(5):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        model.extract_slot_async(carry, 5)()
+        resolve_ms.append((time.perf_counter() - t0) * 1e3)
+    store_row_ms = device_ms(lambda: model.pool_store_many(carry, pool, pairs[:1]))
+    load_row_ms = device_ms(lambda: model.pool_load(carry, pool, 1, 2))
+    row_bound = bound_ms(2 * row_bytes, 0, "bf16")[0]
+    # the same row and the admission's state fill element by element (PyTorch
+    # moves a strided bf16 operand one element at a time), against the
+    # 8-byte words the pool ops and insert_slots_batched move
+    slot0, row0 = pairs[0]
+    elem_row_ms = device_ms(lambda: (pool["shift"][row0].copy_(st.shift[:, :, slot0]),
+                                     pool["wkv"][row0].copy_(st.wkv[:, slot0])))
+    mask_dev = torch.zeros((B,), dtype=torch.bool, device=dev)
+    mask_dev[[s for s, _ in pairs]] = True
+    fill_ms = {kind: device_ms(lambda: view(st.wkv).masked_fill_(mask_dev[None, :, None, None], 0))
+               for kind, view in (("elements", lambda t: t), ("words", lambda t: t.view(torch.int64)))}
+    d2h_ms = pcie_d2h_ms(dev, row_bytes)
+    log(f"prefix cache, pool ops on a carry at batch {B} (no host synchronisation under sync "
+        f"debug mode 'error'; rows bit-equal to the carry rows): host us a call "
+        f"pool_store_many of 1 pair {store1_us:.1f}, of {wave} pairs {store8_us:.1f}, "
+        f"pool_load {load_us:.1f}, extract_slot_async {extract_us:.1f}; device ms a row "
+        f"store {store_row_ms:.4f}, load {load_row_ms:.4f} against a bound of {row_bound:.4f} "
+        f"({2 * row_bytes:,} bytes read and written at 3.35 TB/s; the row element by element "
+        f"{elem_row_ms:.4f}); the admission's masked fill of the wkv state as 8-byte words "
+        f"{fill_ms['words']:.4f} ms, element by element {fill_ms['elements']:.4f}; the host snapshot "
+        f"resolved {spread(resolve_ms)} ms after its call (synchronised before it), a "
+        f"{row_bytes:,}-byte device-to-host copy into pinned memory {d2h_ms:.4f} ms "
+        f"({row_bytes / d2h_ms / 1e6:.1f} GB/s)")
+
+    class Task:
+        temperature, top_p, top_k = 0.8, 0.5, 20
+        frequency_penalty, presence_penalty, penalty_decay = 0.3, 0.3, 0.996
+        forbidden_tokens = (11, 22, 33)
+
+    slots = [(4 + 7 * i) % B for i in range(wave)]
+    mask = np.zeros((B,), bool)
+    mask[slots] = True
+    tasks = [Task if mask[i] else None for i in range(B)]
+
+    def per_slot():
+        for s in slots:
+            model.insert_slot(carry, s, None, Task)
+
+    def wall_ms(fn, reps=10):
+        times = []
+        for _ in range(reps):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        return statistics.median(times)
+
+    model.insert_slots_batched(carry, mask, tasks)  # first call: captured
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        model.insert_slots_batched(carry, mask, tasks)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            per_slot()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    syncs = sum("synchroniz" in str(w.message) for w in caught)
+    batched_us = host_us(lambda: model.insert_slots_batched(carry, mask, tasks))
+    serial_us = host_us(per_slot)
+    batched_wall, serial_wall = wall_ms(lambda: model.insert_slots_batched(carry, mask, tasks)), \
+        wall_ms(per_slot)
+    # two calls a rep: the staging's two pinned buffers, no wait on the host
+    batched_dev = device_ms(lambda: model.insert_slots_batched(carry, mask, tasks), iters=2)
+    log(f"prefix cache, a wave of {wave} admissions at batch {B}: insert_slots_batched "
+        f"(one staged upload, a captured graph; no host synchronisation under sync debug mode "
+        f"'error') host {batched_us:.1f} us, wall through a synchronise {batched_wall:.3f} ms, "
+        f"device {batched_dev:.4f} ms; {wave} x insert_slot host {serial_us:.1f} us, wall "
+        f"{serial_wall:.3f} ms, {syncs} synchronising calls flagged by sync debug mode 'warn'")
+    out["ops"] = dict(pool_store_1_host_us=store1_us, pool_store_wave_host_us=store8_us,
+                      pool_load_host_us=load_us, extract_async_host_us=extract_us,
+                      host_snapshot_resolve_ms=resolve_ms, pool_store_row_ms=store_row_ms,
+                      pool_load_row_ms=load_row_ms, row_bound_ms=row_bound,
+                      pool_store_row_elements_ms=elem_row_ms, wkv_fill_ms=fill_ms,
+                      d2h_row_ms=d2h_ms, d2h_gb_s=row_bytes / d2h_ms / 1e6,
+                      insert_batched_host_us=batched_us, insert_batched_wall_ms=batched_wall,
+                      insert_batched_device_ms=batched_dev, insert_slot_wave_host_us=serial_us,
+                      insert_slot_wave_wall_ms=serial_wall, insert_slot_wave_syncs=syncs)
+    del carry, pool, models[:]
+    torch.cuda.empty_cache()
+    return out
+
+
 def run_prefill(dev, engine_model, profile: bool, B=256, chunks=4, tag="", graphs=True):
     """Compact prefill at 7.2B width on a batch-B ServingModel that shares
     the engine model's prepared weights, with CUDA graphs or (graphs=False)
@@ -3324,6 +3666,7 @@ def main(argv=None) -> int:
     path["prefill_eager"] = run_prefill(dev, model, False, chunks=2, tag="_eager",
                                         graphs=False)
     bf16_path = run_bf16_mode(dev, model, path["block_steps"])
+    path["prefix_cache"] = run_prefix_cache(dev, model)
     del model
     gc.collect()
     torch.cuda.empty_cache()

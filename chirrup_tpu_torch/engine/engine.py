@@ -3,7 +3,8 @@
 A shared task queue gives work-stealing request-level parallelism across
 workers; a ThreadSafeAsyncQueue bridges each worker thread back into the event
 loop; init waits for every worker's worker_loaded handshake. A worker drives
-one device.
+one device. With `state_pool_size`, a single worker keeps prefix snapshots in
+a device state pool (PoolHandle events); otherwise they go to the host.
 """
 
 from __future__ import annotations
@@ -12,14 +13,15 @@ import asyncio
 import queue
 import threading
 import uuid
-from typing import Any, Callable, List, Optional, Sequence
+from typing import Any, Callable, List, Optional, Sequence, Union
 
 import torch
 
 from chirrup_tpu_torch import resolve_device
 from chirrup_tpu_torch.engine.interface import AsyncEngineCompletion
 from chirrup_tpu_torch.engine.structures import (
-    DEFAULT_SAMPLING_CONFIG, DEFAULT_STOP_TOKENS, ModelLoadConfig, RequestState, Task)
+    DEFAULT_SAMPLING_CONFIG, DEFAULT_STOP_TOKENS, ModelLoadConfig, PoolHandle, RequestState,
+    Task)
 from chirrup_tpu_torch.engine.worker import Worker, start_worker_thread
 from chirrup_tpu_torch.utils.tokenizer import WorldTokenizer
 
@@ -104,12 +106,16 @@ class AsyncEngineCore:
                    batch_size: int = 32, *, load_timeout: float = 300.0,
                    decode_block_size: Optional[int] = None,
                    model_factory: Optional[Callable] = None, device=None,
-                   warmup_programs: bool = False) -> None:
+                   warmup_programs: bool = False, state_pool_size: int = 0) -> None:
         """Spawn workers and wait for their worker_loaded handshake. Worker k
         runs on `device`, or on CUDA device k mod the device count when none is
         given; model_factory replaces the synthetic-model factory.
         warmup_programs: each worker runs every serving program once (on
-        CUDA: captures its graphs) before it reports itself loaded."""
+        CUDA: captures its graphs) before it reports itself loaded.
+        state_pool_size: rows of the device state pool for prefix snapshots,
+        plus 4 of headroom for snapshot bursts that race the cache's
+        releases; only with one worker (a handle is a row of one worker's
+        pool), and otherwise snapshots go to the host."""
         if self.is_initialized:
             raise RuntimeError("Workers already initialized")
         if self.is_shutdown:
@@ -123,6 +129,12 @@ class AsyncEngineCore:
             self.event_loop, asyncio.Queue(maxsize=worker_num * 100))
         self.is_initialized = True
         self.tokenizer = WorldTokenizer(model_config.vocab_path)
+        pool_rows = 0
+        if state_pool_size > 0:
+            if worker_num == 1:
+                pool_rows = state_pool_size + 4
+            else:
+                print("state pool disabled: worker_num > 1 (host snapshots in effect)")
         for k in range(worker_num):
             master_q: queue.Queue = queue.Queue()
             self.event_queues.append(master_q)
@@ -132,7 +144,7 @@ class AsyncEngineCore:
                             task_queue=self.task_queue, master_event_queue=master_q,
                             worker_event_queue=self.worker_event_queue,
                             batch_size=batch_size, decode_block_size=decode_block_size,
-                            warmup_programs=warmup_programs)
+                            warmup_programs=warmup_programs, state_pool_size=pool_rows)
             self.workers.append(worker)
             self.worker_threads.append(start_worker_thread(worker))
 
@@ -161,7 +173,7 @@ class AsyncEngineCore:
         self,
         prompt_str: str,
         prefill_tokens: Optional[List[int]] = None,
-        state: Optional[RequestState] = None,
+        state: Union[RequestState, PoolHandle, None] = None,
         priority: int = 0,
         temperature: float = DEFAULT_SAMPLING_CONFIG["temperature"],
         top_p: float = DEFAULT_SAMPLING_CONFIG["top_p"],
@@ -177,13 +189,14 @@ class AsyncEngineCore:
         cache_prefill_padding: int = 0,
         return_logits: bool = False,
     ) -> AsyncEngineCompletion:
-        """Create a streaming completion. Requests that resume from a `state`
-        or ask for `cache_prefill` snapshots need the prefix state cache, which
-        arrives with the HTTP server slice of the port."""
-        if state is not None or cache_prefill:
-            raise NotImplementedError(
-                "state / cache_prefill requests need the prefix state cache, which "
-                "comes with the HTTP server / state-cache slice of chirrup_tpu_torch")
+        """Create a streaming completion. `state` resumes from a snapshot (a
+        host RequestState, or a PoolHandle whose reference the request
+        takes over) with `prefill_tokens` the prompt's suffix after it;
+        `cache_prefill` asks for a ("cache_prefill", {"state",
+        "prefilled_tokens"}) event where cache_prefill_padding - 1 prompt
+        tokens are left."""
+        if state is not None and prefill_tokens is None:
+            raise ValueError("prefill_tokens cannot be None when state is provided")
         if not self.is_initialized:
             raise RuntimeError("Engine not initialized")
         if self.is_shutdown:
@@ -191,7 +204,7 @@ class AsyncEngineCore:
         if not prefill_tokens:
             prefill_tokens = self.tokenizer.encode(prompt_str)
         return AsyncEngineCompletion(
-            prompt_str=prompt_str, prefill_tokens=list(prefill_tokens), state=None,
+            prompt_str=prompt_str, prefill_tokens=list(prefill_tokens), state=state,
             task_queue=self.task_queue,
             result_channel=ThreadSafeAsyncQueue(self.event_loop),
             task_id=task_id or str(uuid.uuid4()), priority=priority,
@@ -199,7 +212,7 @@ class AsyncEngineCore:
             presence_penalty=presence_penalty, frequency_penalty=frequency_penalty,
             penalty_decay=penalty_decay, stop_tokens=stop_tokens,
             forbidden_tokens=forbidden_tokens, max_tokens=max_tokens,
-            cache_prefill=False, cache_prefill_padding=cache_prefill_padding,
+            cache_prefill=cache_prefill, cache_prefill_padding=cache_prefill_padding,
             return_logits=return_logits)
 
     def shutdown(self) -> None:

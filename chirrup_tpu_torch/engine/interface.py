@@ -10,10 +10,10 @@ from __future__ import annotations
 import asyncio
 import queue
 import time
-from typing import Any, List, Optional, Sequence
+from typing import Any, List, Optional, Sequence, Union
 
 from chirrup_tpu_torch.engine.structures import (
-    DEFAULT_SAMPLING_CONFIG, DEFAULT_STOP_TOKENS, RequestState, Task)
+    DEFAULT_SAMPLING_CONFIG, DEFAULT_STOP_TOKENS, PoolHandle, RequestState, Task)
 
 
 class AsyncEngineCompletion:
@@ -23,7 +23,7 @@ class AsyncEngineCompletion:
         self,
         prompt_str: str,
         prefill_tokens: List[int],
-        state: Optional[RequestState],
+        state: Union[RequestState, PoolHandle, None],
         task_queue: "queue.Queue[Task]",
         result_channel: Any,
         task_id: str,

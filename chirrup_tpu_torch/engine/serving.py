@@ -11,8 +11,15 @@ jitted programs with donated buffers; here the buffers are simply written):
   prefill_step / prefill_step_compact: one chunk of up to `prefill_chunk`
                 prompt tokens per prefilling slot, over the whole batch or over
                 the P gathered slots only;
-  insert_slot / reset_slot / extract_slot: per-request
-                state entry and exit.
+  insert_slots_batched: the admission of any number of slots in one
+                program (zero state, sampling parameters, a forbidden set
+                of up to LOCKSTEP_MAX_FORBIDDEN ids);
+  insert_slot / reset_slot / extract_slot / extract_slot_async: per-request
+                state entry and exit (a host snapshot, the async one copied
+                on a side stream while the next block runs);
+  init_state_pool / pool_store_many / pool_load: the device state pool,
+                rows of prefix snapshots that a request resumes from by a
+                device-to-device copy.
 
 Shapes never depend on occupancy: slots are masked, never moved (the compact
 prefill gathers its rows and writes them back).
@@ -27,7 +34,10 @@ program's static device buffers (one copy from a pinned buffer, two used in
 turn), draws the program's noise from carry.rng into static buffers, and
 replays the graph. The graphs hold the addresses of the weights, the
 carry's tensors and their own intermediates, so no carry tensor is ever
-rebound. `ServingModel(..., graphs=False)` runs the same bodies eagerly on
+rebound: every write into the carry outside a replay (inserts, pool loads)
+is in place and on the current stream, so stream order alone puts it
+between the replays that surround it. `ServingModel(..., graphs=False)`
+runs the same bodies eagerly on
 the same staged inputs and noise (the reference the graphs are held to);
 the CPU always runs them eagerly.
 """
@@ -83,6 +93,18 @@ def forbidden_bias_row(forbidden_ids, V) -> np.ndarray:
     return bias
 
 
+def slot_params(task) -> Tuple[Tuple[float, float, int, float, float, float],
+                               Tuple[int, ...]]:
+    """A task's per-slot parameters as host values: (temperature, top_p,
+    top_k, frequency, presence, decay) and its forbidden ids. Raises
+    ValueError or TypeError for a malformed task, before anything reaches
+    the device."""
+    return ((float(task.temperature), float(task.top_p), int(task.top_k),
+             float(task.frequency_penalty), float(task.presence_penalty),
+             float(task.penalty_decay)),
+            tuple(int(t) for t in task.forbidden_tokens))
+
+
 def _host_tensor(a) -> torch.Tensor:
     """A snapshot array as a tensor: a port snapshot's tensor as it is, a
     numpy array as it is, and an ml_dtypes bfloat16 array (a JAX package
@@ -94,6 +116,14 @@ def _host_tensor(a) -> torch.Tensor:
     if a.dtype.name == "bfloat16":
         return torch.from_numpy(a.astype(np.float32)).to(torch.bfloat16)
     return torch.from_numpy(np.ascontiguousarray(a))
+
+
+def _as_words(t: torch.Tensor) -> torch.Tensor:
+    """A state tensor's bits as 8-byte words (its last dimension is a
+    multiple of the head size): PyTorch copies and fills a strided or
+    broadcast operand element by element, so a bf16 state moves 4x fewer
+    elements this way, bit for bit."""
+    return t.view(torch.int64)
 
 
 def _is_quantized(tree) -> bool:
@@ -298,6 +328,11 @@ class ServingModel:
     graphs (True) or eagerly (False: the reference the graphs are held to).
     The CPU never captures."""
 
+    # forbidden ids a slot may bring into insert_slots_batched (a (B, V) bias
+    # staged from the host every admission would dwarf the program); a task
+    # with more is admitted through insert_slot
+    LOCKSTEP_MAX_FORBIDDEN = 8
+
     def __init__(self, config: RWKV7Config,
                  params: Union[Dict[str, Any], Callable[[], Dict[str, Any]]],
                  runtime: RuntimeConfig, batch_size: int, prefill_chunk: int = 64, *,
@@ -339,6 +374,9 @@ class ServingModel:
             # one memory pool for every graph of this model, captured on one stream
             self._pool = torch.cuda.graph_pool_handle()
             self._capture_stream = torch.cuda.Stream(self.device)
+        # the side stream of extract_slot_async's device-to-host copies
+        self._snapshot_stream = (torch.cuda.Stream(self.device)
+                                 if self.device.type == "cuda" else None)
 
     # ------------------------------------------------------------------ carry
 
@@ -447,6 +485,32 @@ class ServingModel:
         st.elapsed.index_copy_(0, idx, rows.elapsed)
         return ()
 
+    def _insert_body(self, carry: BatchCarry, inputs):
+        """Admit the staged mask's slots: zero state and occurrence, the
+        presence bias rebuilt as 1e10 at each row's forbidden ids (-1
+        padded), the sampling parameters (floats staged by their bits) and
+        last_sampled = -1. Rows outside the mask keep every bit; an
+        all-False mask changes nothing."""
+        mask, temp, top_p, top_k, freq, pres, decay, forbidden = inputs
+        m = mask != 0
+        st = carry.state
+        _as_words(st.shift).masked_fill_(m[None, None, :, None], 0)
+        _as_words(st.wkv).masked_fill_(m[None, :, None, None], 0)
+        st.elapsed.masked_fill_(m, 0)
+        carry.occurrence.masked_fill_(m[:, None], 0)
+        V = carry.presence_vec.shape[1]
+        # the -1 pads scatter into a spare column V
+        bias = torch.zeros((self.batch_size, V + 1), dtype=torch.float32, device=self.device)
+        bias.scatter_(1, torch.where(forbidden >= 0, forbidden, V).long(), 1e10)
+        carry.presence_vec.copy_(torch.where(m[:, None], bias[:, :V], carry.presence_vec))
+        for dst, src in ((carry.temperature, temp), (carry.top_p, top_p),
+                         (carry.frequency_penalty, freq), (carry.presence_penalty, pres),
+                         (carry.penalty_decay, decay)):
+            dst.copy_(torch.where(m, src.view(torch.float32), dst))
+        carry.top_k.copy_(torch.where(m, top_k, carry.top_k))
+        carry.last_sampled.masked_fill_(m, -1)
+        return ()
+
     def _forward_chunk(self, state: RWKVState, tokens, lengths) -> None:
         model.forward_chunk(self.params, tokens, state, lengths,
                             compute_dtype=self.runtime.activation_dtype,
@@ -456,8 +520,9 @@ class ServingModel:
     # --------------------------------------------------------------- programs
 
     def _program(self, carry: BatchCarry, key: Tuple) -> _Program:
-        """The program `key` of this carry: ("block", K), ("step",) or
-        ("compact", P, T), built and, with graphs, captured at first use;
+        """The program `key` of this carry: ("block", K), ("step",),
+        ("compact", P, T) or ("insert",), built and, with graphs, captured
+        at first use (on all-zero staged inputs: every row inactive);
         or one that always runs eagerly: ("marked", K, M), a block that also
         gathers M rows' raw logits, and ("full", T), a chunk over the whole
         batch."""
@@ -484,6 +549,10 @@ class ServingModel:
             prog = _Program(staging, lambda c: self._compact_body(c, inputs))
             # all-inactive: length 0 on distinct slots
             staging.put([np.zeros((P, T)), np.zeros(P), np.arange(P)])
+        elif kind == "insert":
+            staging = _Staging([(B,)] * 7 + [(B, self.LOCKSTEP_MAX_FORBIDDEN)], self.device)
+            inputs = staging.views()
+            prog = _Program(staging, lambda c: self._insert_body(c, inputs))
         elif kind == "marked":
             K, M = key[1:]
             staging = _Staging([(K, B)] * 4 + [(B, 2), (M,)], self.device)
@@ -497,7 +566,7 @@ class ServingModel:
             prog = _Program(staging, lambda c: self._forward_chunk(c.state, *inputs))
         else:
             raise ValueError(f"unknown serving program {key!r}")
-        if self.graphs and kind in ("block", "step", "compact"):
+        if self.graphs and kind in ("block", "step", "compact", "insert"):
             prog.capture(carry, self._pool, self._capture_stream)
         carry.programs[key] = prog
         return prog
@@ -589,13 +658,39 @@ class ServingModel:
         return carry
 
     def _set_params(self, carry: BatchCarry, slot: int, task) -> None:
-        carry.temperature[slot] = float(task.temperature)
-        carry.top_p[slot] = float(task.top_p)
-        carry.top_k[slot] = int(task.top_k)
-        carry.frequency_penalty[slot] = float(task.frequency_penalty)
-        carry.presence_penalty[slot] = float(task.presence_penalty)
-        carry.penalty_decay[slot] = float(task.penalty_decay)
+        (temp, top_p, top_k, freq, pres, decay), _ = slot_params(task)
+        carry.temperature[slot] = temp
+        carry.top_p[slot] = top_p
+        carry.top_k[slot] = top_k
+        carry.frequency_penalty[slot] = freq
+        carry.presence_penalty[slot] = pres
+        carry.penalty_decay[slot] = decay
         carry.last_sampled[slot] = -1
+
+    def insert_slots_batched(self, carry: BatchCarry, mask, tasks) -> BatchCarry:
+        """Admit the slots of `mask` (B,) in one program: tasks[i] is the
+        Task of each masked slot (None elsewhere). Each gets the zero state
+        (a pool resume loads its row afterwards, pool_load), its sampling
+        parameters, zero occurrence and the bias of its forbidden ids, at
+        most LOCKSTEP_MAX_FORBIDDEN of them in range; the carry ends
+        bit-equal to insert_slot(carry, i, None, tasks[i]) for each masked
+        slot. One staged upload (no pageable copy, no host sync), then the
+        program (on CUDA a captured graph)."""
+        B, V, F = self.batch_size, self.config.vocab_size, self.LOCKSTEP_MAX_FORBIDDEN
+        floats = np.zeros((5, B), np.float32)  # temperature, top_p, freq, pres, decay
+        top_k = np.zeros((B,), np.int32)
+        forb = np.full((B, F), -1, np.int32)
+        for i, task in enumerate(tasks):
+            if task is None:
+                continue
+            (temp, top_p, top_k[i], freq, pres, decay), ids = slot_params(task)
+            floats[:, i] = temp, top_p, freq, pres, decay
+            ids = [t for t in ids if 0 <= t < V][:F]
+            forb[i, :len(ids)] = ids
+        bits = floats.view(np.int32)
+        self._run(carry, ("insert",), (np.asarray(mask, bool), bits[0], bits[1], top_k,
+                                       bits[2], bits[3], bits[4], forb))
+        return carry
 
     def reset_slot(self, carry: BatchCarry, slot: int) -> BatchCarry:
         """Zero a slot's state and restore default sampling parameters."""
@@ -617,3 +712,82 @@ class ServingModel:
         host = lambda t: t.to("cpu", copy=True, memory_format=torch.contiguous_format)
         return RequestState(shift=host(st.shift[:, :, slot]), wkv=host(st.wkv[:, slot]),
                             elapsed=int(st.elapsed[slot]))
+
+    def extract_slot_async(self, carry: BatchCarry, slot: int) -> Callable[[], RequestState]:
+        """Start a snapshot of a slot and return the function that gives it,
+        a RequestState equal to extract_slot's at this point of the stream.
+        The slot's rows are copied into fresh device buffers on the current
+        stream, so the next replay may advance the slot at once; on CUDA a
+        side stream waits for that copy and moves the buffers into pinned
+        host memory while the next block runs, and the resolver waits only
+        for that move (the worker resolves a loop later)."""
+        st = carry.state
+        rows = [torch.empty_like(st.shift[:, :, slot], memory_format=torch.contiguous_format),
+                torch.empty_like(st.wkv[:, slot], memory_format=torch.contiguous_format),
+                st.elapsed[slot:slot + 1].clone()]
+        _as_words(rows[0]).copy_(_as_words(st.shift[:, :, slot]))
+        _as_words(rows[1]).copy_(_as_words(st.wkv[:, slot]))
+        if self._snapshot_stream is None:
+            return lambda: RequestState(shift=rows[0], wkv=rows[1], elapsed=int(rows[2]))
+        side = self._snapshot_stream
+        side.wait_stream(torch.cuda.current_stream(self.device))
+        with torch.cuda.stream(side):
+            host = [torch.empty(t.shape, dtype=t.dtype, pin_memory=True) for t in rows]
+            for h, t in zip(host, rows):
+                h.copy_(t, non_blocking=True)
+                t.record_stream(side)  # not reused before the move is done
+            done = torch.cuda.Event()
+            done.record(side)
+
+        def resolve() -> RequestState:
+            done.synchronize()
+            return RequestState(shift=host[0], wkv=host[1], elapsed=int(host[2]))
+
+        return resolve
+
+    # ------------------------------------------------------- device state pool
+
+    def init_state_pool(self, size: int) -> Dict[str, torch.Tensor]:
+        """`size` rows of prefix snapshots on the device, in the JAX
+        package's layout: shift (S, L, 2, C) at the activation dtype, wkv
+        (S, L, N, H*N) at the state's dtype, elapsed (S,) int32. Ordinary
+        allocations, outside any graph's memory pool; pool_row_bytes() a
+        row (17,301,508 at g1 7.2B width in bf16)."""
+        cfg, rt, dev = self.config, self.runtime, self.device
+        L, C, N = cfg.n_layer, cfg.n_embd, cfg.head_size
+        return {"shift": torch.zeros((size, L, 2, C), dtype=rt.activation_dtype, device=dev),
+                "wkv": torch.zeros((size, L, N, C), dtype=rt.wkv_state_dtype, device=dev),
+                "elapsed": torch.zeros((size,), dtype=torch.int32, device=dev)}
+
+    def pool_row_bytes(self) -> int:
+        cfg, rt = self.config, self.runtime
+        itemsize = lambda dtype: torch.empty((), dtype=dtype).element_size()
+        return (cfg.n_layer * 2 * cfg.n_embd * itemsize(rt.activation_dtype)
+                + cfg.n_layer * cfg.head_size * cfg.n_embd * itemsize(rt.wkv_state_dtype) + 4)
+
+    def pool_store(self, carry: BatchCarry, pool, slot: int, row: int):
+        """Snapshot slot -> pool row on the device; returns the pool."""
+        return self.pool_store_many(carry, pool, [(slot, row)])
+
+    def pool_store_many(self, carry: BatchCarry, pool, pairs: Sequence[Tuple[int, int]]):
+        """Snapshots [(slot, row), ...], any number: device-to-device copies
+        into the pool, in place, on the current stream (so after the
+        dispatches before them and before the next replay), with no host
+        synchronisation. Returns the pool."""
+        st = carry.state
+        for slot, row in pairs:
+            _as_words(pool["shift"][row]).copy_(_as_words(st.shift[:, :, slot]))
+            _as_words(pool["wkv"][row]).copy_(_as_words(st.wkv[:, slot]))
+            pool["elapsed"][row:row + 1].copy_(st.elapsed[slot:slot + 1])
+        return pool
+
+    def pool_load(self, carry: BatchCarry, pool, row: int, slot: int) -> BatchCarry:
+        """Resume pool row -> slot on the device: copies into the carry's own
+        tensors (a captured graph holds their addresses), on the current
+        stream, with no host synchronisation. The slot's sampling
+        parameters come from an insert before it."""
+        st = carry.state
+        _as_words(st.shift[:, :, slot]).copy_(_as_words(pool["shift"][row]))
+        _as_words(st.wkv[:, slot]).copy_(_as_words(pool["wkv"][row]))
+        st.elapsed[slot:slot + 1].copy_(pool["elapsed"][row:row + 1])
+        return carry

@@ -4,8 +4,9 @@ Semantics mirror the reference engine's task model
 (chirrup's core_structure.py): a Task is the unit of scheduling,
 carrying prompt/prefill tokens, sampling parameters, stop/forbidden token sets,
 prefix-cache options and its own output/event queues bridging the worker thread to
-asyncio. States are host-side snapshots: CPU tensors at the device's dtype
-(device residency is the worker's business, not the task's).
+asyncio. A snapshot is a RequestState on the host (CPU tensors at the device's
+dtype) or a PoolHandle to a row of a worker's device state pool, whose rows
+StatePoolAllocator hands out and revokes under pressure.
 """
 
 from __future__ import annotations
@@ -13,8 +14,10 @@ from __future__ import annotations
 import dataclasses
 import enum
 import queue
+import threading
 import uuid
-from typing import Any, Dict, List, Optional, Sequence
+from collections import OrderedDict
+from typing import Any, Dict, List, Optional, Sequence, Union
 
 import numpy as np
 import torch
@@ -97,6 +100,145 @@ class RequestState:
         return _nbytes(self.shift) + _nbytes(self.wkv) + 8
 
 
+class StatePoolAllocator:
+    """Thread-safe free list over the rows of a worker's device state pool,
+    and the EVICTABLE registry: the handles the prefix cache holds, oldest
+    first (PrefixStateCache registers a handle when it stores it and
+    refreshes it on a hit). When a snapshot finds no free row, the worker
+    revokes the least recently used of them (evict_lru_and_alloc); a row
+    that an in-flight resume also holds (refs > 1) is never revoked.
+
+    One lock (reentrant) guards the free list, the registry and the
+    refcounts of every handle of this allocator. A handle leaves the
+    registry the moment it dies (released to zero refs, or revoked), and
+    evict_lru_and_alloc hands the row it revokes to its caller without
+    passing it through the free list, so one call revokes at most one row."""
+
+    def __init__(self, size: int):
+        self.lock = threading.RLock()
+        self._free = list(range(size - 1, -1, -1))
+        self.size = size
+        # insertion order == eviction order (oldest first)
+        self._evictable: "OrderedDict[PoolHandle, None]" = OrderedDict()
+
+    def alloc(self) -> Optional[int]:
+        with self.lock:
+            return self._free.pop() if self._free else None
+
+    def free(self, row: int) -> None:
+        with self.lock:
+            self._free.append(row)
+
+    def available(self) -> int:
+        with self.lock:
+            return len(self._free)
+
+    def note_evictable(self, handle: "PoolHandle") -> None:
+        """Register (or refresh) a cache-held handle as revocable under
+        pressure; a dead handle is not registered."""
+        with self.lock:
+            self._evictable.pop(handle, None)
+            if handle.refs > 0 and not handle.revoked:
+                self._evictable[handle] = None
+
+    def touch_evictable(self, handle: "PoolHandle") -> None:
+        with self.lock:
+            if handle in self._evictable:
+                self._evictable.move_to_end(handle)
+
+    def evict_lru_and_alloc(self) -> Optional[int]:
+        """A row for a snapshot when alloc() found none: a row freed
+        meanwhile, else the row of the oldest registered handle that only
+        the cache holds (refs == 1), revoked and handed to the caller (its
+        cache entry turns into a miss at its next lookup). None when every
+        registered handle is pinned by an in-flight resume."""
+        with self.lock:
+            if self._free:
+                return self._free.pop()
+            for handle in self._evictable:
+                if handle.refs == 1:
+                    handle.refs = 0
+                    handle.revoked = True
+                    del self._evictable[handle]
+                    return handle.row
+        return None
+
+
+@dataclasses.dataclass(eq=False)
+class PoolHandle:
+    """A prefix-state snapshot in one row of a worker's device state pool
+    (ServingModel.init_state_pool): resuming from it is a device-to-device
+    copy (ServingModel.pool_load), where a host RequestState costs a round
+    trip of the row's bytes over PCIe.
+
+    Refcounted: the holder of the snapshot event owns one reference (the
+    prefix cache, when it stores the handle); each in-flight resume holds
+    another, which the worker releases once it has loaded the row. The row
+    returns to the free list when the last reference goes. Handles compare
+    and hash by identity."""
+
+    row: int
+    worker_id: str
+    allocator: StatePoolAllocator
+    device_bytes: int = 0
+    refs: int = 1
+    # True once evict_lru_and_alloc took the row from the cache (only while
+    # refs == 1); the cache drops revoked entries at lookup
+    revoked: bool = False
+
+    @property
+    def alive(self) -> bool:
+        return self.refs > 0 and not self.revoked
+
+    def try_acquire(self) -> bool:
+        """A reference more (an in-flight resume's), or False when the handle
+        is dead: released, or revoked between a cache lookup and this call
+        (the worker's revocation races with every resume)."""
+        with self.allocator.lock:
+            if self.revoked or self.refs <= 0:
+                return False
+            self.refs += 1
+            return True
+
+    def release(self) -> None:
+        """Drop one reference; the last one frees the row and takes the
+        handle out of the registry. A revoked handle's row is already
+        someone else's: nothing to do."""
+        alloc = self.allocator
+        with alloc.lock:
+            if self.revoked or self.refs <= 0:
+                return
+            self.refs -= 1
+            if self.refs == 0:
+                alloc._evictable.pop(self, None)
+                alloc.free(self.row)
+
+    def try_revoke(self) -> bool:
+        """Recycle the row now if the cache is its only holder (refs == 1):
+        the row returns to the free list and the handle leaves the
+        registry. Pinned (refs > 1) and dead handles refuse."""
+        alloc = self.allocator
+        with alloc.lock:
+            if self.revoked or self.refs != 1:
+                return False
+            self.revoked = True
+            self.refs = 0
+            alloc._evictable.pop(self, None)
+            alloc.free(self.row)
+            return True
+
+    def mark_evictable(self) -> None:
+        """Called by the prefix cache when it stores this handle."""
+        self.allocator.note_evictable(self)
+
+    def touch_evictable(self) -> None:
+        """Called by the prefix cache on a lookup hit (recency refresh)."""
+        self.allocator.touch_evictable(self)
+
+    def nbytes(self) -> int:
+        return self.device_bytes  # device-pool bytes
+
+
 @dataclasses.dataclass
 class Task:
     """One generation request moving through the engine."""
@@ -105,7 +247,9 @@ class Task:
     task_event_queue: queue.Queue      # abort channel (thread-safe)
     prompt_str: str
     prefill_tokens: List[int]
-    state: Optional[RequestState]
+    # the snapshot to resume from: a host RequestState or a PoolHandle of the
+    # worker's device state pool (the worker consumes the handle's reference)
+    state: Union[RequestState, PoolHandle, None]
     task_id: Optional[str] = None
     priority: int = 0
 

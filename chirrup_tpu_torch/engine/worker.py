@@ -11,6 +11,15 @@ dispatches one decode block of K steps (K > 1 on the GPU, where a block
 amortises the host's per-step work), then prefill chunks at one chunk per
 `decode_prefill_ratio` decode steps, then reads the previous block's sampled
 tokens, once per block.
+
+Prefix snapshots: a task with cache_prefill is snapshotted where
+cache_prefill_padding - 1 prompt tokens are left (pad()): into a row of the
+worker's device state pool (a PoolHandle), or, with no pool, to the host
+through ServingModel.extract_slot_async (a RequestState, resolved at the top
+of the next loop). The block planner pauses only that slot at its boundary.
+A task whose `state` is a PoolHandle of this worker is admitted with the
+zero state and then loads its row; a host RequestState goes through
+insert_slot.
 """
 
 from __future__ import annotations
@@ -27,8 +36,9 @@ from typing import Any, Callable, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
-from chirrup_tpu_torch.engine.serving import ServingModel
-from chirrup_tpu_torch.engine.structures import RequestStatus, Task
+from chirrup_tpu_torch.engine.serving import ServingModel, slot_params
+from chirrup_tpu_torch.engine.structures import (PoolHandle, RequestStatus,
+                                                 StatePoolAllocator, Task)
 from chirrup_tpu_torch.utils.tokenizer import StreamingDecoder, WorldTokenizer
 
 # steps per dispatch on the GPU (the CPU runs single steps)
@@ -54,6 +64,20 @@ class SlotData:
     # True once the slot's decode input comes from the device-side feedback
     # (BatchCarry.last_sampled) instead of a host-provided token
     use_feedback: bool = False
+    # every prompt token fed so far (the snapshot's key) and whether the
+    # snapshot was taken
+    prefilled_tokens: List[int] = dataclasses.field(default_factory=list)
+    prefill_cached: bool = False
+
+    def pad(self) -> int:
+        """Prompt tokens left unfed at the snapshot boundary."""
+        return max(self.task.cache_prefill_padding - 1, 0) if self.task else 0
+
+    def at_boundary(self) -> bool:
+        """The slot is at its snapshot boundary and not yet snapshotted."""
+        task = self.task
+        return (task.cache_prefill and not self.prefill_cached
+                and len(task.prefill_tokens) == self.pad())
 
 
 @dataclasses.dataclass
@@ -78,7 +102,7 @@ class Worker:
                  task_queue: "queue.Queue[Task]", master_event_queue: queue.Queue,
                  worker_event_queue: Any, batch_size: int = 32,
                  decode_block_size: Optional[int] = None, idle_sleep: float = 0.05,
-                 warmup_programs: bool = False):
+                 warmup_programs: bool = False, state_pool_size: int = 0):
         self.worker_id = worker_id
         self._model_factory = model_factory
         self.task_queue = task_queue
@@ -104,6 +128,16 @@ class Worker:
         self._seq_countdown = 0
         # long prompts over the prefill cap, retried first at the next fill
         self._deferred_tasks: List[Task] = []
+        # the device state pool (init_state_pool) and its rows' allocator
+        self.state_pool_size = state_pool_size
+        self.pool_allocator: Optional[StatePoolAllocator] = None
+        self.state_pool = None
+        self.snapshot_skips = 0      # pool exhausted, every row pinned
+        self.snapshot_evictions = 0  # cache-held rows revoked for a snapshot
+        # pool snapshots (slot, row) queued for one pool_store_many
+        self._snapshot_batch: List[Tuple[int, int]] = []
+        # host snapshots (task, key, resolver) copying during the next block
+        self._pending_snapshots: List[Tuple[Task, Tuple[int, ...], Callable]] = []
 
     # ------------------------------------------------------------------ setup
 
@@ -114,15 +148,20 @@ class Worker:
         if self.decode_block_size is None:
             self.decode_block_size = (GPU_DECODE_BLOCK if self.model.device.type == "cuda"
                                       else 1)
+        if self.state_pool_size > 0:
+            self.state_pool = self.model.init_state_pool(self.state_pool_size)
+            self.pool_allocator = StatePoolAllocator(self.state_pool_size)
 
     def _warmup_programs(self):
         """Run every serving program once on all-inactive inputs before the
         first request: decode_block at the worker's K (when K > 1),
-        decode_step and each compact prefill variant. On CUDA this captures
-        their graphs (ServingModel), which otherwise happens mid-serving the
-        first time each program shape is hit. All-inactive masks and zero
-        lengths leave the carry exactly as it is; only the sampler's
-        generator advances."""
+        decode_step, each compact prefill variant and the batched insert;
+        with a state pool, one pool_store_many of slot 0 into row 0 and one
+        pool_load back. On CUDA this captures their graphs (ServingModel),
+        which otherwise happens mid-serving the first time each program
+        shape is hit. All-inactive masks, zero lengths, an all-False insert
+        mask and the zero slot's round trip leave the carry exactly as it
+        is; only the sampler's generator advances."""
         m, B = self.model, self.batch_size
         K = max(self.decode_block_size, 1)
         t0 = time.time()
@@ -136,6 +175,10 @@ class Worker:
             self.carry = m.prefill_step_compact(self.carry, np.zeros((P, T), np.int32),
                                                 np.zeros((P,), np.int32),
                                                 np.arange(P, dtype=np.int32))
+        self.carry = m.insert_slots_batched(self.carry, np.zeros((B,), bool), [None] * B)
+        if self.state_pool is not None:
+            self.state_pool = m.pool_store_many(self.carry, self.state_pool, [(0, 0)])
+            self.carry = m.pool_load(self.carry, self.state_pool, 0, 0)
         if m.device.type == "cuda":
             torch.cuda.synchronize(m.device)
         print(f"[{self.worker_id}] serving programs warmed in {time.time() - t0:.1f}s"
@@ -180,15 +223,36 @@ class Worker:
         ingestion. Longer prompts wait for a prefill row."""
         return 4 * max(self.decode_block_size or 1, 1)
 
+    def _fail(self, task: Task) -> None:
+        """End a task that was never admitted, with a completion event; a
+        PoolHandle it brought gives back the reference it carried."""
+        if isinstance(task.state, PoolHandle):
+            task.state.release()
+        task.request_status = RequestStatus.FINISHED_ABORTED
+        task.output_queue.put_nowait(("task_completed", task))
+
     def _fill_slots(self):
         """Admit queued tasks into empty slots. Only prompts bound for
-        SEQ_PREFILL count against max_prefill_count. With the cap full, a
-        prompt within _one_prefill_burst_max rides the decode block as
-        ONE_PREFILL; a longer one goes back to the front of the line, and
-        shorter prompts behind it are still admitted."""
+        SEQ_PREFILL count against max_prefill_count, and only once admitted
+        (the remaining length is the one left after the first token and the
+        snapshot's pad). With the cap full, a prompt within
+        _one_prefill_burst_max rides the decode block as ONE_PREFILL; a
+        longer one goes back to the front of the line, and shorter prompts
+        behind it are still admitted.
+
+        Fresh tasks and resumes from this worker's pool, with at most
+        LOCKSTEP_MAX_FORBIDDEN forbidden ids, are admitted together by one
+        insert_slots_batched; then each pool resume loads its row
+        (pool_load) and releases the handle's reference. A host RequestState
+        and a longer forbidden set go through insert_slot. A PoolHandle of
+        another worker, or one given while the pool is off, fails its task."""
+        B = self.batch_size
+        batch_mask = np.zeros((B,), bool)
+        batch_tasks: List[Optional[Task]] = [None] * B
+        pool_loads: List[Tuple[int, PoolHandle]] = []
         prefill_count = sum(1 for s in self.slots if s.phase == SlotPhase.SEQ_PREFILL)
         deferred_now: List[Task] = []
-        for idx in range(self.batch_size):
+        for idx in range(B):
             if self.slots[idx].phase != SlotPhase.EMPTY:
                 continue
             if self._deferred_tasks:
@@ -199,25 +263,41 @@ class Worker:
                 except queue.Empty:
                     break
             if not task.prefill_tokens:
-                # an empty prompt fails itself, with a completion event
-                task.request_status = RequestStatus.FINISHED_ABORTED
-                task.output_queue.put_nowait(("task_completed", task))
+                self._fail(task)  # an empty prompt fails itself
                 continue
-            remaining = len(task.prefill_tokens) - 1  # after the first token
+            pad = max(task.cache_prefill_padding - 1, 0)
+            remaining = len(task.prefill_tokens) - 1 - pad
             seq_bound = remaining >= self.min_forward_seq_len
             if seq_bound and prefill_count >= self.max_prefill_count:
                 if remaining > self._one_prefill_burst_max():
                     deferred_now.append(task)
                     continue
                 seq_bound = False
+            pool_resume = (isinstance(task.state, PoolHandle) and self.state_pool is not None
+                           and task.state.worker_id == self.worker_id)
+            if isinstance(task.state, PoolHandle) and not pool_resume:
+                # its rows are in another worker's pool (or none), and the
+                # prompt was already cut to the suffix: nothing to resume from
+                self._fail(task)
+                continue
             try:
-                self.carry = self.model.insert_slot(self.carry, idx, None, task)
+                simple = ((task.state is None or pool_resume) and len(task.forbidden_tokens)
+                          <= ServingModel.LOCKSTEP_MAX_FORBIDDEN)
+                if simple:
+                    slot_params(task)  # a malformed task fails here, alone
+                else:
+                    self.carry = self.model.insert_slot(
+                        self.carry, idx, None if pool_resume else task.state, task)
             except Exception:  # noqa: BLE001 — a malformed task fails itself,
                 # with a completion event, and takes no prefill row
                 traceback.print_exc()
-                task.request_status = RequestStatus.FINISHED_ABORTED
-                task.output_queue.put_nowait(("task_completed", task))
+                self._fail(task)
                 continue
+            if simple:
+                batch_mask[idx] = True
+                batch_tasks[idx] = task
+            if pool_resume:
+                pool_loads.append((idx, task.state))
             task.request_status = RequestStatus.RUNNING
             next_input = task.prefill_tokens.pop(0)
             if not task.prefill_tokens:
@@ -231,17 +311,101 @@ class Worker:
             self.slots[idx] = SlotData(task=task, phase=phase, next_input=next_input,
                                        decoder=StreamingDecoder(self.tokenizer))
         self._deferred_tasks = deferred_now + self._deferred_tasks
+        if batch_mask.any():
+            self.carry = self.model.insert_slots_batched(self.carry, batch_mask, batch_tasks)
+        for idx, handle in pool_loads:
+            # the row over the freshly inserted zero state, on the device
+            self.carry = self.model.pool_load(self.carry, self.state_pool, handle.row, idx)
+            handle.release()
 
     def _check_seq_transitions(self):
-        """A SEQ_PREFILL slot with fewer than min_forward_seq_len prompt tokens
-        left finishes them as ONE_PREFILL (DECODE when none is left)."""
-        for slot in self.slots:
+        """A SEQ_PREFILL slot at its snapshot boundary is snapshotted; one
+        with fewer than min_forward_seq_len prompt tokens left beyond its pad
+        finishes them as ONE_PREFILL (DECODE when none is left). The
+        remaining length is pad-adjusted, as the chunks stop pad() tokens
+        early: a padding of min_forward_seq_len or more would otherwise keep
+        the slot in SEQ_PREFILL with nothing left to chunk."""
+        for idx, slot in enumerate(self.slots):
             if slot.phase != SlotPhase.SEQ_PREFILL:
                 continue
-            if not slot.task.prefill_tokens:
+            if slot.at_boundary():
+                self._maybe_snapshot(idx)
+            # then the phase decision: with padding 0 the boundary is the
+            # end of the prompt, and the slot goes to DECODE
+            task = slot.task
+            if not task.prefill_tokens:
                 slot.phase = SlotPhase.DECODE
-            elif len(slot.task.prefill_tokens) < self.min_forward_seq_len:
+            elif len(task.prefill_tokens) - slot.pad() < self.min_forward_seq_len:
                 slot.phase = SlotPhase.ONE_PREFILL
+
+    # ------------------------------------------------------------- snapshots
+
+    def _pool_alloc(self) -> Optional[int]:
+        """A pool row for a snapshot: the free list, else the row of the
+        cache's least recently used unpinned handle (revoked; the cache
+        turns its entry into a miss at the next lookup). None when every
+        cache-held row is pinned by an in-flight resume."""
+        row = self.pool_allocator.alloc()
+        if row is None:
+            row = self.pool_allocator.evict_lru_and_alloc()
+            if row is not None:
+                self.snapshot_evictions += 1
+        return row
+
+    def _snapshot_slot(self, idx: int):
+        """Snapshot a slot at its boundary: into a pool row (queued for one
+        pool_store_many, _flush_snapshot_batch), or with no pool to the host
+        (extract_slot_async now, the event at the top of the next loop). A
+        pool with no row to give skips the snapshot with a state-None event,
+        so the request's deduplicated followers prefill at once."""
+        slot = self.slots[idx]
+        slot.prefill_cached = True
+        key = tuple(slot.prefilled_tokens)
+        if self.state_pool is None:
+            self._pending_snapshots.append(
+                (slot.task, key, self.model.extract_slot_async(self.carry, idx)))
+            return
+        row = self._pool_alloc()
+        if row is None:
+            self.snapshot_skips += 1
+            slot.task.output_queue.put_nowait(
+                ("cache_prefill", {"state": None, "prefilled_tokens": key}))
+            return
+        self._snapshot_batch.append((idx, row))
+
+    def _flush_snapshot_batch(self):
+        """Store the queued pool snapshots with one pool_store_many and send
+        their events. Runs before the next dispatch that advances state, so
+        each snapshot holds its slot exactly at its boundary."""
+        if not self._snapshot_batch:
+            return
+        batch, self._snapshot_batch = self._snapshot_batch, []
+        self.state_pool = self.model.pool_store_many(self.carry, self.state_pool, batch)
+        row_bytes = self.model.pool_row_bytes()
+        for idx, row in batch:
+            slot = self.slots[idx]
+            handle = PoolHandle(row=row, worker_id=self.worker_id,
+                                allocator=self.pool_allocator, device_bytes=row_bytes)
+            if slot.task is None or slot.task.is_finished():
+                handle.release()
+                continue
+            slot.task.output_queue.put_nowait(("cache_prefill", {
+                "state": handle, "prefilled_tokens": tuple(slot.prefilled_tokens)}))
+
+    def _emit_ready_snapshots(self):
+        """Resolve the host snapshots started last loop (their copies ran
+        beside the block dispatched since) and send their events. A failed
+        copy is a device fault: it raises, as every other one does."""
+        pending, self._pending_snapshots = self._pending_snapshots, []
+        for task, key, resolve in pending:
+            state = resolve()
+            if not task.is_finished():
+                task.output_queue.put_nowait(
+                    ("cache_prefill", {"state": state, "prefilled_tokens": key}))
+
+    def _maybe_snapshot(self, idx: int):
+        if self.slots[idx].at_boundary():
+            self._snapshot_slot(idx)
 
     # ---------------------------------------------------------------- forward
 
@@ -259,7 +423,12 @@ class Worker:
     def _dispatch_decode_block(self, K: int):
         """Plan and dispatch K decode steps in one call. Prompt feeds and the
         ONE_PREFILL -> DECODE transitions are known K steps ahead on the host;
-        DECODE inputs chain through the device-resident last_sampled."""
+        DECODE inputs chain through the device-resident last_sampled. A slot
+        that reaches its snapshot boundary idles for the rest of the block
+        (inactive, its state kept bit for bit, as any inactive row's) and is
+        snapshotted right after the dispatch; the other slots run all K
+        steps (a block demoted to K = 1 would slow the whole batch, as some
+        slot is near a boundary most of the time under load)."""
         B = self.batch_size
         tokens = np.zeros((K, B), np.int32)
         feedback = np.zeros((K, B), bool)
@@ -277,9 +446,12 @@ class Worker:
                 n_decode += 1
                 decode_slots.append((idx, task.task_id))
             for k in range(K):
+                if slot.at_boundary():
+                    break  # paused until the snapshot after this dispatch
                 active[k, idx] = True
                 if phase == SlotPhase.ONE_PREFILL:
                     tokens[k, idx] = slot.next_input
+                    slot.prefilled_tokens.append(slot.next_input)
                     slot.next_input = task.prefill_tokens.pop(0)
                     if not task.prefill_tokens:
                         phase = SlotPhase.DECODE
@@ -295,6 +467,9 @@ class Worker:
                 decode_slots.append((idx, task.task_id))
         self.carry, sampled, _ = self.model.decode_block(self.carry, tokens, feedback,
                                                          active, decode)
+        for idx, slot in enumerate(self.slots):
+            if slot.phase in _STEPPED:
+                self._maybe_snapshot(idx)
         self._pending = _PendingStep(sampled=sampled, raw_logits=None,
                                      decode_slots=decode_slots)
         return n_active, n_decode
@@ -326,9 +501,11 @@ class Worker:
             self.carry, tokens, active, decode, feedback)
         for idx, slot in enumerate(self.slots):
             if active[idx] and slot.phase == SlotPhase.ONE_PREFILL:
+                slot.prefilled_tokens.append(slot.next_input)
                 slot.next_input = slot.task.prefill_tokens.pop(0)
                 if not slot.task.prefill_tokens:
                     slot.phase = SlotPhase.DECODE
+                self._maybe_snapshot(idx)  # after the step: its state is in order
         self._pending = _PendingStep(sampled=sampled, raw_logits=raw_logits,
                                      decode_slots=decode_slots)
         return int(active.sum()), int(decode.sum())
@@ -336,10 +513,11 @@ class Worker:
     def _run_prefill_step(self) -> int:
         """One chunk for every SEQ_PREFILL slot, on the smallest compact (P, T)
         variant that holds them (max_prefill_count <= the largest P); returns
-        the slots fed. Each slot keeps at least one prompt token for the
+        the slots fed. Each slot keeps its pad() tokens and one more for the
         ONE_PREFILL/DECODE tail."""
         seq_ids = [idx for idx, slot in enumerate(self.slots)
-                   if slot.phase == SlotPhase.SEQ_PREFILL and slot.task.prefill_tokens]
+                   if slot.phase == SlotPhase.SEQ_PREFILL
+                   and len(slot.task.prefill_tokens) > slot.pad()]
         if not seq_ids:
             return 0
         P, T = next((P, T) for P, T in self.model.prefill_variants if len(seq_ids) <= P)
@@ -347,10 +525,11 @@ class Worker:
         for idx in seq_ids:
             slot = self.slots[idx]
             task = slot.task
-            n = min(T, len(task.prefill_tokens))
+            n = min(T, len(task.prefill_tokens) - slot.pad())
             fed[idx] = [slot.next_input] + task.prefill_tokens[:n - 1]
             task.prefill_tokens = task.prefill_tokens[n - 1:]
             slot.next_input = task.prefill_tokens.pop(0)
+            slot.prefilled_tokens.extend(fed[idx])
         # pad rows point at distinct idle slots: slot_idx must be unique, and a
         # row of length 0 leaves its slot bit-unchanged
         spare = (i for i in range(self.batch_size) if i not in fed)
@@ -410,6 +589,7 @@ class Worker:
         """One scheduler iteration; returns True if any forward work was done."""
         loop_start = time.perf_counter()
         self.loop_count += 1
+        self._emit_ready_snapshots()  # last loop's host copies are done
         finished: List[int] = []
         for idx, slot in enumerate(self.slots):
             if slot.phase == SlotPhase.EMPTY:
@@ -423,6 +603,7 @@ class Worker:
 
         self._fill_slots()
         self._check_seq_transitions()
+        self._flush_snapshot_batch()  # SEQ_PREFILL boundaries, before any dispatch
         n_active = sum(1 for s in self.slots if s.phase in _STEPPED)
         n_seq = sum(1 for s in self.slots if s.phase == SlotPhase.SEQ_PREFILL)
         if n_active == 0 and n_seq == 0:
@@ -437,6 +618,7 @@ class Worker:
                 total, decode_count = self._dispatch_decode_step()
             one_prefill_count = total - decode_count
             self._seq_countdown -= K
+            self._flush_snapshot_batch()  # the block's boundaries, before a chunk
         else:
             self._seq_countdown = 0
         # one prefill chunk per `ratio` decode steps: a block of K steps owes
@@ -468,6 +650,10 @@ class Worker:
                              "one_prefill_count": one_prefill_count,
                              "seq_prefill_count": seq_count},
             "loop_count": self.loop_count,
+            "snapshot_skips": self.snapshot_skips,
+            "snapshot_evictions": self.snapshot_evictions,
+            "state_pool_free_rows": (self.pool_allocator.available()
+                                     if self.state_pool is not None else None),
             "max_allocated_memory_GB": self._device_memory_gb(),
         })
         return True
@@ -516,10 +702,13 @@ class Worker:
                 slot.task.output_queue.put_nowait(("task_completed", slot.task))
                 self.slots[idx] = SlotData()
         for task in self._deferred_tasks:
-            task.request_status = RequestStatus.FINISHED_ABORTED
-            task.output_queue.put_nowait(("task_completed", task))
+            self._fail(task)
         self._deferred_tasks = []
         self._pending = None
+        for _, row in self._snapshot_batch:
+            self.pool_allocator.free(row)
+        self._snapshot_batch = []
+        self._pending_snapshots = []
 
     def _cleanup(self):
         self.carry = None

@@ -151,22 +151,6 @@ def test_engine_mm8_core(vocab_path, core, merged):
     assert task.is_finished() and 1 <= len(tokens) <= 4
 
 
-def test_state_requests_raise(vocab_path):
-    """Resuming from a state and cache_prefill belong to the state-cache slice."""
-
-    async def go():
-        eng = AsyncEngineCore()
-        await eng.init(worker_num=1, model_config=_port_config(vocab_path), batch_size=1,
-                       load_timeout=60, device="cpu")
-        try:
-            with pytest.raises(NotImplementedError, match="state-cache"):
-                eng.completion(PROMPT, cache_prefill=True)
-        finally:
-            eng.shutdown()
-
-    asyncio.run(asyncio.wait_for(go(), 60))
-
-
 def test_package_imports_no_jax():
     """Importing the port (every module of it) loads neither JAX nor any module
     of the JAX package."""

@@ -285,9 +285,10 @@ def test_greedy_block_matches_jax(dense):
 
 
 def test_warmup_programs_leave_the_carry_as_it_was(dense):
-    """The worker's warm-up runs decode_block at its K, decode_step and each
-    compact prefill variant on all-inactive inputs: every tensor of the
-    carry is left as init_carry made it; only the generator moves on."""
+    """The worker's warm-up runs decode_block at its K, decode_step, each
+    compact prefill variant and the batched insert on all-inactive inputs:
+    every tensor of the carry is left as init_carry made it; only the
+    generator moves on."""
     model = _model(dense)
     worker = Worker("w", lambda: (model, None), None, None, None, batch_size=B,
                     decode_block_size=3, warmup_programs=True)
@@ -297,7 +298,7 @@ def test_warmup_programs_leave_the_carry_as_it_was(dense):
     worker._warmup_programs()
     for name, t in _carry_tensors(worker.carry).items():
         assert torch.equal(t, _carry_tensors(fresh)[name]), name
-    assert set(worker.carry.programs) == {("block", 3), ("step",)} | {
+    assert set(worker.carry.programs) == {("block", 3), ("step",), ("insert",)} | {
         ("compact", P, T) for P, T in model.prefill_variants}
     assert not torch.equal(worker.carry.rng.get_state(), rng_before)
 

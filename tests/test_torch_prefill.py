@@ -311,8 +311,9 @@ class _StubModel:
     prefill_slots = 32
 
     def insert_slot(self, carry, slot, state, task):
-        if getattr(task, "malformed", False):
-            raise ValueError("malformed task")
+        return carry
+
+    def insert_slots_batched(self, carry, mask, tasks):
         return carry
 
 
@@ -408,7 +409,7 @@ def test_failed_admission_takes_no_prefill_row():
     w = _worker(8)
     out = queue.Queue()
     bad = _task(40, out)
-    bad.malformed = True
+    bad.temperature = "hot"  # not a number: its admission raises
     good = _task(40)
     w.task_queue.put(bad)
     w.task_queue.put(good)
