@@ -113,18 +113,33 @@ Phases, in order; any failure ends the run with a non-zero exit:
    the bound, a host snapshot held to the state at its call, its move
    against the card's device-to-host rate, and a wave of 8 admissions
    through insert_slots_batched against insert_slot each;
-8. path A, the exact w8a16 configuration: phases 5 and 6 again with
+8. the OpenAI-compatible server on the same weights (run_server): the
+   7.2B-width INT8 tree (seed 0) written as a native checkpoint, `python -m
+   chirrup_tpu_torch.server --model-path <dir> --profile h100-7b2` spawned
+   on the card (seconds to the first /health 200; /v1/models; /metrics
+   with the C trie), a non-streamed and a streamed greedy completion equal
+   to the in-process engine's tokens, a ~1,024-token conversation resumed
+   from its snapshot with one more turn (faster first token, the content of
+   the uncached request), 8 identical prompts at once taking one snapshot,
+   64 concurrent streamed requests of 128 tokens (tok/s at the client
+   against the engine phase's in-process decode), each kernel of the w8a8
+   path launched by the server (its /metrics counts, from the end of its
+   loading) and no other, SIGINT with exit code 0; then a bf16 `.pth` at
+   7.2B widths and 2 layers through build_model_factory on the card and the
+   CPU (prepared trees bit-equal, first-step logits within the bf16
+   tolerance);
+9. path A, the exact w8a16 configuration: phases 5 and 6 again with
    ModelLoadConfig(mm8_core="pallas") after the first engine is freed (4
    steady blocks with graphs, 2 without; no eager engine run; prefill on the
    batch-64 variant (8, 64)), every int8 product on mm8_w16_gemm and none on
    the w8a8 kernels;
-9. path B, the unfused TMix on that model: one forward_step at batch 64 and
+10. path B, the unfused TMix on that model: one forward_step at batch 64 and
    one forward_chunk at (8, 256) with wkv_fn=wkv7_batch, every WKV on the bare
    kernel, against the fused kernels from the same state; then both on layer 0
    alone at float32, held per element to the WKV kernels' limit; then the
    same two calls in the bf16 mode (functools.partial(wkv7_batch,
    precision="bf16") against wkv_precision="bf16");
-10. one JSON line with every kernel's numbers, then the result line.
+11. one JSON line with every kernel's numbers, then the result line.
 
 Without a CUDA device, or without the chirrup_tpu_torch package beside it,
 the script exits non-zero and prints no result.
@@ -140,10 +155,13 @@ import itertools
 import json
 import os
 import re
+import shutil
+import signal
 import statistics
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 
 import torch
@@ -2930,6 +2948,507 @@ def run_prefix_cache(dev, m0, B=64, n_tok=16, long_prompt=1024, pad=3, state_poo
     return out
 
 
+SERVER_PROMPT = "Tell me about the port of a serving engine from one chip to another"
+
+
+async def http_call(port, method, path, body=None, timeout=300.0):
+    """One request over a fresh connection (asyncio streams, the standard
+    library): status, the de-chunked body, the seconds from the send to the
+    head, to the first body bytes and to the end, and for a stream of
+    server-sent events the seconds to the first `data:` line."""
+    t0 = time.perf_counter()
+    reader, writer = await asyncio.wait_for(asyncio.open_connection("127.0.0.1", port), 30)
+    try:
+        data = b"" if body is None else json.dumps(body).encode()
+        writer.write(f"{method} {path} HTTP/1.1\r\nHost: 127.0.0.1\r\nConnection: close\r\n"
+                     f"Content-Type: application/json\r\nContent-Length: {len(data)}\r\n\r\n"
+                     .encode() + data)
+        await writer.drain()
+        raw, t_head, t_body, t_data = b"", None, None, None
+        while True:
+            chunk = await asyncio.wait_for(reader.read(65536), timeout)
+            if not chunk:
+                break
+            now = time.perf_counter() - t0
+            raw += chunk
+            end = raw.find(b"\r\n\r\n")
+            if t_head is None and end >= 0:
+                t_head = now
+            if t_head is not None and t_body is None and len(raw) > end + 4:
+                t_body = now
+            if t_data is None and b"data: " in raw:
+                t_data = now
+    finally:
+        writer.close()
+    total = time.perf_counter() - t0
+    head, _, rest = raw.partition(b"\r\n\r\n")
+    status = int(head.split(b" ", 2)[1])
+    if b"transfer-encoding: chunked" in head.lower():
+        out = b""
+        while rest:
+            size, _, rest = rest.partition(b"\r\n")
+            n = int(size, 16)
+            if n == 0:
+                break
+            out, rest = out + rest[:n], rest[n + 2:]
+        rest = out
+    return dict(status=status, body=rest, head_s=t_head, first_byte_s=t_body,
+                first_data_s=t_data, total_s=total)
+
+
+def http_sync(port, method, path, body=None, timeout=300.0):
+    return asyncio.run(http_call(port, method, path, body, timeout))
+
+
+def sse_result(body: bytes):
+    """(content, completion tokens, finish reason) of a chat completion's
+    server-sent events, which must end in `data: [DONE]`."""
+    lines = [l for l in body.decode().split("\n") if l.startswith("data: ")]
+    require(lines and lines[-1] == "data: [DONE]", f"server: a stream ended {lines[-1:]}")
+    frames = [json.loads(l[6:]) for l in lines[:-1]]
+    content = "".join(f["choices"][0]["delta"].get("content", "") for f in frames)
+    return (content, frames[-1]["usage"]["completion_tokens"],
+            frames[-1]["choices"][0]["finish_reason"])
+
+
+def chat_result(r):
+    """(content, completion tokens, finish reason) of a non-streamed chat
+    completion."""
+    require(r["status"] == 200, f"server: status {r['status']}: {r['body'][:300]!r}")
+    body = json.loads(r["body"])
+    require("error" not in body, f"server: {body}")
+    return (body["choices"][0]["message"]["content"], body["usage"]["completion_tokens"],
+            body["choices"][0]["finish_reason"])
+
+
+class ServerProcess:
+    """`python -m chirrup_tpu_torch.server ...` as a child process on the
+    card. A thread copies its log (stderr and stdout) into
+    chiprun_out/chip_smoke_server.log and finds the port it reports."""
+
+    def __init__(self, args):
+        os.makedirs(OUT_DIR, exist_ok=True)
+        root = os.path.dirname(os.path.abspath(__file__))
+        self.t0 = time.perf_counter()
+        self.proc = subprocess.Popen(
+            [sys.executable, "-m", "chirrup_tpu_torch.server", "--host", "127.0.0.1",
+             "--port", "0", *args], cwd=root,
+            env=dict(os.environ, PYTHONPATH=root, PYTHONUNBUFFERED="1"),
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        self.port = None
+        self.lines = []
+        self._log = open(os.path.join(OUT_DIR, "chip_smoke_server.log"), "w")
+        self._reader = threading.Thread(target=self._read, daemon=True)
+        self._reader.start()
+
+    def _read(self):
+        for line in self.proc.stdout:
+            self._log.write(line)
+            self._log.flush()
+            self.lines.append(line)
+            m = re.search(r"listening on http://[\d.]+:(\d+)", line)
+            if m:
+                self.port = int(m.group(1))
+
+    def wait_healthy(self, timeout=600.0):
+        """Seconds from the spawn to the first /health 200."""
+        deadline = self.t0 + timeout
+        while True:
+            require(self.proc.poll() is None,
+                    f"server exited {self.proc.returncode}: {''.join(self.lines[-20:])}")
+            require(time.perf_counter() < deadline, "server: not healthy in time")
+            if self.port is not None:
+                try:
+                    if http_sync(self.port, "GET", "/health", timeout=10)["status"] == 200:
+                        return time.perf_counter() - self.t0
+                except OSError:
+                    pass
+            time.sleep(0.2)
+
+    def stop(self, timeout=120.0):
+        """SIGINT, then the exit code (killed after `timeout` s: None)."""
+        if self.proc.poll() is None:
+            self.proc.send_signal(signal.SIGINT)
+        try:
+            code = self.proc.wait(timeout=timeout)
+        except subprocess.TimeoutExpired:
+            self.proc.kill()
+            self.proc.wait()
+            code = None
+        self._reader.join(timeout=10)
+        self._log.close()
+        return code
+
+
+def pth_state_dict(dev, L, C, V, seed=0, dtype=torch.bfloat16):
+    """A seeded RWKV-LM state dict (the public `.pth` key names and shapes,
+    LoRA widths of RWKV7Config's defaults), generated on `dev` and moved to
+    the host."""
+    from chirrup_tpu_torch.models.config import RWKV7Config
+
+    cfg = RWKV7Config(n_layer=L, n_embd=C, vocab_size=V)
+    H, N, F = cfg.n_head, cfg.head_size, cfg.d_ffn
+    gen = torch.Generator(device=dev).manual_seed(seed)
+
+    def r(*shape, scale=0.02):
+        return (torch.randn(shape, generator=gen, device=dev) * scale).to(dtype).cpu()
+
+    sd = {"emb.weight": r(V, C, scale=1.0), "blocks.0.ln0.weight": 1 + r(C),
+          "blocks.0.ln0.bias": r(C), "ln_out.weight": 1 + r(C), "ln_out.bias": r(C),
+          "head.weight": r(V, C, scale=0.05)}
+    for i in range(L):
+        pre, att, ffn = f"blocks.{i}.", f"blocks.{i}.att.", f"blocks.{i}.ffn."
+        for k in ("ln1", "ln2"):
+            sd[f"{pre}{k}.weight"], sd[f"{pre}{k}.bias"] = 1 + r(C), r(C)
+        for k in ("x_r", "x_w", "x_k", "x_v", "x_a", "x_g", "w0", "a0", "k_k", "k_a"):
+            sd[att + k] = r(1, 1, C, scale=0.5)
+        for k, d in (("w", cfg.d_decay_lora), ("a", cfg.d_iclr_lora), ("g", cfg.d_gate_lora),
+                     ("v", cfg.d_v_lora)):
+            if k == "v" and i == 0:
+                continue  # block 0 carries no value residual
+            sd[f"{att}{k}1"], sd[f"{att}{k}2"] = r(C, d, scale=0.1), r(d, C, scale=0.1)
+        if i > 0:
+            sd[att + "v0"] = r(1, 1, C, scale=0.5)
+        sd[att + "r_k"] = r(H, N, scale=0.5)
+        for k in ("receptance", "key", "value", "output"):
+            sd[f"{att}{k}.weight"] = r(C, C)
+        sd[att + "ln_x.weight"], sd[att + "ln_x.bias"] = 1 + r(C), r(C)
+        sd[ffn + "x_k"] = r(1, 1, C, scale=0.5)
+        sd[ffn + "key.weight"], sd[ffn + "value.weight"] = r(F, C), r(C, F)
+    return cfg, sd
+
+
+def tree_tensors(tree, prefix=""):
+    """{path: tensor} of a prepared parameter tree (dicts and dataclasses)."""
+    import dataclasses
+
+    if isinstance(tree, torch.Tensor):
+        return {prefix: tree}
+    items = (tree.items() if isinstance(tree, dict) else
+             ((f.name, getattr(tree, f.name)) for f in dataclasses.fields(tree)))
+    out = {}
+    for k, v in items:
+        out.update(tree_tensors(v, f"{prefix}.{k}" if prefix else k))
+    return out
+
+
+PTH_RUNS = (  # (label, mm8 core, activation and state dtype, logits gated)
+    ("w8a8 bf16", "auto", "bfloat16", False),     # the serving configuration
+    ("w8a16 float32", "pallas", "float32", True),
+)
+
+
+def check_pth(dev, tmp, L=2, C=4096, V=65536, B=8, runs=PTH_RUNS):
+    """A bf16 `.pth` at 7.2B widths and L layers (torch.save of seeded
+    weights), loaded through build_model_factory on the card and on the CPU
+    under each of `runs` (INT8): every prepared leaf bit-equal between the
+    two (the quantizer is exact), and the first decode step's logits of the
+    same tokens, card against CPU. Gated: the w8a16 core in float32, within
+    check_small_model's float32 tolerance, greedy tokens equal where the
+    margin is clear. The w8a8 core rounds its activations to int8 codes, and
+    float32 products summed in another order put a code on the other side
+    of a rounding boundary now and then: each such code moves the logits by
+    up to a few hundredths of their scale on these weights (a real model's
+    quantization, relu² rows), so its distance is reported, not held."""
+    import numpy as np
+    from chirrup_tpu_torch.engine.engine import build_model_factory
+    from chirrup_tpu_torch.engine.structures import ModelLoadConfig
+
+    t0 = time.perf_counter()
+    cfg, sd = pth_state_dict(dev, L, C, V)
+    path = os.path.join(tmp, "model.pth")
+    torch.save(sd, path)
+    del sd
+    write_s = time.perf_counter() - t0
+    vocab = os.path.join(tmp, "vocab.txt")
+
+    class Greedy:
+        temperature, top_p, top_k = 0.0, 0.3, 0
+        frequency_penalty, presence_penalty, penalty_decay = 0.5, 0.5, 0.996
+        forbidden_tokens = ()
+
+    toks = np.random.default_rng(7).integers(1, V, B).astype(np.int32)
+    on = np.ones(B, bool)
+    out = dict(layers=L, file_bytes=os.path.getsize(path), write_s=write_s, runs={})
+    for label, core, dtype, gated in runs:
+        mc = ModelLoadConfig(model_path=path, vocab_path=vocab, vocab_size=V,
+                             quantization="int8", mm8_core=core, activation_dtype=dtype,
+                             wkv_state_dtype=dtype)
+        models, res = [], dict(core=core, dtype=dtype)
+        for d in (dev, torch.device("cpu")):
+            t0 = time.perf_counter()
+            models.append(build_model_factory(mc, B, device=d)()[0])
+            if d == dev:
+                torch.cuda.synchronize()
+                res["load_gpu_s"] = time.perf_counter() - t0
+        gpu, cpu = (tree_tensors(m.params) for m in models)
+        require(sorted(gpu) == sorted(cpu), f"pth {label}: the two trees differ in their leaves")
+        for k in cpu:
+            g = gpu[k].cpu()
+            require(g.dtype == cpu[k].dtype and g.shape == cpu[k].shape
+                    and torch.equal(g, cpu[k]),
+                    f"pth {label}: leaf {k} differs between the card and the CPU")
+        res.update(leaves=len(cpu),
+                   int8_codes=sum(t.numel() for t in cpu.values() if t.dtype == torch.int8))
+        first = []
+        for m in models:
+            carry = m.init_carry()
+            for s in range(B):
+                m.insert_slot(carry, s, None, Greedy)
+            _, sampled, lg = m.decode_step(carry, toks, on, on)
+            first.append((sampled.cpu(), lg.float().cpu()))
+        del models, gpu, cpu, carry
+        torch.cuda.empty_cache()
+        (s_gpu, l_gpu), (s_cpu, l_cpu) = first
+        require(bool(torch.isfinite(l_gpu).all()), f"pth {label}: non-finite logits")
+        scale = float(l_cpu.abs().max())
+        res["logits_err_of_scale"] = err = max_abs(l_gpu, l_cpu) / scale
+        res["greedy_equal"] = int((s_gpu == s_cpu).sum())
+        if gated:
+            tol = 2e-3
+            require(err <= tol, f"pth {label}: first-step logits err {err:.3e} of scale > {tol}")
+            top2 = torch.topk(l_cpu, 2, dim=-1).values
+            clear = (top2[:, 0] - top2[:, 1]) > 2 * tol * scale
+            require(not bool(((s_gpu != s_cpu) & clear).any()), f"pth {label}: greedy differs")
+        out["runs"][label] = res
+        log(f"server phase, .pth {label}: build_model_factory on the card {res['load_gpu_s']:.1f} "
+            f"s; {res['leaves']} prepared leaves ({res['int8_codes']:,} int8 codes) bit-equal "
+            f"between the card and the CPU; first-step logits err {err:.3e} of scale"
+            f"{' (tol 2e-3)' if gated else ' (reported)'}, greedy tokens equal "
+            f"{res['greedy_equal']}/{B}")
+    os.unlink(path)
+    log(f"server phase, .pth: L{L} C{C} V{V} bf16, {out['file_bytes']:,} bytes written in "
+        f"{write_s:.1f} s")
+    return out
+
+
+def run_server(dev, model, decode_tok_s, B=64, L=32, C=4096, V=65536, n_tok=16,
+               conv_chars=1024, dedup=8, burst=64, burst_tokens=128):
+    """The OpenAI-compatible server on the card, end to end (the engine
+    model `model` in this process serves the in-process reference: the same
+    seed-0 weights):
+
+    1. synthetic_params_int8(seed=0) written as a native checkpoint
+       (save_native: bytes, seconds); `python -m chirrup_tpu_torch.server
+       --model-path <dir> --profile h100-7b2` spawned; seconds to the first
+       /health 200 (imports, the checkpoint's upload, warm-up and graph
+       capture); /v1/models, and /metrics reporting the C trie;
+    2. one non-streamed and one streamed greedy chat completion
+       (ignore_eos, `n_tok` tokens), whose content must equal the same
+       prompt's greedy tokens from the in-process AsyncEngineCore through
+       the server's parser; the stream must end in `data: [DONE]`; the
+       client's time to the first byte;
+    3. the cache's server half: a ~1,024-token conversation, then the same
+       with one more turn, which must resume (state_cache hits + 1) with a
+       time to first token well below the first's and the content of the
+       same request with use_state_cache false; then `dedup` identical
+       prompts at once: one snapshot (the leader's), the rest resumed;
+    4. `burst` concurrent streamed requests (ignore_eos, `burst_tokens`
+       each): tokens a second at the client against `decode_tok_s`, the
+       engine phase's in-process steady decode rate;
+    5. the kernels' launches over 2-4, from /metrics (counted from the end
+       of loading): each kernel of the w8a8 serving path launched, no other;
+    6. SIGINT: exit code 0;
+    7. a bf16 `.pth` at 7.2B widths, 2 layers, through build_model_factory
+       on the card and the CPU (check_pth)."""
+    import numpy as np
+    from chirrup_tpu_torch.engine.structures import ModelLoadConfig
+    from chirrup_tpu_torch.models import checkpoint, loader
+    from chirrup_tpu_torch.models.config import RWKV7Config
+    from chirrup_tpu_torch.utils.streaming_parser import (StreamingStringParser,
+                                                          TRIE_THINK_NO_TRIGGER)
+    from chirrup_tpu_torch.utils.tokenizer import WorldTokenizer
+
+    out = {}
+    tmp = tempfile.TemporaryDirectory()
+    ckpt_dir = os.path.join(tmp.name, "native")
+    vocab = os.path.join(tmp.name, "vocab.txt")
+    write_vocab(vocab, V)
+    cfg = RWKV7Config(n_layer=L, n_embd=C, vocab_size=V)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    params = loader.synthetic_params_int8(cfg, seed=0, device=dev)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    checkpoint.save_native(ckpt_dir, cfg, params)
+    write_s = time.perf_counter() - t1
+    del params
+    torch.cuda.empty_cache()
+    files = os.listdir(ckpt_dir)
+    ckpt_bytes = sum(os.path.getsize(os.path.join(ckpt_dir, f)) for f in files)
+    out.update(checkpoint_bytes=ckpt_bytes, checkpoint_files=len(files),
+               checkpoint_write_s=write_s, synthetic_s=t1 - t0)
+    log(f"server phase: native checkpoint of the L{L} C{C} V{V} INT8 tree (seed 0), {len(files)} "
+        f"files, {ckpt_bytes:,} bytes, written in {write_s:.1f} s "
+        f"({ckpt_bytes / write_s / 1e9:.2f} GB/s; the tree made in {t1 - t0:.1f} s)")
+
+    srv = ServerProcess(["--model-path", ckpt_dir, "--vocab-path", vocab, "--profile",
+                         "h100-7b2", "--batch-size", str(B)])
+    try:
+        healthy_s = srv.wait_healthy()
+        port = srv.port
+        out["spawn_to_healthy_s"] = healthy_s
+        log(f"server phase: spawn to the first /health 200 in {healthy_s:.1f} s (port {port})")
+        models = json.loads(http_sync(port, "GET", "/v1/models")["body"])
+        require([m["id"] for m in models["data"]] == [
+            "rwkv-latest", "rwkv-latest:thinking", "rwkv-latest:no-thinking"],
+            f"server: /v1/models {models}")
+        metrics = json.loads(http_sync(port, "GET", "/metrics")["body"])
+        require(metrics["tokenizer"] == "c", f"server: tokenizer trie {metrics['tokenizer']}")
+        require(not any(metrics["kernel_launches"].values()),
+                f"server: launches counted before the first request {metrics['kernel_launches']}")
+
+        # 2. served tokens against in-process tokens
+        greedy = dict(model="rwkv-latest:no-thinking", temperature=0.0, ignore_eos=True,
+                      max_tokens=n_tok, use_state_cache=False, cache_prefill=False)
+        messages = [{"role": "user", "content": SERVER_PROMPT}]
+        plain = chat_result(http_sync(port, "POST", "/v1/chat/completions",
+                                      dict(greedy, messages=messages)))
+        streamed = http_sync(port, "POST", "/v1/chat/completions",
+                             dict(greedy, messages=messages, stream=True))
+        require(streamed["status"] == 200, f"server: stream status {streamed['status']}")
+        s_content = sse_result(streamed["body"])
+        tok = WorldTokenizer(vocab)
+        prompt = "User: " + SERVER_PROMPT + "\n\nAssistant:"
+        mc = ModelLoadConfig(model_path="<in-process>", vocab_path=vocab, vocab_size=V)
+        served = serve_requests(dev, mc, B, [(prompt, [0] + tok.encode(prompt), 0.0, 0.5)],
+                                n_tok, model_factory=lambda: (model, tok))
+        comp, text = served[2][0], served[4][0]
+        parser = StreamingStringParser(tries=TRIE_THINK_NO_TRIGGER)
+        parser.parse("Assistant:")
+        ref = "".join(t for t, st in parser.parse(text) if st == "content")
+        require(plain == (ref, n_tok, "length") and s_content == plain,
+                f"server: served {plain} / streamed {s_content} != in-process {ref!r} "
+                f"({len(comp.task.generated_tokens)} tokens)")
+        out.update(first_byte_stream_s=streamed["first_data_s"],
+                   first_byte_plain_s=http_sync(port, "POST", "/v1/chat/completions", dict(
+                       greedy, messages=messages, max_tokens=1))["total_s"])
+        log(f"server phase: greedy {n_tok} tokens served, non-streamed and streamed, equal to "
+            f"the in-process engine's on the same weights ({ref[:40]!r}); the stream's first "
+            f"data frame at {streamed['first_data_s']:.3f} s at the client, a 1-token "
+            f"completion in {out['first_byte_plain_s']:.3f} s")
+
+        # 3. the cache's server half
+        rng = np.random.default_rng(11)
+        words = ["".join(rng.choice(list("abcdefghijklmnopqrstuvwxyz"), rng.integers(2, 9)))
+                 for _ in range(conv_chars // 4)]
+        long_text = " ".join(words)[:conv_chars]
+        conv = [{"role": "user", "content": long_text}]
+        cached = dict(model="rwkv-latest:no-thinking", temperature=0.0, ignore_eos=True,
+                      max_tokens=n_tok, stream=True)
+
+        def cache_stats():
+            return json.loads(http_sync(port, "GET", "/metrics")["body"])["state_cache"]
+
+        st0 = cache_stats()
+        first = http_sync(port, "POST", "/v1/chat/completions", dict(cached, messages=conv))
+        reply = sse_result(first["body"])[0]
+        st1 = cache_stats()
+        conv2 = conv + [{"role": "assistant", "content": reply or "ok"},
+                        {"role": "user", "content": "and one more question about it"}]
+        second = http_sync(port, "POST", "/v1/chat/completions", dict(cached, messages=conv2))
+        st2 = cache_stats()
+        uncached = http_sync(port, "POST", "/v1/chat/completions", dict(
+            cached, messages=conv2, use_state_cache=False, cache_prefill=False))
+        resumed_c, uncached_c = sse_result(second["body"]), sse_result(uncached["body"])
+        n_conv = len(tok.encode("User: " + long_text + "\n\nAssistant:")) + 1
+        out["cache"] = dict(prompt_tokens=n_conv, ttft_first_s=first["first_data_s"],
+                            ttft_resumed_s=second["first_data_s"],
+                            ttft_uncached_s=uncached["first_data_s"],
+                            tokens_saved=st2["tokens_saved"] - st1["tokens_saved"],
+                            stats=[st0, st1, st2])
+        log(f"server phase, cache: a {n_conv}-token conversation, first data frame at "
+            f"{first['first_data_s']:.3f} s; with one more turn resumed at "
+            f"{second['first_data_s']:.3f} s ({st2['tokens_saved'] - st1['tokens_saved']} "
+            f"tokens skipped), with use_state_cache false {uncached['first_data_s']:.3f} s; "
+            f"content resumed {resumed_c[0][:30]!r} / uncached {uncached_c[0][:30]!r}")
+        require(st1["entries"] == st0["entries"] + 1 and st2["hits"] == st1["hits"] + 1,
+                f"server: the conversation did not resume from its snapshot: {st0} {st1} {st2}")
+        # the resumed request is the leader of its own longer prefix: it also
+        # pauses one block for its snapshot, as the first did
+        require(second["first_data_s"] < min(0.8 * first["first_data_s"],
+                                             uncached["first_data_s"]),
+                f"server: resumed first data frame at {second['first_data_s']:.3f} s, the "
+                f"first conversation's at {first['first_data_s']:.3f} s, the same request "
+                f"uncached at {uncached['first_data_s']:.3f} s")
+        require(resumed_c == uncached_c, f"server: resumed {resumed_c} != uncached {uncached_c}")
+
+        dedup_text = " ".join(words[::-1])[:conv_chars // 4]
+        dedup_body = dict(cached, stream=False, max_tokens=4,
+                          messages=[{"role": "user", "content": dedup_text}])
+
+        async def at_once(n, body):
+            return await asyncio.gather(*[http_call(port, "POST", "/v1/chat/completions", body)
+                                          for _ in range(n)])
+
+        st3 = cache_stats()
+        results = asyncio.run(at_once(dedup, dedup_body))
+        st4 = cache_stats()
+        texts = {chat_result(r) for r in results}
+        out["dedup"] = dict(n=dedup, new_entries=st4["entries"] - st3["entries"],
+                            hits=st4["hits"] - st3["hits"], misses=st4["misses"] - st3["misses"],
+                            wall_s=max(r["total_s"] for r in results))
+        log(f"server phase, dedup: {dedup} identical prompts at once: {out['dedup']}")
+        require(len(texts) == 1 and st4["entries"] == st3["entries"] + 1
+                and st4["hits"] - st3["hits"] == dedup - 1
+                and st4["misses"] - st3["misses"] == 1,
+                f"server: {dedup} identical prompts took other than one snapshot: {out['dedup']}")
+
+        # 4. a burst over live HTTP
+        burst_body = [dict(model="rwkv-latest:no-thinking", temperature=1.0, ignore_eos=True,
+                           max_tokens=burst_tokens, stream=True, use_state_cache=False,
+                           cache_prefill=False,
+                           messages=[{"role": "user", "content": f"Request {i}: go on"}])
+                      for i in range(burst)]
+
+        async def burst_run():
+            t0 = time.perf_counter()
+            rs = await asyncio.gather(*[http_call(port, "POST", "/v1/chat/completions", b)
+                                        for b in burst_body])
+            return rs, time.perf_counter() - t0
+
+        rs, wall = asyncio.run(burst_run())
+        n_gen = 0
+        for r in rs:
+            require(r["status"] == 200, f"server: burst status {r['status']}")
+            _, n, reason = sse_result(r["body"])
+            require(n == burst_tokens and reason == "length",
+                    f"server: a burst request gave {n} tokens ({reason})")
+            n_gen += n
+        tok_s = n_gen / wall
+        ttfb = sorted(r["first_data_s"] for r in rs)
+        out["burst"] = dict(requests=burst, tokens=n_gen, wall_s=wall, tok_s=tok_s,
+                            in_process_decode_tok_s=decode_tok_s,
+                            ratio=tok_s / decode_tok_s,
+                            first_data_p50_s=ttfb[len(ttfb) // 2], first_data_max_s=ttfb[-1])
+        log(f"server phase, burst: {burst} streamed requests x {burst_tokens} tokens over HTTP "
+            f"in {wall:.2f} s: {tok_s:.1f} tok/s at the client, {tok_s / decode_tok_s:.3f} of "
+            f"the engine phase's in-process steady decode ({decode_tok_s:.1f} tok/s); first data "
+            f"frame p50 {ttfb[len(ttfb) // 2]:.3f} s, max {ttfb[-1]:.3f} s")
+
+        # 5. the kernels of the serving path, counted by the server
+        metrics = json.loads(http_sync(port, "GET", "/metrics")["body"])
+        launches = metrics["kernel_launches"]
+        on_path = {n for kind in ("step", "chunk")
+                   for n, c in expected_launches(L, "auto", kind).items() if c > 0}
+        out.update(launches=launches, worker=metrics["workers"],
+                   ttft_breakdown=metrics["ttft_breakdown"])
+        log(f"server phase: kernel launches over the requests {launches}; TTFT breakdown "
+            f"{metrics['ttft_breakdown']}")
+        for name, count in launches.items():
+            require((count > 0) == (name in on_path),
+                    f"server: kernel {name} launched {count} times on the serving path")
+    finally:
+        code = srv.stop()
+    out["exit_code"] = code
+    require(code == 0, f"server: exit code {code} after SIGINT")
+    shutil.rmtree(ckpt_dir)
+    torch.cuda.empty_cache()
+    out["pth"] = check_pth(dev, tmp.name, C=C, V=V)
+    tmp.cleanup()
+    return out
+
+
 def run_prefill(dev, engine_model, profile: bool, B=256, chunks=4, tag="", graphs=True):
     """Compact prefill at 7.2B width on a batch-B ServingModel that shares
     the engine model's prepared weights, with CUDA graphs or (graphs=False)
@@ -3667,6 +4186,7 @@ def main(argv=None) -> int:
                                         graphs=False)
     bf16_path = run_bf16_mode(dev, model, path["block_steps"])
     path["prefix_cache"] = run_prefix_cache(dev, model)
+    path["server"] = run_server(dev, model, path["decode_tok_s"])
     del model
     gc.collect()
     torch.cuda.empty_cache()
@@ -3695,6 +4215,7 @@ def main(argv=None) -> int:
         run, step, chunk = ((w16_launches, w16_step, path_a["prefill"]) if name == "mm8_w16_gemm"
                             else (launches, per_step, prefill))
         k["launches"] = run[name]
+        k["launches_server"] = path["server"]["launches"][name]
         k["launches_per_step"] = step[name]
         k["launches_per_chunk"] = chunk[0]["launches_per_chunk"][name]
     path["prefill"] = prefill

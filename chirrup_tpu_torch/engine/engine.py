@@ -54,29 +54,37 @@ def build_model_factory(model_config: ModelLoadConfig, batch_size: int, device=N
                         seed: int = 0) -> Callable:
     """A callable the worker thread invokes to construct its ServingModel and
     tokenizer. The device is resolved here, so building a factory without a
-    device where CUDA is absent raises at once. Only synthetic models
-    (model_config.synthetic_config) load in this slice."""
+    device where CUDA is absent raises at once. The model is
+    model_config.synthetic_config's random one (from `seed`), or the
+    checkpoint at model_config.model_path: a native directory
+    (models/checkpoint.py; an INT8 one is served as it is stored) or a `.pth`
+    (quantized by ServingModel under quantization="int8")."""
     from chirrup_tpu_torch.engine.serving import ServingModel
-    from chirrup_tpu_torch.models import loader
+    from chirrup_tpu_torch.models import checkpoint, loader
     from chirrup_tpu_torch.models.config import RWKV7Config, RuntimeConfig
 
     device = resolve_device(device)
-    if model_config.synthetic_config is None:
-        raise NotImplementedError(
-            "chirrup_tpu_torch loads synthetic models only so far; loading .pth and "
-            "native checkpoints is a later slice of the port")
 
     def factory():
         runtime = RuntimeConfig(
             activation_dtype=_DTYPES[model_config.activation_dtype],
             wkv_state_dtype=_DTYPES[model_config.wkv_state_dtype],
             quantization=model_config.quantization, mm8_core=model_config.mm8_core)
-        cfg = RWKV7Config(**model_config.synthetic_config)
-        if runtime.quantization == "int8":
-            make = lambda: loader.synthetic_params_int8(
-                cfg, seed=seed, dtype=runtime.activation_dtype, device=device)
+        path = model_config.model_path
+        if model_config.synthetic_config is not None:
+            cfg = RWKV7Config(**model_config.synthetic_config)
+            if runtime.quantization == "int8":
+                make = lambda: loader.synthetic_params_int8(
+                    cfg, seed=seed, dtype=runtime.activation_dtype, device=device)
+            else:
+                make = lambda: loader.synthetic_params(cfg, seed=seed, device=device)
+        elif checkpoint.is_native_checkpoint(path):
+            cfg = checkpoint.native_config(path)
+            make = lambda: checkpoint.load_native(path, device=device)[1]
         else:
-            make = lambda: loader.synthetic_params(cfg, seed=seed, device=device)
+            sd = loader.load_state_dict_pth(path)
+            cfg = loader.infer_config(sd, vocab_size=model_config.vocab_size)
+            make = lambda: loader.params_from_state_dict(sd, cfg, device=device)
         # the model makes the tree itself and holds the only reference
         model = ServingModel(cfg, make, runtime, batch_size,
                              prefill_chunk=model_config.prefill_chunk, device=device,

@@ -8,14 +8,20 @@ Token id 0 is the implicit ``<|endoftext|>`` document separator and never appear
 the file. Behavioral reference: the TRIE_TOKENIZER in the upstream RWKV ecosystem
 (and Albatross's utils.py, the serving engine this framework
 re-implements); this is an independent implementation — a flat-dict trie with an
-incremental UTF-8 streaming decoder on top, in pure Python.
+incremental UTF-8 streaming decoder on top. Encoding runs on the C trie
+(chirrup_tpu_torch.native, built at first use); where it cannot be built the
+tokenizer says so in a warning and encodes on the pure-Python trie, and
+`WorldTokenizer.trie` names the one in use ("c" or "python").
 """
 
 from __future__ import annotations
 
 import ast
 import codecs
+import logging
 from typing import Iterable, List, Optional
+
+log = logging.getLogger(__name__)
 
 
 class _TrieNode:
@@ -71,11 +77,30 @@ class WorldTokenizer:
                 node = nxt
             node.token_id = idx
 
+        self._native = None
+        self.trie = "python"
+        try:
+            from chirrup_tpu_torch.native import trie_tokenizer
+
+            self._native = trie_tokenizer().NativeTrie(self.idx2token)
+            self.trie = "c"
+            log.info("tokenizer: C trie, %d tokens", len(self.token2idx))
+        except (OSError, RuntimeError, ImportError) as exc:
+            log.warning("tokenizer: the C trie could not be built (%s); encoding on "
+                        "the pure-Python trie", exc)
+
     @property
     def vocab_size(self) -> int:
         return max(self.idx2token) + 1
 
     def encode_bytes(self, data: bytes) -> List[int]:
+        if self._native is not None:
+            return self._native.encode(data)
+        return self.encode_bytes_python(data)
+
+    def encode_bytes_python(self, data: bytes) -> List[int]:
+        """Greedy longest match on the pure-Python trie (the C trie's
+        reference)."""
         tokens: List[int] = []
         root = self._root
         i, n = 0, len(data)
