@@ -5,6 +5,8 @@
     python3 chip_smoke.py --compare DIR    # DIR: another checkout (compare_trees):
                                            # the WKV kernels, the quantizer, the tail
                                            # and the engine's step, in turns
+    python3 chip_smoke.py --tp 2,4         # one model over 2, then 4 cards by
+                                           # tensor parallelism (run_tp_cards)
 
 Phases, in order; any failure ends the run with a non-zero exit:
 
@@ -129,17 +131,29 @@ Phases, in order; any failure ends the run with a non-zero exit:
    CPU (prepared trees bit-equal, first-step logits within the bf16
    tolerance);
 9. path A, the exact w8a16 configuration: phases 5 and 6 again with
-   ModelLoadConfig(mm8_core="pallas") after the first engine is freed (4
-   steady blocks with graphs, 2 without; no eager engine run; prefill on the
-   batch-64 variant (8, 64)), every int8 product on mm8_w16_gemm and none on
-   the w8a8 kernels;
-10. path B, the unfused TMix on that model: one forward_step at batch 64 and
+   ModelLoadConfig(mm8_core="pallas") after the first engine is freed, at 16
+   layers (4 steady blocks with graphs, 2 without; no eager engine run;
+   prefill on the batch-64 variant (8, 64)), every int8 product on
+   mm8_w16_gemm and none on the w8a8 kernels;
+10. path B, the unfused TMix on that model (16 layers): one forward_step at batch 64 and
    one forward_chunk at (8, 256) with wkv_fn=wkv7_batch, every WKV on the bare
    kernel, against the fused kernels from the same state; then both on layer 0
    alone at float32, held per element to the WKV kernels' limit; then the
    same two calls in the bf16 mode (functools.partial(wkv7_batch,
    precision="bf16") against wkv_precision="bf16");
-11. one JSON line with every kernel's numbers, then the result line.
+11. tensor parallelism (parallel/tp.py): after phase 8, run_tp1, the engine
+   at tensor_parallel=1 over a real one-rank NCCL group with its collectives
+   captured in the graphs, against the meshless engine model (greedy
+   requests and a greedy block bit-equal, launches a step and a chunk equal,
+   ms a step and device busy in turns); after phase 10, check_tp_shards,
+   every kernel of the tp path at the shard shapes of tp 2 and 4 (C/tp,
+   H/tp, F/tp, V/tp) at batch 64 and at a 512-row prefill chunk against its
+   plain version, timed beside its bound and library call; then
+   run_tp2_shared_card, tp 2 as two processes on the one card over gloo,
+   eager, float32, under both INT8 cores: first-step logits against the
+   meshless model's, elapsed, the ranks' carries bit-equal after each
+   greedy step, each rank's launches (one card cannot show a tp rate);
+12. one JSON line with every kernel's numbers, then the result line.
 
 Without a CUDA device, or without the chirrup_tpu_torch package beside it,
 the script exits non-zero and prints no result.
@@ -3893,6 +3907,493 @@ STEP_PAIRS = ((torch.bfloat16, torch.bfloat16), (torch.bfloat16, torch.float32),
 TAIL_BATCHES = (32, 64, 128, 256, 512)
 
 
+# --------------------------------------------------------- tensor parallel
+
+
+def tp_mm8_shapes(tp, C=4096, F=16384, V=65536):
+    """MM8_SHAPES at one rank's shard of tp: R/K/V, FFN Wk and the head
+    column-parallel (each rank merges its own R/K/V), Wo and FFN Wv
+    row-parallel (parallel/tp.py)."""
+    return [("att R/K/V", C, 3 * C // tp, 3, "mix", False, True),
+            ("att Wo", C // tp, C, 1, "mul", False, True),
+            ("ffn Wk", C, F // tp, 1, "plain", True, True),
+            ("ffn Wv", F // tp, C, 1, "plain", False, True),
+            ("head", C, V // tp, 1, "plain", False, False)]
+
+
+def tp_w16_sites(tp, C=4096, F=16384, V=65536):
+    """W16_SITES at one rank's shard of tp."""
+    return [("att R", C, C // tp, True), ("att K", C, C // tp, True),
+            ("att V", C, C // tp, True), ("att Wo", C // tp, C, True),
+            ("ffn Wk", C, F // tp, True), ("ffn Wv", F // tp, C, True),
+            ("head", C, V // tp, False)]
+
+
+def check_tp_shards(dev, gen, tps=(2, 4), B=64, prefill_rows=512, C=4096, L=32,
+                    chunk_variants=((8, 64), (8, 256))):
+    """Every kernel of the tensor-parallel path at the shard shapes of 7.2B
+    under tp = 2 and 4, with the checks of the full-width phase (each against
+    its plain version, planted faults, bound, plain and library times): the
+    WKV step at batch B on H/tp heads, the WKV chunk at the compact prefill
+    variants, the quantizer and the w8a8 GEMM at tp_mm8_shapes and the
+    w8a16 GEMM at tp_w16_sites, at B rows and at `prefill_rows` (a prefill
+    chunk; no head). The penalty tail and the exact-row sampler run on the
+    gathered (B, V) logits, the full-width shapes checked above. Returns
+    {tp: {kernel: {ms, bound_ms, bound_by, plain_ms, library_ms, max_abs_err,
+    shape}}} (the headline site of each, as the kernels line) and the whole
+    results by tp."""
+    rows, whole = {}, {}
+    for tp in tps:
+        Cl = C // tp
+        step = check_wkv(dev, gen, B=B, C=Cl, L=L, li=17)
+        chunk = check_chunk(dev, gen, variants=chunk_variants, C=Cl, L=L, li=9)
+        decode = [*check_mm8(dev, gen, B=B, shapes=tp_mm8_shapes(tp, C)),
+                  check_w16(dev, gen, B=B, sites=tp_w16_sites(tp, C))]
+        prefill = [*check_mm8(dev, gen, B=prefill_rows, shapes=tp_mm8_shapes(tp, C)[:4]),
+                   check_w16(dev, gen, B=prefill_rows, sites=tp_w16_sites(tp, C)[3:6])]
+        torch.cuda.empty_cache()
+        keys = ("ms", "bound_ms", "bound_by", "plain_ms", "library_ms", "max_abs_err", "shape")
+        rows[tp] = {k["name"]: {f: k.get(f) for f in keys} for k in (step, chunk, *decode)}
+        whole[tp] = dict(step=step, chunk=chunk, decode=decode, prefill=prefill)
+        log(f"tp {tp} shard shapes (C/tp {Cl}, H/tp {Cl // 64}, F/tp {16384 // tp}, "
+            f"V/tp {65536 // tp}): " + "; ".join(
+                f"{name} {r['ms']:.4f} ms (bound {r['bound_ms']:.4f}, plain {r['plain_ms']:.4f}"
+                + (f", library {r['library_ms']:.4f}" if r["library_ms"] is not None else "")
+                + ")" for name, r in rows[tp].items()))
+    return rows, whole
+
+
+def tp_config(vocab, L, C, V, mm8_core="auto", dtype="bfloat16", tp=1):
+    from chirrup_tpu_torch.engine.structures import ModelLoadConfig
+
+    return ModelLoadConfig(model_path="<synthetic>", vocab_path=vocab, vocab_size=V,
+                           quantization="int8", mm8_core=mm8_core, activation_dtype=dtype,
+                           wkv_state_dtype=dtype, tensor_parallel=tp,
+                           synthetic_config=dict(n_layer=L, n_embd=C, vocab_size=V))
+
+
+def random_state(carry, gen):
+    """A random recurrent state in every slot (as check_graphs draws one)."""
+    st = carry.state
+    st.shift.copy_(torch.randn(st.shift.shape, generator=gen, device=st.shift.device))
+    for li in range(st.wkv.shape[0]):
+        st.wkv[li].copy_((torch.randn(st.wkv[li].shape, generator=gen, device=st.wkv.device)
+                          * 0.3).to(st.wkv.dtype))
+    st.elapsed.copy_(torch.randint(0, 2 ** 20, st.elapsed.shape, generator=gen,
+                                   device=st.elapsed.device, dtype=torch.int32))
+
+
+def run_tp1(dev, m0, B=64, L=32, C=4096, V=65536, n_tok=16, long_prompt=1024, blocks=4,
+            seed=23, backend="nccl"):
+    """The tensor-parallel path at tp = 1 over a real one-rank NCCL group, with
+    graphs, at 7.2B width: AsyncEngineCore.init(tensor_parallel=1,
+    tp_backend="nccl") builds its own model from the seed of the meshless
+    engine's (m0) weights, warms up and captures every serving program with
+    the collectives inside (two all-reduces a layer, the vocabulary gather a
+    step). Requirements: five greedy requests (four short, one of
+    `long_prompt` tokens) give the tokens of a meshless engine on m0's
+    weights; from one random state, a greedy K-step block gives m0's tokens
+    and carry bit for bit; the launches of the path's kernels a step (one
+    replay under sync debug mode "error") and a compact chunk equal m0's (the
+    collectives are not counted). Then steady decode in turns (m0, tp1, tp1,
+    m0), `blocks` blocks each, and one profiled block each: ms a step and
+    device busy of the tp path itself beside meshless."""
+    import numpy as np
+    from chirrup_tpu_torch.engine.engine import AsyncEngineCore
+    from chirrup_tpu_torch.engine.serving import ServingModel
+    from chirrup_tpu_torch.ops import _kernels
+    from chirrup_tpu_torch.utils.tokenizer import WorldTokenizer
+
+    tmp = tempfile.TemporaryDirectory()
+    vocab = os.path.join(tmp.name, "vocab.txt")
+    write_vocab(vocab, V)
+    cfg = tp_config(vocab, L, C, V)
+    gen = torch.Generator().manual_seed(seed)
+    requests = [(f"Request {i}: tensor parallel at one rank", None, 0.0, 0.0) for i in range(4)]
+    requests.append(("", torch.randint(1, V, (long_prompt,), generator=gen).tolist(), 0.0, 0.0))
+    out = {}
+
+    async def serve(engine_kw, model_factory=None, measure=None):
+        engine = AsyncEngineCore()
+        t0 = time.perf_counter()
+        try:
+            await engine.init(worker_num=1, model_config=cfg, batch_size=B, load_timeout=900,
+                              device=dev, model_factory=model_factory, warmup_programs=True,
+                              **engine_kw)
+            load_s = time.perf_counter() - t0
+            _kernels.reset_launches()
+            comps = [engine.completion(p, prefill_tokens=ids, max_tokens=n_tok, stop_tokens=(),
+                                       temperature=t, presence_penalty=pen,
+                                       frequency_penalty=pen) for p, ids, t, pen in requests]
+            await asyncio.gather(*[c.get_full_completion() for c in comps])
+            launches = dict(_kernels.LAUNCHES)
+            toks = [list(c.task.generated_tokens) for c in comps]
+            extra = measure(engine.workers[0].model) if measure is not None else None
+            return toks, launches, load_s, extra
+        finally:
+            engine.shutdown()
+            engine.join(timeout=60)
+
+    def measure(m1):
+        """Against m0 while the tp engine is up (its worker idles)."""
+        require(m1.tp is not None and m1.tp.backend == backend and m1.tp.world == 1
+                and m1.graphs == (dev.type == "cuda"),
+                "the tp engine's model is not a captured one-rank NCCL model")
+        K = 16
+        res = {}
+        carries = {"meshless": m0.init_carry(), "tp1": m1.init_carry()}
+        models = {"meshless": m0, "tp1": m1}
+        for name, c in carries.items():
+            for s in range(B):
+                models[name].insert_slot(c, s, None, Greedy)
+            random_state(c, torch.Generator(device=dev).manual_seed(seed))
+        ones = np.ones((K, B), bool)
+        first = ones.copy()
+        first[0] = False
+        tokens = np.full((K, B), 300, np.int32)
+        sampled = {n: models[n].decode_block(c, tokens, first, ones, ones)[1].cpu()
+                   for n, c in carries.items()}
+        require(torch.equal(sampled["tp1"], sampled["meshless"])
+                and not carry_diff(carries["tp1"], carries["meshless"]),
+                f"tp1: a greedy block differs from meshless (carry fields "
+                f"{carry_diff(carries['tp1'], carries['meshless'])})")
+        per_step = {}
+        for n, c in carries.items():
+            _kernels.reset_launches()
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                models[n].decode_block(c, tokens, ones, ones, ones)
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+            torch.cuda.synchronize()
+            per_step[n] = {k: v / K for k, v in _kernels.LAUNCHES.items()}
+        require(per_step["tp1"] == per_step["meshless"] == expected_launches(L, "auto", "step"),
+                f"tp1 launches a step {per_step['tp1']}, meshless {per_step['meshless']}")
+        P, T = m1.prefill_variants[0]
+        per_chunk = {}
+        for n, c in carries.items():
+            models[n].prefill_step_compact(c, np.full((P, T), 300, np.int32),
+                                           np.full((P,), T, np.int32), np.arange(P, dtype=np.int32))
+            torch.cuda.synchronize()
+            _kernels.reset_launches()
+            models[n].prefill_step_compact(c, np.full((P, T), 300, np.int32),
+                                           np.full((P,), T, np.int32), np.arange(P, dtype=np.int32))
+            torch.cuda.synchronize()
+            per_chunk[n] = dict(_kernels.LAUNCHES)
+        require(per_chunk["tp1"] == per_chunk["meshless"] == expected_launches(L, "auto", "chunk"),
+                f"tp1 launches a chunk {per_chunk['tp1']}, meshless {per_chunk['meshless']}")
+        require(not carry_diff(carries["tp1"], carries["meshless"]),
+                "tp1: the carry after two compact chunks differs from meshless")
+        steady = {"meshless": [], "tp1": []}
+        for n in ("meshless", "tp1", "tp1", "meshless"):
+            steady[n].append(steady_decode(models[n], carries[n], K, blocks))
+        for n in ("meshless", "tp1"):
+            busy, by_kernel, groups, averages = profile_block(models[n], carries[n], K)
+            with open(os.path.join(OUT_DIR, f"chip_smoke_tp1_{n}_profile.txt"), "w") as f:
+                f.write(averages.table(sort_by="self_cuda_time_total", row_limit=40))
+            # the profiler may drop events at the edge of its window: the share
+            # of the block it saw, by the WKV steps (L a step)
+            seen = sum(c for k, _, c in by_kernel if "wkv7_step_fused_kernel" in k) / L or 1.0
+            dtod = sum(c for k, _, c in by_kernel if "Memcpy DtoD" in k) / seen
+            step_ms = statistics.median(s["step_ms"] for s in steady[n])
+            busy = None if busy is None else busy / seen
+            res[n] = dict(step_ms_turns=[s["step_ms"] for s in steady[n]], step_ms=step_ms,
+                          decode_tok_s=B / step_ms * 1e3, device_busy_step_ms=busy,
+                          idle_share=None if busy is None else 1 - busy / step_ms,
+                          steps_profiled=seen * K, dtod_copies_step=dtod,
+                          device_ops_step=sum(c for _, _, c in by_kernel) / seen,
+                          host_dispatch_ms=[x for s in steady[n] for x in s["host_dispatch_ms"]])
+            log(f"tp1 vs meshless, {n}: {step_ms:.3f} ms a step (median of turns "
+                f"{[round(s['step_ms'], 3) for s in steady[n]]}), "
+                f"{res[n]['decode_tok_s']:.1f} tok/s; host dispatch a block "
+                f"{spread(res[n]['host_dispatch_ms'])} ms; device busy "
+                + (f"{busy:.3f} ms a step, idle {100 * res[n]['idle_share']:.1f}%"
+                   if busy is not None else "not measured")
+                + f" ({seen * K:.3f} of {K} steps in the profiler's window); "
+                  f"{res[n]['device_ops_step']:g} device operations a step, of them "
+                  f"{dtod:g} device-to-device copies (a one-rank NCCL collective is one, "
+                  f"or nothing in place)")
+        res["per_step"], res["per_chunk"] = per_step["tp1"], per_chunk["tp1"]
+        return res
+
+    toks1, launches1, load1, res = asyncio.run(serve(
+        dict(tensor_parallel=1, tp_backend=backend, tp_devices=[dev]), measure=measure))
+    shared = lambda: (ServingModel(m0.config, m0.params, m0.runtime, B,
+                                   prefill_chunk=m0.prefill_chunk, device=dev),
+                      WorldTokenizer(vocab))
+    toks0, launches0, load0, _ = asyncio.run(serve({}, model_factory=shared))
+    require(toks1 == toks0 and all(len(t) == n_tok for t in toks1),
+            f"tp1: the engine's greedy tokens differ from the meshless engine's")
+    on_path = {n for kind in ("step", "chunk")
+               for n, c in expected_launches(L, "auto", kind).items() if c > 0}
+    for name, count in launches1.items():
+        require((count > 0) == (name in on_path),
+                f"tp1 engine: kernel {name} launched {count} times")
+    log(f"tp1 engine (one-rank NCCL group, graphs): loaded, warmed and captured in {load1:.1f} s "
+        f"(meshless on shared weights {load0:.1f} s); {len(requests)} greedy requests "
+        f"({long_prompt}-token prompt among them) equal to meshless token for token; launches "
+        f"over them {launches1} (meshless {launches0})")
+    out.update(res, load_s=load1, meshless_load_s=load0, launches=launches1,
+               meshless_launches=launches0, tokens_equal=True)
+    tmp.cleanup()
+    return out
+
+
+def run_tp2_shared_card(dev, B=8, L=8, C=4096, V=65536, prompt=60, steps=16, seed=29):
+    """tp = 2 as two processes sharing the one card over gloo (NCCL refuses
+    two ranks on one device), eager (gloo collectives stage through the
+    host, which a graph cannot capture), at 7.2B width and depth L, float32
+    activations and state, under each INT8 core: rank 0 here, rank 1 spawned
+    (tp.start), each building its shard of the synthetic model (seed 0), and
+    the meshless model on the same weights. One prompt is prefilled (compact
+    chunk) and `steps` greedy steps run. Requirements: the first step's
+    logits within the CPU tests' limit of the meshless model's (w8a16
+    "pallas": 2e-4 of scale, tests/test_torch_tp.py; w8a8: 5e-2), elapsed
+    equal, every rank's replicated carry (tokens, penalties, shift) bit-equal
+    after every step (replica_report), and each rank's launch counters
+    showing the path's kernels at the shard shapes. Its wall time is a check
+    of correctness over host-staged collectives, not a tp rate."""
+    import dataclasses
+    import functools
+
+    import numpy as np
+    from chirrup_tpu_torch.engine.engine import build_serving_model
+    from chirrup_tpu_torch.ops import _kernels
+    from chirrup_tpu_torch.parallel import tp as tp_mod
+
+    tmp = tempfile.TemporaryDirectory()
+    vocab = os.path.join(tmp.name, "vocab.txt")
+    write_vocab(vocab, V)
+    ids = torch.randint(1, V, (prompt,), generator=torch.Generator().manual_seed(seed)).tolist()
+    out = {}
+    for core, tol in (("pallas", 2e-4), ("auto", 5e-2)):
+        cfg = tp_config(vocab, L, C, V, mm8_core=core, dtype="float32", tp=2)
+        meshless = build_serving_model(dataclasses.replace(cfg, tensor_parallel=1), B,
+                                       device=dev, seed=0, graphs=False)
+        build = functools.partial(build_serving_model, cfg, B, seed=0, graphs=False)
+        t0 = time.perf_counter()
+        connect, procs = tp_mod.start(2, build, [dev, dev], backend="gloo", timeout=300)
+        model = None
+        try:
+            ctx = connect()
+            model = build(ctx)
+            load_s = time.perf_counter() - t0
+            require(model.wkv_width == C // 2 and model.params["head"].q.shape[-1] == V // 2,
+                    "tp2: rank 0 does not hold its shard")
+            _kernels.reset_launches()
+            t0 = time.perf_counter()
+            results, reports = {}, []
+            for name, m in (("tp2", model), ("meshless", meshless)):
+                c = m.init_carry()
+                m.insert_slot(c, 0, None, Greedy)
+                P, T = m.prefill_variants[0]
+                toks = np.zeros((P, T), np.int32)
+                toks[0, :prompt - 1] = ids[:-1]
+                lengths = np.zeros((P,), np.int32)
+                lengths[0] = prompt - 1
+                m.prefill_step_compact(c, toks, lengths, np.arange(P, dtype=np.int32))
+                act = np.zeros((B,), bool)
+                act[0] = True
+                step = np.zeros((B,), np.int32)
+                step[0] = ids[-1]
+                fb = np.zeros((B,), bool)
+                sampled, first = [], None
+                for k in range(steps):
+                    c, s, raw = m.decode_step(c, step, act, act, fb)
+                    if first is None:
+                        first = raw[0].float().cpu()
+                    sampled.append(int(s[0]))
+                    fb = act.copy()
+                    if name == "tp2":
+                        reports.append(m.replica_report(c))
+                results[name] = dict(first=first, tokens=sampled,
+                                     elapsed=int(c.state.elapsed[0]))
+                if name == "tp2":
+                    wall = time.perf_counter() - t0
+                    launches = [r["launches"] for r in reports[-1]]
+        finally:
+            if model is not None:
+                model.close()
+            codes = tp_mod.stop(procs, 60.0)
+        require(codes == [0], f"tp2 ({core}): the follower exited with {codes}")
+        a, b = results["tp2"]["first"], results["meshless"]["first"]
+        scale = float(b.abs().max())
+        err = max_abs(a, b)
+        require(bool(torch.isfinite(a).all()) and err <= tol * scale,
+                f"tp2 ({core}): first-step logits err {err} > {tol} * {scale}")
+        require(results["tp2"]["elapsed"] == results["meshless"]["elapsed"] == prompt - 1 + steps,
+                f"tp2 ({core}): elapsed {results['tp2']['elapsed']} against "
+                f"{results['meshless']['elapsed']}")
+        for k, rep in enumerate(reports):
+            require(len(rep) == 2 and rep[0]["digest"] == rep[1]["digest"]
+                    and rep[0]["last_sampled"] == rep[1]["last_sampled"],
+                    f"tp2 ({core}): the ranks' carries differ after step {k}")
+        mm8 = ("mm8_w16_gemm",) if core == "pallas" else ("mm8_a8_quant_rows", "mm8_a8_gemm")
+        for r, counts in enumerate(launches):
+            for name in ("wkv7_chunk_fused", "wkv7_step_fused", "penalty_tail",
+                         "sample_exact_rows", *mm8):
+                require(counts[name] > 0, f"tp2 ({core}): rank {r} never launched {name}")
+        same = results["tp2"]["tokens"] == results["meshless"]["tokens"]
+        log(f"tp2 on one card over gloo ({core}, L{L} C{C} V{V}, float32, B{B}): ranks joined "
+            f"and built in {load_s:.1f} s; first-step logits {err:.3e} from meshless "
+            f"({err / scale:.2e} of scale {scale:.3f}; limit {tol}); elapsed "
+            f"{results['tp2']['elapsed']}; {steps} greedy steps, the two ranks' carries bit-equal "
+            f"after each; tokens {'equal to' if same else 'not equal to'} meshless "
+            f"({results['tp2']['tokens'][:8]}...); wall {wall:.2f} s for the prefill and "
+            f"{steps} steps with {len(reports)} replica reports (a correctness check over "
+            f"host-staged collectives, not a tp rate); launches by rank {launches}")
+        out[core] = dict(first_logits_err=err, scale=scale, limit=tol,
+                         elapsed=results["tp2"]["elapsed"], tokens=results["tp2"]["tokens"],
+                         tokens_equal_meshless=same, wall_s=wall, load_s=load_s,
+                         launches_by_rank=launches)
+        del meshless
+        gc.collect()
+        torch.cuda.empty_cache()
+    tmp.cleanup()
+    return out
+
+
+def run_tp_cards(n, B=64, L=32, C=4096, V=65536, n_tok=16, long_prompt=1024, blocks=4,
+                 prompt=60, devices=None, backend=None, seed=31):
+    """`--tp N`: the engine at tensor_parallel=N over NCCL, rank r on CUDA
+    device r (devices and backend given only to rehearse on the CPU), w8a8,
+    bf16, graphs, 7.2B width, against the meshless model on device 0 with
+    the same weights. Five greedy requests (one of `long_prompt` tokens)
+    through the tp engine and through a meshless engine on the meshless
+    model's weights (tokens compared and counted: per-rank activation scales
+    may move a near tie); then, while the tp engine idles, one prompt
+    prefilled into every slot of a new carry of each model and a first
+    decode step, whose logits must agree within the w8a8 limit of the CPU
+    tests (5e-2 of scale), the ranks' carries bit-equal (replica_report)
+    after it and after steady decode, each rank's launches of the path's
+    kernels; steady decode in turns (meshless, tp, tp, meshless), `blocks`
+    blocks of 16 each, and one profiled block each (rank 0's device busy):
+    the tp rate of one model over N cards beside one card's."""
+    import dataclasses
+
+    import numpy as np
+    from chirrup_tpu_torch.engine.engine import AsyncEngineCore, build_serving_model
+    from chirrup_tpu_torch.engine.serving import ServingModel
+    from chirrup_tpu_torch.ops import _kernels
+    from chirrup_tpu_torch.utils.tokenizer import WorldTokenizer
+
+    dev = torch.device("cuda", 0) if devices is None else torch.device(devices[0])
+    tmp = tempfile.TemporaryDirectory()
+    vocab = os.path.join(tmp.name, "vocab.txt")
+    write_vocab(vocab, V)
+    cfg = tp_config(vocab, L, C, V, tp=n)
+    m0 = build_serving_model(dataclasses.replace(cfg, tensor_parallel=1), B, device=dev, seed=0)
+    gen = torch.Generator().manual_seed(seed)
+    requests = [(f"Request {i}: one model over {n} cards", None) for i in range(4)]
+    requests.append(("", torch.randint(1, V, (long_prompt,), generator=gen).tolist()))
+    ids = torch.randint(1, V, (prompt,), generator=gen).tolist()
+    K = 16
+    out = {}
+
+    async def serve(engine_kw, model_factory=None, measure=None):
+        engine = AsyncEngineCore()
+        t0 = time.perf_counter()
+        try:
+            await engine.init(worker_num=1, model_config=cfg, batch_size=B, load_timeout=600,
+                              model_factory=model_factory, warmup_programs=True, **engine_kw)
+            load_s = time.perf_counter() - t0
+            _kernels.reset_launches()
+            comps = [engine.completion(p, prefill_tokens=i, max_tokens=n_tok, stop_tokens=(),
+                                       temperature=0.0, presence_penalty=0.0,
+                                       frequency_penalty=0.0) for p, i in requests]
+            await asyncio.gather(*[c.get_full_completion() for c in comps])
+            toks = [list(c.task.generated_tokens) for c in comps]
+            extra = measure(engine.workers[0].model) if measure is not None else None
+            return toks, load_s, extra
+        finally:
+            engine.shutdown()
+            engine.join(timeout=60)
+
+    def measure(m):
+        require(m.tp is not None and m.tp.world == n and m.graphs == (dev.type == "cuda"),
+                f"the tp engine's model is not a captured {n}-rank model")
+        models = {"meshless": m0, f"tp{n}": m}
+        carries, first = {}, {}
+        for name, mod in models.items():
+            c = mod.init_carry()
+            for s in range(B):
+                mod.insert_slot(c, s, None, Greedy)
+            P, T = mod.prefill_variants[0]
+            for start in range(0, B, P):
+                toks = np.zeros((P, T), np.int32)
+                toks[:, :prompt - 1] = ids[:-1]
+                mod.prefill_step_compact(c, toks, np.full((P,), prompt - 1, np.int32),
+                                         np.arange(start, start + P, dtype=np.int32))
+            on = np.ones((B,), bool)
+            c, _, raw = mod.decode_step(c, np.full((B,), ids[-1], np.int32), on, on)
+            first[name] = raw.float().cpu()
+            carries[name] = c
+        a, b = first[f"tp{n}"], first["meshless"]
+        scale = float(b.abs().max())
+        err = max_abs(a, b)
+        require(bool(torch.isfinite(a).all()) and err <= 5e-2 * scale,
+                f"tp{n}: first-step logits err {err} > 5e-2 * {scale}")
+        report = m.replica_report(carries[f"tp{n}"])
+        require(len({r["digest"] for r in report}) == 1, f"tp{n}: the ranks' carries differ")
+        ones = np.ones((K, B), bool)
+        for name, c in carries.items():  # the block's capture on this carry
+            models[name].decode_block(c, np.full((K, B), 300, np.int32), ones, ones, ones)
+        steady = {k: [] for k in models}
+        for name in ("meshless", f"tp{n}", f"tp{n}", "meshless"):
+            steady[name].append(steady_decode(models[name], carries[name], K, blocks))
+        report = m.replica_report(carries[f"tp{n}"])
+        require(len({r["digest"] for r in report}) == 1,
+                f"tp{n}: the ranks' carries differ after steady decode")
+        res = dict(first_logits_err=err, scale=scale,
+                   launches_by_rank=[r["launches"] for r in report])
+        for name in models:
+            busy, by_kernel, _, averages = profile_block(models[name], carries[name], K)
+            with open(os.path.join(OUT_DIR, f"chip_smoke_tp_cards_{name}_profile.txt"),
+                      "w") as f:
+                f.write(averages.table(sort_by="self_cuda_time_total", row_limit=40))
+            seen = sum(c for k, _, c in by_kernel if "wkv7_step_fused_kernel" in k) / L or 1.0
+            busy = None if busy is None else busy / seen
+            nccl = sum(ms for k, ms, _ in by_kernel if "nccl" in k.lower()) / seen
+            step_ms = statistics.median(s["step_ms"] for s in steady[name])
+            res[name] = dict(step_ms_turns=[s["step_ms"] for s in steady[name]],
+                             step_ms=step_ms, decode_tok_s=B / step_ms * 1e3,
+                             device_busy_step_ms=busy, nccl_ms_step=nccl,
+                             host_dispatch_ms=[x for s in steady[name]
+                                               for x in s["host_dispatch_ms"]])
+            log(f"tp on {n} cards, {name}: {step_ms:.3f} ms a step (turns "
+                f"{[round(s['step_ms'], 3) for s in steady[name]]}), "
+                f"{res[name]['decode_tok_s']:.1f} tok/s; host dispatch a block "
+                f"{spread(res[name]['host_dispatch_ms'])} ms; card 0 busy "
+                + (f"{busy:.3f} ms a step" if busy is not None else "not measured")
+                + f", of it NCCL kernels {nccl:.4f} ms")
+        return res
+
+    tp_kw = dict(tp_timeout=120) if devices is None else dict(
+        tp_devices=devices, tp_backend=backend, tp_timeout=120)
+    toks_tp, load_tp, res = asyncio.run(serve(tp_kw, measure=measure))
+    shared = lambda: (ServingModel(m0.config, m0.params, m0.runtime, B,
+                                   prefill_chunk=m0.prefill_chunk, device=dev),
+                      WorldTokenizer(vocab))
+    toks_0, load_0, _ = asyncio.run(serve(dict(device=dev, tensor_parallel=1),
+                                          model_factory=shared))
+    equal = sum(a == b for a, b in zip(toks_tp, toks_0))
+    require(all(len(t) == n_tok for t in toks_tp), f"tp{n}: a request fell short")
+    mm8 = ("mm8_a8_quant_rows", "mm8_a8_gemm")
+    for r, counts in enumerate(res["launches_by_rank"]):
+        for name in ("wkv7_chunk_fused", "wkv7_step_fused", "penalty_tail", "sample_exact_rows",
+                     *mm8):
+            require(counts[name] > 0, f"tp{n}: rank {r} never launched {name}")
+    log(f"tp on {n} cards (NCCL, graphs, L{L} C{C} V{V}, batch {B}): engine loaded, warmed and "
+        f"captured in {load_tp:.1f} s (meshless {load_0:.1f} s); {equal} of {len(requests)} "
+        f"greedy requests token for token equal to meshless; first-step logits "
+        f"{res['first_logits_err']:.3e} from meshless ({res['first_logits_err'] / res['scale']:.2e}"
+        f" of scale); the ranks' carries bit-equal; launches by rank {res['launches_by_rank']}")
+    out.update(res, load_s=load_tp, meshless_load_s=load_0, requests_equal=equal,
+               requests=len(requests))
+    tmp.cleanup()
+    return out
+
+
 def compare_step_tail(dev, L=32, V=65536):
     """The step kernel at batch 64 (cold and warm, step_ms) in each dtype
     pair of STEP_PAIRS and the penalty tail at each batch of TAIL_BATCHES,
@@ -4110,6 +4611,10 @@ def main(argv=None) -> int:
                         help="instead of the smoke run, time the WKV step, chunk and "
                              "bare kernels, the quantizer and the penalty tail of the "
                              "checkout in DIR against this tree's (compare_trees)")
+    parser.add_argument("--tp", metavar="N[,N...]",
+                        help="instead of the smoke run, serve one model over CUDA devices "
+                             "0..N-1 by tensor parallelism against the meshless model on "
+                             "device 0, for each N (run_tp_cards; needs N cards)")
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the GPU only", file=sys.stderr)
@@ -4122,6 +4627,22 @@ def main(argv=None) -> int:
     log(smi[0])
     if args.compare:
         return compare_trees(args.compare)
+    if args.tp:
+        worlds = [int(n) for n in args.tp.split(",")]
+        require(torch.cuda.device_count() >= max(worlds),
+                f"--tp {args.tp} needs {max(worlds)} CUDA devices, "
+                f"{torch.cuda.device_count()} seen")
+        _kernels.build()
+        torch.backends.cuda.matmul.allow_tf32 = False
+        tp_cards = {n: run_tp_cards(n) for n in worlds}
+        os.makedirs(OUT_DIR, exist_ok=True)
+        with open(os.path.join(OUT_DIR, "chip_smoke_tp_cards.json"), "w") as f:
+            json.dump(dict(card=smi, tp_cards=tp_cards), f, indent=1)
+        print(json.dumps({"ok": True, "device": {"platform": "gpu",
+                                                 "kind": torch.cuda.get_device_name(0),
+                                                 "count": torch.cuda.device_count()}}),
+              flush=True)
+        return 0
     dev = torch.device("cuda", 0)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -4187,10 +4708,15 @@ def main(argv=None) -> int:
     bf16_path = run_bf16_mode(dev, model, path["block_steps"])
     path["prefix_cache"] = run_prefix_cache(dev, model)
     path["server"] = run_server(dev, model, path["decode_tok_s"])
+    # the tensor-parallel path at tp = 1 over a one-rank NCCL group, against
+    # this meshless model
+    path["tp1"] = run_tp1(dev, model)
     del model
     gc.collect()
     torch.cuda.empty_cache()
-    model, w16_launches, w16_step, path_a = run_engine(dev, args.profile, blocks=4,
+    # path A (and path B on its model) at 16 layers: the script keeps to its time with
+    # the tensor-parallel phases
+    model, w16_launches, w16_step, path_a = run_engine(dev, args.profile, L=16, blocks=4,
                                                        mm8_core="pallas", tag="_w16",
                                                        eager_blocks=2)
     path_a["prefill"] = run_prefill(dev, model, args.profile, B=64, chunks=4, tag="_w16")
@@ -4199,6 +4725,12 @@ def main(argv=None) -> int:
     path_b = run_unfused(dev, model)
     path_b_bf16 = run_unfused(dev, model, precision="bf16")
     del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    # tensor parallelism: the kernels at the shard shapes of tp 2 and 4, then
+    # tp 2 as two processes sharing the card over gloo
+    tp_rows, path["tp_shards"] = check_tp_shards(dev, torch.Generator(device=dev).manual_seed(13))
+    path["tp2_shared_card"] = run_tp2_shared_card(dev)
     for k in kernels:
         name = k["name"]
         if name in ("wkv7_batch", "wkv7_batch_bf16"):
@@ -4218,6 +4750,13 @@ def main(argv=None) -> int:
         k["launches_server"] = path["server"]["launches"][name]
         k["launches_per_step"] = step[name]
         k["launches_per_chunk"] = chunk[0]["launches_per_chunk"][name]
+        k["launches_tp1"] = path["tp1"]["launches"][name]
+    for k in kernels:
+        # the same kernel at the tp shard shapes (check_tp_shards)
+        shard = {str(tp): rows[k["name"]] for tp, rows in tp_rows.items() if k["name"] in rows}
+        if shard:
+            k["tp_shards"] = {tp: {f: r[f] for f in ("ms", "bound_ms", "plain_ms", "library_ms")}
+                              for tp, r in shard.items()}
     path["prefill"] = prefill
     path["mm8_prefill_rows"] = {rows: {k["name"]: k["sites"] for k in ks}
                                 for rows, ks in mm8_prefill.items()}

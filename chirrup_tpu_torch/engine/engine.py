@@ -5,11 +5,18 @@ workers; a ThreadSafeAsyncQueue bridges each worker thread back into the event
 loop; init waits for every worker's worker_loaded handshake. A worker drives
 one device. With `state_pool_size`, a single worker keeps prefix snapshots in
 a device state pool (PoolHandle events); otherwise they go to the host.
+
+Tensor parallelism (`tensor_parallel` > 1, parallel/tp.py): one worker on
+rank 0, in this process, on the first device; ranks 1..tp-1 are spawned
+processes that build their shards of the same model and follow rank 0's
+ServingModel calls; shutdown stops them and join() joins them within its
+time limit.
 """
 
 from __future__ import annotations
 
 import asyncio
+import functools
 import queue
 import threading
 import uuid
@@ -23,6 +30,7 @@ from chirrup_tpu_torch.engine.structures import (
     DEFAULT_SAMPLING_CONFIG, DEFAULT_STOP_TOKENS, ModelLoadConfig, PoolHandle, RequestState,
     Task)
 from chirrup_tpu_torch.engine.worker import Worker, start_worker_thread
+from chirrup_tpu_torch.parallel import tp as tp_mod
 from chirrup_tpu_torch.utils.tokenizer import WorldTokenizer
 
 # the dtypes the kernels take
@@ -50,45 +58,74 @@ class ThreadSafeAsyncQueue:
             pass
 
 
-def build_model_factory(model_config: ModelLoadConfig, batch_size: int, device=None,
-                        seed: int = 0) -> Callable:
-    """A callable the worker thread invokes to construct its ServingModel and
-    tokenizer. The device is resolved here, so building a factory without a
-    device where CUDA is absent raises at once. The model is
-    model_config.synthetic_config's random one (from `seed`), or the
-    checkpoint at model_config.model_path: a native directory
-    (models/checkpoint.py; an INT8 one is served as it is stored) or a `.pth`
-    (quantized by ServingModel under quantization="int8")."""
+def build_serving_model(model_config: ModelLoadConfig, batch_size: int, tp=None, *,
+                        device=None, seed: int = 0, graphs: bool = True):
+    """The ServingModel of model_config on `device` (resolve_device: the CUDA
+    device unless one is given): model_config.synthetic_config's random model
+    (from `seed`), or the checkpoint at model_config.model_path, a native
+    directory (models/checkpoint.py; an INT8 one is served as it is stored)
+    or a `.pth` (quantized by ServingModel under quantization="int8").
+
+    tp: this rank's TPContext; the model runs on tp.device and holds its
+    shard. A synthetic INT8 tree and a native checkpoint are read shard by
+    shard (no rank uploads the whole tree); a dense tree served as INT8
+    (synthetic, `.pth`, a dense native checkpoint) is quantized whole first,
+    as meshless serving does, by ServingModel, where the tree lies: on the
+    device for a synthetic one, on the host for a checkpoint. With every
+    argument but tp bound, this is the build function of tp.start."""
     from chirrup_tpu_torch.engine.serving import ServingModel
     from chirrup_tpu_torch.models import checkpoint, loader
     from chirrup_tpu_torch.models.config import RWKV7Config, RuntimeConfig
 
+    device = resolve_device(tp.device if tp is not None else device)
+    shard = None if tp is None else (tp.rank, tp.world)
+    # where a whole checkpoint tree is read under tp: the host
+    whole = device if tp is None else torch.device("cpu")
+    runtime = RuntimeConfig(
+        activation_dtype=_DTYPES[model_config.activation_dtype],
+        wkv_state_dtype=_DTYPES[model_config.wkv_state_dtype],
+        quantization=model_config.quantization, mm8_core=model_config.mm8_core)
+    int8 = runtime.quantization == "int8"
+    path = model_config.model_path
+    if model_config.synthetic_config is not None:
+        cfg = RWKV7Config(**model_config.synthetic_config)
+        if int8:
+            make = lambda: loader.synthetic_params_int8(
+                cfg, seed=seed, dtype=runtime.activation_dtype, device=device, shard=shard)
+        else:
+            make = lambda: loader.synthetic_params(cfg, seed=seed, device=device)
+    elif checkpoint.is_native_checkpoint(path):
+        cfg = checkpoint.native_config(path)
+        if shard is not None and int8 and not checkpoint.is_quantized(path):
+            make = lambda: checkpoint.load_native(path, device=whole)[1]
+        else:
+            make = lambda: checkpoint.load_native(path, device=device, shard=shard)[1]
+    else:
+        sd = loader.load_state_dict_pth(path)
+        cfg = loader.infer_config(sd, vocab_size=model_config.vocab_size)
+        make = lambda: loader.params_from_state_dict(sd, cfg, device=whole)
+    # the model makes the tree itself and holds the only reference
+    return ServingModel(cfg, make, runtime, batch_size, prefill_chunk=model_config.prefill_chunk,
+                        device=device, seed=seed, graphs=graphs, tp=tp)
+
+
+def build_model_factory(model_config: ModelLoadConfig, batch_size: int, device=None,
+                        seed: int = 0, tp=None) -> Callable:
+    """A callable the worker thread invokes to construct its ServingModel
+    (build_serving_model) and tokenizer. The device is resolved here, so
+    building a factory without a device where CUDA is absent raises at once.
+    tp: rank 0's TPContext, or the function that joins the group and gives
+    it (tp.start's connect), called by the factory in the worker's thread."""
     device = resolve_device(device)
 
     def factory():
-        runtime = RuntimeConfig(
-            activation_dtype=_DTYPES[model_config.activation_dtype],
-            wkv_state_dtype=_DTYPES[model_config.wkv_state_dtype],
-            quantization=model_config.quantization, mm8_core=model_config.mm8_core)
-        path = model_config.model_path
-        if model_config.synthetic_config is not None:
-            cfg = RWKV7Config(**model_config.synthetic_config)
-            if runtime.quantization == "int8":
-                make = lambda: loader.synthetic_params_int8(
-                    cfg, seed=seed, dtype=runtime.activation_dtype, device=device)
-            else:
-                make = lambda: loader.synthetic_params(cfg, seed=seed, device=device)
-        elif checkpoint.is_native_checkpoint(path):
-            cfg = checkpoint.native_config(path)
-            make = lambda: checkpoint.load_native(path, device=device)[1]
-        else:
-            sd = loader.load_state_dict_pth(path)
-            cfg = loader.infer_config(sd, vocab_size=model_config.vocab_size)
-            make = lambda: loader.params_from_state_dict(sd, cfg, device=device)
-        # the model makes the tree itself and holds the only reference
-        model = ServingModel(cfg, make, runtime, batch_size,
-                             prefill_chunk=model_config.prefill_chunk, device=device,
-                             seed=seed)
+        ctx = tp() if callable(tp) else tp
+        try:
+            model = build_serving_model(model_config, batch_size, ctx, device=device, seed=seed)
+        except BaseException:
+            if ctx is not None:
+                ctx.close()
+            raise
         return model, WorldTokenizer(model_config.vocab_path)
 
     return factory
@@ -109,12 +146,15 @@ class AsyncEngineCore:
         self.is_shutdown = False
         self._perf_listeners: List[asyncio.Queue] = []
         self._drain_task: Optional[asyncio.Task] = None
+        self._tp_processes: List[Any] = []  # tensor-parallel ranks 1..tp-1
 
     async def init(self, worker_num: int, model_config: ModelLoadConfig,
                    batch_size: int = 32, *, load_timeout: float = 300.0,
                    decode_block_size: Optional[int] = None,
                    model_factory: Optional[Callable] = None, device=None,
-                   warmup_programs: bool = False, state_pool_size: int = 0) -> None:
+                   warmup_programs: bool = False, state_pool_size: int = 0,
+                   tensor_parallel: Optional[int] = None, tp_backend: Optional[str] = None,
+                   tp_devices: Optional[Sequence] = None, tp_timeout: float = 300.0) -> None:
         """Spawn workers and wait for their worker_loaded handshake. Worker k
         runs on `device`, or on CUDA device k mod the device count when none is
         given; model_factory replaces the synthetic-model factory.
@@ -123,11 +163,45 @@ class AsyncEngineCore:
         state_pool_size: rows of the device state pool for prefix snapshots,
         plus 4 of headroom for snapshot bursts that race the cache's
         releases; only with one worker (a handle is a row of one worker's
-        pool), and otherwise snapshots go to the host."""
+        pool), and otherwise snapshots go to the host.
+
+        tensor_parallel (model_config.tensor_parallel unless given): ranks
+        serving one model (parallel/tp.py), rank r on tp_devices[r]: by
+        default CUDA devices 0..tp-1, or `device` for every rank where one
+        is given. tp_backend: the data group's, NCCL on CUDA and gloo on
+        the CPU unless given; given at tensor_parallel 1, it runs the tp
+        path over a one-rank group. tp_timeout: seconds a collective may
+        wait. One worker only (worker_num x tp comes with multi-host
+        serving); the model is built from model_config on every rank, so
+        model_factory is not taken. The ranks capture CUDA graphs, which
+        gloo on CUDA cannot (ServingModel raises)."""
         if self.is_initialized:
             raise RuntimeError("Workers already initialized")
         if self.is_shutdown:
             raise RuntimeError("Engine has been shutdown")
+        tp = model_config.tensor_parallel if tensor_parallel is None else tensor_parallel
+        if tp > 1 or tp_backend is not None:
+            if worker_num != 1:
+                raise ValueError(f"worker_num {worker_num} with tensor_parallel {tp}: a tp "
+                                 "group serves one worker here (worker_num x tensor_parallel "
+                                 "comes with multi-host serving, ROADMAP Queue 1 item 7)")
+            if model_factory is not None:
+                raise ValueError("tensor parallelism builds every rank's model from "
+                                 "model_config; model_factory is not taken")
+            if tp_devices is None:
+                if device is None:
+                    resolve_device(None)  # raises without CUDA
+                    if torch.cuda.device_count() < tp:
+                        raise ValueError(f"tensor_parallel {tp} needs {tp} CUDA devices, "
+                                         f"{torch.cuda.device_count()} visible")
+                    tp_devices = [torch.device("cuda", r) for r in range(tp)]
+                else:
+                    tp_devices = [device] * tp
+            connect, self._tp_processes = tp_mod.start(
+                tp, functools.partial(build_serving_model, model_config, batch_size, seed=0),
+                tp_devices, backend=tp_backend, timeout=tp_timeout)
+            model_factory = build_model_factory(model_config, batch_size, device=tp_devices[0],
+                                                tp=connect)
         devices = [device]
         if model_factory is None and device is None:
             resolve_device(None)  # raises without CUDA
@@ -163,7 +237,13 @@ class AsyncEngineCore:
             timeout = deadline - loop.time()
             if timeout <= 0:
                 missing = {w.worker_id for w in self.workers} - loaded
+                self._stop_followers(0.0)
                 raise RuntimeError(f"workers failed to load in time: {missing}")
+            dead = [p for p in self._tp_processes if not p.is_alive()]
+            if dead:
+                self._stop_followers(0.0)
+                raise RuntimeError(f"tp ranks failed to load: {[p.name for p in dead]} "
+                                   f"exited with {[p.exitcode for p in dead]}")
             try:
                 worker_id, kind, payload = await asyncio.wait_for(
                     self.worker_event_queue.queue.get(), timeout=min(timeout, 1.0))
@@ -171,6 +251,7 @@ class AsyncEngineCore:
                 continue
             if kind == "worker_loaded":
                 if payload.get("status") != "success":
+                    self._stop_followers(0.0)
                     raise RuntimeError(f"worker {worker_id} failed to load: {payload}")
                 loaded.add(worker_id)
             elif kind == "worker_performance":
@@ -234,8 +315,16 @@ class AsyncEngineCore:
             q.put_nowait({"type": "shutdown"})
 
     def join(self, timeout: Optional[float] = 10.0) -> None:
+        """Join the worker threads, then the tp followers (the worker stops
+        them as it exits), each within `timeout` seconds; a follower left is
+        killed."""
         for t in self.worker_threads:
             t.join(timeout=timeout)
+        self._stop_followers(10.0 if timeout is None else timeout)
+
+    def _stop_followers(self, timeout: float) -> None:
+        if self._tp_processes:
+            tp_mod.stop(self._tp_processes, timeout)
 
     # ------------------------------------------------------------- telemetry
 

@@ -40,13 +40,24 @@ between the replays that surround it. `ServingModel(..., graphs=False)`
 runs the same bodies eagerly on
 the same staged inputs and noise (the reference the graphs are held to);
 the CPU always runs them eagerly.
+
+Under tensor parallelism (`ServingModel(..., tp=TPContext)`, parallel/tp.py)
+each rank's model holds its shard (sharded at construction), runs the local
+forward with the all-reduce as its reduce_fn, and gathers the column-parallel
+head's (B, V/tp) logits into (B, V) before the fused penalty tail, so the
+tail and the sampler run unchanged on every rank. Rank 0 sends each public
+call below to the other ranks before it runs it (`_mirrored`); their
+collectives are captured in the same graphs. A host snapshot gathers the
+ranks' wkv heads; a resume takes each rank's heads from the whole row.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
+import hashlib
 import time
-from typing import Any, Callable, Dict, Optional, Sequence, Tuple, Union
+from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -58,6 +69,7 @@ from chirrup_tpu_torch.models.config import RWKV7Config, RuntimeConfig
 from chirrup_tpu_torch.models.rwkv7 import RWKVState
 from chirrup_tpu_torch.ops import _kernels, mm8
 from chirrup_tpu_torch.ops.sampling_cuda import CHUNK, penalty_tail, sample_from_chunks
+from chirrup_tpu_torch.parallel import tp as tp_mod
 
 
 @dataclasses.dataclass
@@ -103,6 +115,25 @@ def slot_params(task) -> Tuple[Tuple[float, float, int, float, float, float],
              float(task.frequency_penalty), float(task.presence_penalty),
              float(task.penalty_decay)),
             tuple(int(t) for t in task.forbidden_tokens))
+
+
+@dataclasses.dataclass(frozen=True)
+class TaskParams:
+    """A task's per-slot parameters alone: what a tensor-parallel call
+    carries to the other ranks in place of the Task."""
+
+    temperature: float
+    top_p: float
+    top_k: int
+    frequency_penalty: float
+    presence_penalty: float
+    penalty_decay: float
+    forbidden_tokens: Tuple[int, ...]
+
+    @classmethod
+    def of(cls, task) -> "TaskParams":
+        (temp, top_p, top_k, freq, pres, decay), ids = slot_params(task)
+        return cls(temp, top_p, top_k, freq, pres, decay, ids)
 
 
 def _host_tensor(a) -> torch.Tensor:
@@ -316,6 +347,35 @@ def draw_noise(rng: torch.Generator, gumbel: torch.Tensor, seeds: torch.Tensor) 
     gumbel.log_().neg_()
 
 
+def _mirrored(fn=None, *, returns=False):
+    """A public ServingModel call that touches the device. Under tensor
+    parallelism rank 0 sends it to every other rank (tp.follow) before it
+    runs it, with its carries and pools as references and its tasks as
+    TaskParams; a call made inside another (reset_slot's insert_slot) is
+    not sent again. `returns`: the result (a carry or a pool) is named for
+    later calls."""
+    if fn is None:
+        return functools.partial(_mirrored, returns=returns)
+
+    @functools.wraps(fn)
+    def call(self, *args, **kwargs):
+        tp = self.tp
+        if tp is None or tp.rank != 0 or self._mirroring:
+            return fn(self, *args, **kwargs)
+        self._mirroring = True
+        try:
+            oid = tp.send_call(fn.__name__, self._export(args),
+                               {k: self._export(v) for k, v in kwargs.items()}, returns)
+            result = fn(self, *args, **kwargs)
+            if returns:
+                tp.register(result, oid)
+            return result
+        finally:
+            self._mirroring = False
+
+    return call
+
+
 class ServingModel:
     """Owns prepared parameters and the step functions for one worker.
 
@@ -326,7 +386,14 @@ class ServingModel:
 
     `graphs`: on a CUDA device, run the serving programs as captured CUDA
     graphs (True) or eagerly (False: the reference the graphs are held to).
-    The CPU never captures."""
+    The CPU never captures.
+
+    `tp`: this rank's TPContext (parallel/tp.py). The model runs on
+    tp.device; a whole tree is quantized first (under "int8", as a whole, as
+    the JAX package does before it shards) and then sharded, and a tree
+    that is already this rank's shard is taken as it is (it must come
+    quantized under "int8"). gloo collectives stage through the host, which
+    a CUDA graph cannot capture: on CUDA, gloo needs graphs=False."""
 
     # forbidden ids a slot may bring into insert_slots_batched (a (B, V) bias
     # staged from the host every admission would dwarf the program); a task
@@ -336,8 +403,10 @@ class ServingModel:
     def __init__(self, config: RWKV7Config,
                  params: Union[Dict[str, Any], Callable[[], Dict[str, Any]]],
                  runtime: RuntimeConfig, batch_size: int, prefill_chunk: int = 64, *,
-                 device=None, seed: int = 0, graphs: bool = True):
+                 device=None, seed: int = 0, graphs: bool = True, tp=None):
         self.config = config
+        self.tp = tp
+        self._mirroring = False
         self.runtime = runtime
         self.batch_size = batch_size
         self.prefill_chunk = prefill_chunk
@@ -352,11 +421,29 @@ class ServingModel:
         self.prefill_slots = P
         self.prefill_variants = sorted({(small, prefill_chunk * (P // small)),
                                         (P, prefill_chunk)})
-        self.device = resolve_device(device)
+        self.device = resolve_device(tp.device if tp is not None and device is None else device)
+        if tp is not None and self.device != tp.device:
+            raise ValueError(f"tp rank {tp.rank} owns {tp.device}, not {self.device}")
+        if tp is not None and config.n_embd % (config.head_size * tp.world):
+            raise ValueError(f"tp {tp.world}: {config.n_embd // config.head_size} heads do "
+                             f"not split evenly over the ranks")
+        if tp is not None and graphs and tp.backend == "gloo" and self.device.type == "cuda":
+            raise ValueError("tp over gloo on CUDA cannot be captured in CUDA graphs "
+                             "(its collectives stage through the host): pass graphs=False")
+        # the wkv state's width on this rank (its heads)
+        self.wkv_width = config.n_embd // (tp.world if tp is not None else 1)
         if callable(params):
             params = params()
+        int8 = runtime.quantization == "int8"
+        if tp is not None and tp_mod.is_full(params, config.n_embd):
+            if int8 and not _is_quantized(params):
+                params = _quantize_params(params)   # as a whole, where the tree lies
+            params = tp_mod.shard_params(params, tp.rank, tp.world)
+        elif tp is not None and int8 and not _is_quantized(params):
+            raise ValueError("a tree already sharded must come quantized: a shard's "
+                             "quantization differs from the whole matrix's")
         params = model.cast_dense(params, device=self.device)
-        if runtime.quantization == "int8" and not _is_quantized(params):
+        if int8 and not _is_quantized(params):
             params = _quantize_params(params)
         self.mm8_core = mm8.resolve_mm8_core(runtime.mm8_core)
         if self.mm8_core == "pallas_a8":
@@ -377,16 +464,59 @@ class ServingModel:
         # the side stream of extract_slot_async's device-to-host copies
         self._snapshot_stream = (torch.cuda.Stream(self.device)
                                  if self.device.type == "cuda" else None)
+        # the sum over the ranks after the row-parallel Wo and FFN Wv
+        self._reduce_fn = tp.all_reduce if tp is not None else None
+
+    # ------------------------------------------------------ tensor parallel
+
+    def _export(self, a):
+        """An argument of a mirrored call as the followers get it: carries and
+        pools as references, tasks as TaskParams, tensors on the host."""
+        if isinstance(a, BatchCarry) or (isinstance(a, dict) and self.tp.knows(a)):
+            return self.tp.ref(a)
+        if isinstance(a, (list, tuple)):
+            return type(a)(self._export(x) for x in a)
+        if hasattr(a, "forbidden_tokens") and not isinstance(a, TaskParams):
+            return TaskParams.of(a)
+        if isinstance(a, torch.Tensor):
+            return a.cpu()
+        return a
+
+    @_mirrored
+    def replica_report(self, carry: BatchCarry) -> List[Dict[str, Any]]:
+        """Every rank's view of the carry's replicated part, by rank (on rank 0;
+        followers get None): last_sampled, a SHA-1 over last_sampled,
+        elapsed, the shift state, occurrence and presence_vec (equal on every
+        rank exactly when every rank sampled the same tokens), and the
+        rank's kernel launch counts (_kernels.LAUNCHES). Meshless: this
+        model's alone."""
+        st = carry.state
+        digest = hashlib.sha1()
+        for t in (carry.last_sampled, st.elapsed, st.shift, carry.occurrence,
+                  carry.presence_vec):
+            digest.update(t.detach().contiguous().view(torch.uint8).cpu().numpy().tobytes())
+        report = {"rank": self.tp.rank if self.tp is not None else 0,
+                  "last_sampled": carry.last_sampled.tolist(), "digest": digest.hexdigest(),
+                  "launches": dict(_kernels.LAUNCHES)}
+        return [report] if self.tp is None else self.tp.gather_object(report)
+
+    def close(self) -> None:
+        """Under tp, on rank 0: stop the followers and leave the group
+        (every rank leaves it). Meshless: nothing."""
+        if self.tp is not None:
+            self.tp.close()
 
     # ------------------------------------------------------------------ carry
 
+    @_mirrored(returns=True)
     def init_carry(self) -> BatchCarry:
         cfg, rt, B, dev = self.config, self.runtime, self.batch_size, self.device
         V = cfg.vocab_size
         f32 = torch.float32
         return BatchCarry(
             state=model.init_state(cfg, B, shift_dtype=rt.activation_dtype,
-                                   wkv_dtype=rt.wkv_state_dtype, device=dev),
+                                   wkv_dtype=rt.wkv_state_dtype, device=dev,
+                                   wkv_width=self.wkv_width),
             occurrence=torch.zeros((B, V), dtype=f32, device=dev),
             presence_vec=torch.zeros((B, V), dtype=f32, device=dev),
             temperature=torch.ones((B,), dtype=f32, device=dev),
@@ -423,7 +553,9 @@ class ServingModel:
             self.params, tokens, carry.state, active=active_mask,
             compute_dtype=self.runtime.activation_dtype,
             use_dither=self.runtime.use_dither, mm8_core=self.mm8_core,
-            wkv_precision=self.runtime.wkv_precision)
+            wkv_precision=self.runtime.wkv_precision, reduce_fn=self._reduce_fn)
+        if self.tp is not None:
+            logits = self.tp.gather_vocab(logits)
         # record the PREVIOUS sample (deferred through last_sampled), decay,
         # penalties, logsumexp and per-chunk candidates in one pass
         no_penalty = (last[:, None] == self._no_penalty_ids[None, :]).any(-1)
@@ -515,7 +647,8 @@ class ServingModel:
         model.forward_chunk(self.params, tokens, state, lengths,
                             compute_dtype=self.runtime.activation_dtype,
                             use_dither=self.runtime.use_dither, mm8_core=self.mm8_core,
-                            wkv_precision=self.runtime.wkv_precision)
+                            wkv_precision=self.runtime.wkv_precision,
+                            reduce_fn=self._reduce_fn)
 
     # --------------------------------------------------------------- programs
 
@@ -580,6 +713,7 @@ class ServingModel:
 
     # ------------------------------------------------------------- public API
 
+    @_mirrored
     def decode_step(self, carry, tokens, active_mask, decode_mask, feedback_mask=None):
         """One step; host (B,) arrays in. Returns (carry, sampled (B,) int32,
         raw logits (B, V)) as device tensors."""
@@ -590,6 +724,7 @@ class ServingModel:
                                     (tokens, feedback_mask, active_mask, decode_mask))
         return carry, sampled, logits
 
+    @_mirrored
     def decode_block(self, carry, tokens, feedback_mask, active_mask, decode_mask,
                      stop_votes=None, logit_rows=None):
         """K steps in one call; (K, B) host arrays in. DECODE slots chain through
@@ -617,6 +752,7 @@ class ServingModel:
         return (carry,) + self._run(carry, ("marked", K, logit_rows.size),
                                     host + (logit_rows,))
 
+    @_mirrored
     def prefill_step(self, carry: BatchCarry, tokens, lengths) -> BatchCarry:
         """One chunk over the whole batch: tokens (B, T) and lengths (B,) host
         arrays, length 0 for slots that are not prefilling (their state is
@@ -627,6 +763,7 @@ class ServingModel:
         self._run(carry, ("full", tokens.shape[1]), (tokens, lengths))
         return carry
 
+    @_mirrored
     def prefill_step_compact(self, carry: BatchCarry, tokens, lengths,
                              slot_idx) -> BatchCarry:
         """One chunk over P gathered slots: tokens (P, T), lengths (P,) and
@@ -638,18 +775,23 @@ class ServingModel:
         self._run(carry, ("compact",) + tokens.shape, (tokens, lengths, slot_idx))
         return carry
 
+    @_mirrored
     def insert_slot(self, carry: BatchCarry, slot: int,
                     request_state: Optional[RequestState], task) -> BatchCarry:
         """Load one request into a slot: its recurrent state (zeros when
-        request_state is None), sampling parameters and forbidden-token bias."""
+        request_state is None; under tp each rank takes its heads of the
+        whole wkv row), sampling parameters and forbidden-token bias."""
         st = carry.state
         if request_state is None:
             st.shift[:, :, slot].zero_()
             st.wkv[:, slot].zero_()
             st.elapsed[slot] = 0
         else:
+            wkv = _host_tensor(request_state.wkv)
+            if self.tp is not None:
+                wkv = self.tp.local_heads(wkv)
             st.shift[:, :, slot].copy_(_host_tensor(request_state.shift))
-            st.wkv[:, slot].copy_(_host_tensor(request_state.wkv))
+            st.wkv[:, slot].copy_(wkv)
             st.elapsed[slot] = int(request_state.elapsed)
         carry.occurrence[slot].zero_()
         carry.presence_vec[slot].copy_(torch.from_numpy(
@@ -667,6 +809,7 @@ class ServingModel:
         carry.penalty_decay[slot] = decay
         carry.last_sampled[slot] = -1
 
+    @_mirrored
     def insert_slots_batched(self, carry: BatchCarry, mask, tasks) -> BatchCarry:
         """Admit the slots of `mask` (B,) in one program: tasks[i] is the
         Task of each masked slot (None elsewhere). Each gets the zero state
@@ -692,6 +835,7 @@ class ServingModel:
                                        bits[2], bits[3], bits[4], forb))
         return carry
 
+    @_mirrored
     def reset_slot(self, carry: BatchCarry, slot: int) -> BatchCarry:
         """Zero a slot's state and restore default sampling parameters."""
 
@@ -702,17 +846,26 @@ class ServingModel:
 
         return self.insert_slot(carry, slot, None, _Defaults)
 
+    @_mirrored
     def extract_slot(self, carry: BatchCarry, slot: int) -> RequestState:
         """Snapshot a slot's recurrent state to host at its DEVICE dtypes, as
         the JAX package does (bf16 in serving: half the host bytes of
         float32): contiguous CPU tensors that share nothing with the carry.
         insert_slot copies them back unconverted, so resuming from a snapshot
-        is bit-identical to an uninterrupted run."""
+        is bit-identical to an uninterrupted run. Under tp the ranks' wkv
+        heads are gathered (a collective every rank makes at this call) and
+        the snapshot is rank 0's; the other ranks return None."""
         st = carry.state
         host = lambda t: t.to("cpu", copy=True, memory_format=torch.contiguous_format)
-        return RequestState(shift=host(st.shift[:, :, slot]), wkv=host(st.wkv[:, slot]),
+        wkv = st.wkv[:, slot]
+        if self.tp is not None:
+            wkv = self.tp.gather_heads(wkv)
+            if self.tp.rank != 0:
+                return None
+        return RequestState(shift=host(st.shift[:, :, slot]), wkv=host(wkv),
                             elapsed=int(st.elapsed[slot]))
 
+    @_mirrored
     def extract_slot_async(self, carry: BatchCarry, slot: int) -> Callable[[], RequestState]:
         """Start a snapshot of a slot and return the function that gives it,
         a RequestState equal to extract_slot's at this point of the stream.
@@ -720,13 +873,20 @@ class ServingModel:
         stream, so the next replay may advance the slot at once; on CUDA a
         side stream waits for that copy and moves the buffers into pinned
         host memory while the next block runs, and the resolver waits only
-        for that move (the worker resolves a loop later)."""
+        for that move (the worker resolves a loop later). Under tp the
+        ranks' wkv heads are gathered into the fresh buffer on the current
+        stream first (a collective every rank makes at this call)."""
         st = carry.state
         rows = [torch.empty_like(st.shift[:, :, slot], memory_format=torch.contiguous_format),
-                torch.empty_like(st.wkv[:, slot], memory_format=torch.contiguous_format),
-                st.elapsed[slot:slot + 1].clone()]
+                None, st.elapsed[slot:slot + 1].clone()]
         _as_words(rows[0]).copy_(_as_words(st.shift[:, :, slot]))
-        _as_words(rows[1]).copy_(_as_words(st.wkv[:, slot]))
+        if self.tp is not None:
+            rows[1] = self.tp.gather_heads(st.wkv[:, slot])
+            if self.tp.rank != 0:
+                return lambda: None
+        else:
+            rows[1] = torch.empty_like(st.wkv[:, slot], memory_format=torch.contiguous_format)
+            _as_words(rows[1]).copy_(_as_words(st.wkv[:, slot]))
         if self._snapshot_stream is None:
             return lambda: RequestState(shift=rows[0], wkv=rows[1], elapsed=int(rows[2]))
         side = self._snapshot_stream
@@ -747,28 +907,35 @@ class ServingModel:
 
     # ------------------------------------------------------- device state pool
 
+    @_mirrored(returns=True)
     def init_state_pool(self, size: int) -> Dict[str, torch.Tensor]:
         """`size` rows of prefix snapshots on the device, in the JAX
         package's layout: shift (S, L, 2, C) at the activation dtype, wkv
-        (S, L, N, H*N) at the state's dtype, elapsed (S,) int32. Ordinary
-        allocations, outside any graph's memory pool; pool_row_bytes() a
-        row (17,301,508 at g1 7.2B width in bf16)."""
+        (S, L, N, H*N) at the state's dtype (under tp: this rank's heads,
+        H*N/tp), elapsed (S,) int32. Ordinary allocations, outside any
+        graph's memory pool; pool_row_bytes() a row (17,301,508 at g1 7.2B
+        width in bf16)."""
         cfg, rt, dev = self.config, self.runtime, self.device
         L, C, N = cfg.n_layer, cfg.n_embd, cfg.head_size
         return {"shift": torch.zeros((size, L, 2, C), dtype=rt.activation_dtype, device=dev),
-                "wkv": torch.zeros((size, L, N, C), dtype=rt.wkv_state_dtype, device=dev),
+                "wkv": torch.zeros((size, L, N, self.wkv_width), dtype=rt.wkv_state_dtype,
+                                   device=dev),
                 "elapsed": torch.zeros((size,), dtype=torch.int32, device=dev)}
 
     def pool_row_bytes(self) -> int:
+        """A pool row's bytes, the whole row's (under tp each rank holds the
+        shift and its heads' share of the wkv)."""
         cfg, rt = self.config, self.runtime
         itemsize = lambda dtype: torch.empty((), dtype=dtype).element_size()
         return (cfg.n_layer * 2 * cfg.n_embd * itemsize(rt.activation_dtype)
                 + cfg.n_layer * cfg.head_size * cfg.n_embd * itemsize(rt.wkv_state_dtype) + 4)
 
+    @_mirrored
     def pool_store(self, carry: BatchCarry, pool, slot: int, row: int):
         """Snapshot slot -> pool row on the device; returns the pool."""
         return self.pool_store_many(carry, pool, [(slot, row)])
 
+    @_mirrored
     def pool_store_many(self, carry: BatchCarry, pool, pairs: Sequence[Tuple[int, int]]):
         """Snapshots [(slot, row), ...], any number: device-to-device copies
         into the pool, in place, on the current stream (so after the
@@ -781,6 +948,7 @@ class ServingModel:
             pool["elapsed"][row:row + 1].copy_(st.elapsed[slot:slot + 1])
         return pool
 
+    @_mirrored
     def pool_load(self, carry: BatchCarry, pool, row: int, slot: int) -> BatchCarry:
         """Resume pool row -> slot on the device: copies into the carry's own
         tensors (a captured graph holds their addresses), on the current
@@ -791,3 +959,4 @@ class ServingModel:
         _as_words(st.wkv[:, slot]).copy_(_as_words(pool["wkv"][row]))
         st.elapsed[slot:slot + 1].copy_(pool["elapsed"][row:row + 1])
         return carry
+

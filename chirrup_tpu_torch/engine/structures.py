@@ -304,5 +304,8 @@ class ModelLoadConfig:
     mm8_core: str = "auto"
     # tokens per row of a prefill chunk (ServingModel.prefill_chunk)
     prefill_chunk: int = 64
+    # ranks (one process and one device each) that serve one model by tensor
+    # parallelism (parallel/tp.py); 1 serves it whole on one device
+    tensor_parallel: int = 1
     # test and benchmark hook: synthetic model instead of a checkpoint file
     synthetic_config: Optional[Dict[str, int]] = None

@@ -711,7 +711,13 @@ class Worker:
         self._pending_snapshots = []
 
     def _cleanup(self):
+        """Drop the carry and the model; under tp the model's close() stops
+        the other ranks and leaves the group (from this thread, which made
+        every call)."""
         self.carry = None
+        close = getattr(self.model, "close", None)
+        if close is not None:
+            close()
         self.model = None
 
 

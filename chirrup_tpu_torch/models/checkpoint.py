@@ -21,7 +21,7 @@ import dataclasses
 import json
 import os
 import re
-from typing import Any, Dict, Tuple
+from typing import Any, Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -29,6 +29,7 @@ import torch
 from chirrup_tpu_torch import resolve_device
 from chirrup_tpu_torch.models.config import RWKV7Config
 from chirrup_tpu_torch.ops.mm8 import Mm8Weight
+from chirrup_tpu_torch.parallel.tp import shard_leaf
 
 FORMAT_VERSION = 1
 _MM8_FIELDS = ("q", "mx", "rx", "my", "ry")
@@ -184,16 +185,51 @@ def native_config(path: str) -> RWKV7Config:
     return RWKV7Config(**_meta(path)["config"])
 
 
-def load_native(path: str, device=None) -> Tuple[RWKV7Config, Any]:
+def _read_leaf_shard(fname: str, info: Dict[str, Any], device: torch.device, key: str,
+                     rank: int, world: int) -> torch.Tensor:
+    """A tensor-parallel rank's block of one leaf on `device`: the file is
+    mapped, and only the block is copied out of it (parallel/tp.shard_leaf's
+    rule for the leaf's path)."""
+    if info["dtype"] not in _DTYPES:
+        raise ValueError(f"{fname}: unsupported leaf dtype {info['dtype']!r}")
+    dtype = _DTYPES[info["dtype"]][0]
+    arr = np.load(fname, mmap_mode="r")
+    if list(arr.shape) != list(info["shape"]):
+        raise ValueError(f"{fname}: shape {arr.shape} != manifest {info['shape']}")
+    itemsize = torch.empty((), dtype=dtype).element_size()
+    if arr.dtype.itemsize != itemsize:
+        raise ValueError(f"{fname}: {arr.dtype} does not hold {info['dtype']}")
+    if dtype == torch.bfloat16:
+        arr = arr.view(np.int16)
+    m = re.match(r"^(.*)\.__mm8_([a-z]+)$", key)
+    leaf_path = tuple((m.group(1) if m else key).split("."))
+    # a copy: the block of a replicated leaf is the mapped file itself
+    block = np.array(shard_leaf(leaf_path, arr, rank, world, m.group(2) if m else None))
+    out = torch.from_numpy(block)
+    return (out.view(dtype) if dtype == torch.bfloat16 else out).to(device)
+
+
+def load_native(path: str, device=None, shard: Optional[Tuple[int, int]] = None
+                ) -> Tuple[RWKV7Config, Any]:
     """(config, tree) of a native checkpoint directory, each leaf copied
-    once from its file to `device` (the CUDA device unless one is given)."""
+    once from its file to `device` (the CUDA device unless one is given).
+    shard=(rank, tp): only that tensor-parallel rank's shard of each leaf
+    (parallel/tp.py) is read out of its file and uploaded."""
     device = resolve_device(device)
     meta = _meta(path)
     config = RWKV7Config(**meta["config"])
     staging: Dict[str, torch.Tensor] = {}
-    flat = {key: _read_leaf(os.path.join(path, info["file"]), info, device, staging)
-            for key, info in meta["leaves"].items()}
+    flat = {}
+    for key, info in meta["leaves"].items():
+        fname = os.path.join(path, info["file"])
+        flat[key] = (_read_leaf(fname, info, device, staging) if shard is None
+                     else _read_leaf_shard(fname, info, device, key, *shard))
     return config, _unflatten(flat)
+
+
+def is_quantized(path: str) -> bool:
+    """Whether a native checkpoint holds INT8 weights (meta.json only)."""
+    return any(".__mm8_" in key for key in _meta(path)["leaves"])
 
 
 def is_native_checkpoint(path: str) -> bool:

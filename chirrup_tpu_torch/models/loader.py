@@ -15,16 +15,15 @@ prepared tree on disk) are models/checkpoint.py.
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict, Optional
+from typing import Any, Dict, Optional, Tuple
 
 import numpy as np
 import torch
 
 from chirrup_tpu_torch import resolve_device
 from chirrup_tpu_torch.models.config import RWKV7Config
-from chirrup_tpu_torch.ops.mm8 import Mm8Weight
-
-_MM8_FIELDS = ("q", "mx", "rx", "my", "ry")
+from chirrup_tpu_torch.ops.mm8 import MM8_FIELDS, Mm8Weight, mm8_fields
+from chirrup_tpu_torch.parallel.tp import shard_params
 
 
 def load_state_dict_pth(path: str) -> Dict[str, np.ndarray]:
@@ -214,12 +213,51 @@ def synthetic_params(config: RWKV7Config, seed: int = 0, dtype=torch.float32,
     return _tree(dense, dense, config, int8_head=False)
 
 
+def _sharded_tree(dense, q8, config: RWKV7Config, int8_head: bool, shard: Tuple[int, int]):
+    """_tree with every leaf made in _tree's order (so from the same draws of
+    the generator) and cut to a tensor-parallel rank's shard at once
+    (parallel/tp.shard_params): no more than one whole leaf at a time."""
+    made = []
+
+    def lazy(fn):
+        def make(*args, **kwargs):
+            made.append((fn, args, kwargs))
+            return made[-1]
+        return make
+
+    tree = _tree(lazy(dense), lazy(q8), config, int8_head=int8_head)
+    paths = {}
+
+    def walk(node, path):
+        if isinstance(node, dict):
+            for k, v in node.items():
+                walk(v, path + (k,))
+        else:
+            paths[id(node)] = path
+
+    walk(tree, ())
+    values = {}
+    for leaf in made:
+        fn, args, kwargs = leaf
+        values[id(leaf)] = shard_params(fn(*args, **kwargs), *shard, path=paths[id(leaf)])
+
+    def build(node):
+        if isinstance(node, dict):
+            return {k: build(v) for k, v in node.items()}
+        return values[id(node)]
+
+    return build(tree)
+
+
 def synthetic_params_int8(config: RWKV7Config, seed: int = 0, dtype=torch.bfloat16,
-                          device=None) -> Dict[str, Any]:
+                          device=None, shard: Optional[Tuple[int, int]] = None
+                          ) -> Dict[str, Any]:
     """Parameter tree with Mm8Weight big matrices (random codes, constant
     scales) — the serving-dtype synthetic model: the same compute and memory
     behaviour as a real INT8 checkpoint, generated directly on `device` from a
-    torch.Generator seeded with `seed` (a dense float 7.2B tree is never built)."""
+    torch.Generator seeded with `seed` (a dense float 7.2B tree is never built).
+    shard=(rank, tp): only that tensor-parallel rank's shard of the same tree,
+    each leaf cut as it is made."""
     device = resolve_device(device)
     gen = torch.Generator(device=device).manual_seed(seed)
 
@@ -242,6 +280,8 @@ def synthetic_params_int8(config: RWKV7Config, seed: int = 0, dtype=torch.bfloat
             my=torch.zeros(lead + (K,), dtype=f32, device=device),
             ry=torch.full(lead + (K,), ry_full / 16, dtype=f32, device=device))
 
+    if shard is not None:
+        return _sharded_tree(dense, q8, config, True, shard)
     return _tree(dense, q8, config, int8_head=True)
 
 
@@ -254,24 +294,15 @@ def _as_tensor(a, device) -> torch.Tensor:
     return torch.from_numpy(np.array(a, order="C")).to(device)
 
 
-def _mm8_fields(node) -> Optional[Dict[str, Any]]:
-    """The five Mm8Weight fields of node, read by key or by attribute."""
-    if isinstance(node, dict):
-        return node if set(node) == set(_MM8_FIELDS) else None
-    if all(hasattr(node, f) for f in _MM8_FIELDS):
-        return {f: getattr(node, f) for f in _MM8_FIELDS}
-    return None
-
-
 def params_from_numpy(tree, device=None):
     """The JAX package's raw parameter tree (nested dicts of numpy arrays, as
     synthetic_params / synthetic_params_int8 / the checkpoint loader build it)
     -> this package's tree on `device`. An Mm8Weight may arrive as an object
     or as a dict with q, mx, rx, my, ry; dtypes are kept."""
     device = resolve_device(device)
-    fields = _mm8_fields(tree)
+    fields = mm8_fields(tree)
     if fields is not None:
-        return Mm8Weight(**{f: _as_tensor(fields[f], device) for f in _MM8_FIELDS})
+        return Mm8Weight(**{f: _as_tensor(fields[f], device) for f in MM8_FIELDS})
     if isinstance(tree, dict):
         return {k: params_from_numpy(v, device) for k, v in tree.items()}
     return _as_tensor(tree, device)

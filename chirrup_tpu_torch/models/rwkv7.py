@@ -27,6 +27,15 @@ and advances layer `layer` of the stacked state IN PLACE, returning y (B, T,
 C); the JAX package's wkv_fn returns (y, new_state) instead. It carries its
 own precision, as the JAX package's raw_wkv closes over the runtime's:
 functools.partial(wkv7_batch, precision="bf16").
+
+Under tensor parallelism (parallel/tp.py) every forward runs on one rank's
+shard: R/K/V, the second LoRA factors, FFN Wk and the head column-parallel,
+Wo and FFN Wv row-parallel, the per-head vectors and the wkv state with the
+rank's heads. x stays whole on every rank; every per-head width is read off
+the per-head tensors (never off x), and `reduce_fn`, the sum over the ranks,
+is applied to the row-parallel Wo and FFN Wv outputs: two reductions a layer.
+forward_step then gives the rank's (B, V/tp) logits. Meshless, reduce_fn is
+None (the identity).
 """
 
 from __future__ import annotations
@@ -56,14 +65,16 @@ class RWKVState:
 
 
 def init_state(config: RWKV7Config, batch_size: int, *, shift_dtype=torch.float32,
-               wkv_dtype=torch.float32, device=None) -> RWKVState:
+               wkv_dtype=torch.float32, device=None, wkv_width: Optional[int] = None
+               ) -> RWKVState:
     """A zero state of `batch_size` requests on `device` (resolve_device: the
-    CUDA device unless one is given)."""
+    CUDA device unless one is given). wkv_width: the wkv state's last axis,
+    H*N, or a tensor-parallel rank's heads' H*N/tp."""
     L, C, N = config.n_layer, config.n_embd, config.head_size
     device = resolve_device(device)
     return RWKVState(
         shift=torch.zeros((L, 2, batch_size, C), dtype=shift_dtype, device=device),
-        wkv=torch.zeros((L, batch_size, N, C), dtype=wkv_dtype, device=device),
+        wkv=torch.zeros((L, batch_size, N, wkv_width or C), dtype=wkv_dtype, device=device),
         elapsed=torch.zeros((batch_size,), dtype=torch.int32, device=device))
 
 
@@ -127,10 +138,15 @@ def layer_params(blocks, li: int):
 
 # -------------------------------------------------------------------- blocks
 
+def _identity(y):
+    return y
+
+
 def _tmix(att, li, layer_is_first, x, shift_prev, v_first, wkv_full, elapsed, lengths,
-          use_dither, mm8_core, wkv_fn, wkv_precision):
+          use_dither, mm8_core, wkv_fn, wkv_precision, reduce_fn=_identity):
     """Time-mix. Advances layer li of the stacked wkv state in place and returns
-    (out, new_shift, v_first)."""
+    (out, new_shift, v_first). Every per-head tensor may be a rank's shard:
+    its width Cl = Hl * N is read off v, never off x."""
     B, T, C = x.shape
     xx = _token_shift_delta(x, shift_prev)
 
@@ -144,7 +160,7 @@ def _tmix(att, li, layer_is_first, x, shift_prev, v_first, wkv_full, elapsed, le
             raise ValueError(f"merged R/K/V weights (Wrkv) run only under the w8a8 core, "
                              f"not mm8_core {mm8_core!r}")
         rkv = mm8.mm8_multi_matmul(x, xx, att["mu_rkv"], att["Wrkv"])
-        r, k, v = rkv.split(C, dim=-1)
+        r, k, v = rkv.split(rkv.shape[-1] // 3, dim=-1)
     else:
         r = mm(x + xx * att["x_r"], att["Wr"])
         k = mm(x + xx * att["x_k"], att["Wk"])
@@ -155,7 +171,7 @@ def _tmix(att, li, layer_is_first, x, shift_prev, v_first, wkv_full, elapsed, le
         X4 = x.reshape(1, B * T, C) + xx.reshape(1, B * T, C) * att["mu_lora"][:, None, :]
         s1 = torch.bmm(X4, att["lora1"])
         s1 = torch.stack([torch.tanh(s1[0]), s1[1], s1[2], torch.sigmoid(s1[3])])
-        s2 = torch.bmm(s1, att["lora2"]).reshape(4, B, T, C)
+        s2 = torch.bmm(s1, att["lora2"]).reshape(4, B, T, -1)
         w_raw = s2[0] + att["w0"]
         a = torch.sigmoid(s2[1] + att["a0"])
         v_gate_pre = s2[2] + att["v0"]
@@ -175,7 +191,7 @@ def _tmix(att, li, layer_is_first, x, shift_prev, v_first, wkv_full, elapsed, le
     if wkv_fn is not None:
         # unfused: kk / k~ here, the bare recurrence, then GroupNorm (ln_b at
         # masked positions, as in the JAX package) and the bonus
-        H = C // HEAD_SIZE
+        H = k.shape[-1] // HEAD_SIZE
         kk = l2_normalize_heads(k * att["k_k"], H, HEAD_SIZE)
         k = k * (1 + (a - 1) * att["k_a"])
         y = wkv_fn(wkv_full, r, w_raw, k, v, -kk, kk * a, elapsed, lengths, li,
@@ -183,8 +199,8 @@ def _tmix(att, li, layer_is_first, x, shift_prev, v_first, wkv_full, elapsed, le
         y = group_norm(y, H, att["ln_x_w"], att["ln_x_b"], eps=64e-5)
         bonus = (r * k * att["r_k"].reshape(-1)).reshape(B, T, H, HEAD_SIZE) \
             .sum(-1, keepdim=True)
-        y = y + (bonus * v.reshape(B, T, H, HEAD_SIZE)).reshape(B, T, C)
-        out = mm(y, att["Wo"], mul_in=g)
+        y = y + (bonus * v.reshape(B, T, H, HEAD_SIZE)).reshape(B, T, -1)
+        out = reduce_fn(mm(y, att["Wo"], mul_in=g))
         return out, _masked_last(x, lengths, shift_prev), v_first
 
     # kk / k~ prologue and GroupNorm + bonus epilogue ride the WKV kernel: one
@@ -197,16 +213,17 @@ def _tmix(att, li, layer_is_first, x, shift_prev, v_first, wkv_full, elapsed, le
     if T == 1:
         y = wkv7_step_fused(wkv_full, li, r[:, 0], w_raw[:, 0], k[:, 0], a[:, 0], v[:, 0],
                             *wkv_args, use_dither=use_dither,
-                            precision=wkv_precision).reshape(B, 1, C)
+                            precision=wkv_precision).reshape(B, 1, -1)
     else:
         y = wkv7_chunk_fused(wkv_full, li, r, w_raw, k, a, v, *wkv_args,
                              use_dither=use_dither, precision=wkv_precision)
-    out = mm(y.to(x.dtype), att["Wo"], mul_in=g)
+    out = reduce_fn(mm(y.to(x.dtype), att["Wo"], mul_in=g))
     return out, _masked_last(x, lengths, shift_prev), v_first
 
 
-def _cmix(ffn, x, shift_prev, lengths, mm8_core):
-    """Channel-mix FFN with relu^2."""
+def _cmix(ffn, x, shift_prev, lengths, mm8_core, reduce_fn=_identity):
+    """Channel-mix FFN with relu^2; under tp Wk is column-parallel and Wv
+    row-parallel, so the local output is a partial sum for reduce_fn."""
     xx = _token_shift_delta(x, shift_prev)
     kx = x + xx * ffn["x_k"]
     if isinstance(ffn["Wk"], mm8.LayerIndexed) and isinstance(ffn["Wv"], mm8.LayerIndexed):
@@ -214,12 +231,13 @@ def _cmix(ffn, x, shift_prev, lengths, mm8_core):
     else:
         out = matmul(matmul(kx, ffn["Wk"], activation="relu2", mm8_core=mm8_core),
                      ffn["Wv"], mm8_core=mm8_core)
-    return out, _masked_last(x, lengths, shift_prev)
+    return reduce_fn(out), _masked_last(x, lengths, shift_prev)
 
 
 def _backbone(params, x, state: RWKVState, lengths, use_dither, mm8_core, wkv_fn,
-              wkv_precision):
+              wkv_precision, reduce_fn=None):
     """All layers; the state's shift and wkv are written in place per layer."""
+    reduce_fn = reduce_fn or _identity
     blocks = params["blocks"]
     L = state.wkv.shape[0]
     v_first = None
@@ -229,10 +247,10 @@ def _backbone(params, x, state: RWKVState, lengths, use_dither, mm8_core, wkv_fn
         xn = layer_norm(x, blk["ln1_w"], blk["ln1_b"])
         att_out, att_shift, v_first = _tmix(
             blk["att"], li, li == 0, xn, shift_l[0], v_first, state.wkv,
-            state.elapsed, lengths, use_dither, mm8_core, wkv_fn, wkv_precision)
+            state.elapsed, lengths, use_dither, mm8_core, wkv_fn, wkv_precision, reduce_fn)
         x = x + att_out
         xn = layer_norm(x, blk["ln2_w"], blk["ln2_b"])
-        ffn_out, ffn_shift = _cmix(blk["ffn"], xn, shift_l[1], lengths, mm8_core)
+        ffn_out, ffn_shift = _cmix(blk["ffn"], xn, shift_l[1], lengths, mm8_core, reduce_fn)
         x = x + ffn_out
         shift_l[0].copy_(att_shift)
         shift_l[1].copy_(ffn_shift)
@@ -246,14 +264,17 @@ def _embed(params, tokens, dtype):
 
 def forward_step(params, tokens, state: RWKVState, active=None, *,
                  compute_dtype=torch.float32, use_dither=True, mm8_core="auto",
-                 wkv_fn: Optional[Callable] = None, wkv_precision="default"):
+                 wkv_fn: Optional[Callable] = None, wkv_precision="default",
+                 reduce_fn: Optional[Callable] = None):
     """One-token step for the whole batch: tokens (B,) -> logits (B, V) in the
     head's output dtype; the state advances in place. active: optional (B,)
     bool — inactive rows keep their state and yield unused logits. mm8_core,
-    wkv_fn and wkv_precision: see the module docstring."""
+    wkv_fn, wkv_precision and reduce_fn (under tp the logits are the rank's
+    (B, V/tp) columns): see the module docstring."""
     lengths = None if active is None else active.to(torch.int32)
     x = _embed(params, tokens[:, None], compute_dtype)
-    x = _backbone(params, x, state, lengths, use_dither, mm8_core, wkv_fn, wkv_precision)
+    x = _backbone(params, x, state, lengths, use_dither, mm8_core, wkv_fn, wkv_precision,
+                  reduce_fn)
     xh = layer_norm(x[:, 0], params["ln_out_w"], params["ln_out_b"])
     logits = matmul(xh, params["head"], mm8_core=mm8_core)
     state.elapsed += (torch.ones_like(state.elapsed) if lengths is None else lengths)
@@ -262,27 +283,32 @@ def forward_step(params, tokens, state: RWKVState, active=None, *,
 
 def forward_chunk(params, tokens, state: RWKVState, lengths=None, *,
                   compute_dtype=torch.float32, use_dither=True, mm8_core="auto",
-                  wkv_fn: Optional[Callable] = None, wkv_precision="default") -> RWKVState:
+                  wkv_fn: Optional[Callable] = None, wkv_precision="default",
+                  reduce_fn: Optional[Callable] = None) -> RWKVState:
     """Prefill a chunk: advance the state in place over tokens (B, T); no head
     (the last prompt token always goes through forward_step). lengths: optional
     (B,) int32 valid tokens per row; rows may be ragged or empty (length 0
     keeps the row's state), and each row's shift comes from its last valid
-    token. mm8_core, wkv_fn and wkv_precision: see the module docstring."""
+    token. mm8_core, wkv_fn, wkv_precision and reduce_fn: see the module
+    docstring."""
     x = _embed(params, tokens, compute_dtype)
-    _backbone(params, x, state, lengths, use_dither, mm8_core, wkv_fn, wkv_precision)
+    _backbone(params, x, state, lengths, use_dither, mm8_core, wkv_fn, wkv_precision,
+              reduce_fn)
     state.elapsed += tokens.shape[1] if lengths is None else lengths
     return state
 
 
 def forward_seq(params, tokens, state: RWKVState, *, full_output=False,
                 compute_dtype=torch.float32, use_dither=True, mm8_core="auto",
-                wkv_fn: Optional[Callable] = None, wkv_precision="default"):
+                wkv_fn: Optional[Callable] = None, wkv_precision="default",
+                reduce_fn: Optional[Callable] = None):
     """Whole-sequence forward with logits: tokens (B, T). Returns float32 logits
     (B, V), or (B, T, V) with full_output; the state advances in place. The
-    eval / oracle entry. mm8_core, wkv_fn and wkv_precision: see the module
-    docstring."""
+    eval / oracle entry. mm8_core, wkv_fn, wkv_precision and reduce_fn: see
+    the module docstring."""
     x = _embed(params, tokens, compute_dtype)
-    x = _backbone(params, x, state, None, use_dither, mm8_core, wkv_fn, wkv_precision)
+    x = _backbone(params, x, state, None, use_dither, mm8_core, wkv_fn, wkv_precision,
+                  reduce_fn)
     if not full_output:
         x = x[:, -1:, :]
     logits = matmul(layer_norm(x, params["ln_out_w"], params["ln_out_b"]),

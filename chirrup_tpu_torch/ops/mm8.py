@@ -82,6 +82,20 @@ class LayerIndexed:
     li: int
 
 
+MM8_FIELDS = ("q", "mx", "rx", "my", "ry")
+
+
+def mm8_fields(node):
+    """The five Mm8Weight fields of node, read by key or by attribute (an
+    Mm8Weight of either package, or a dict of q, mx, rx, my, ry), or None
+    for any other node."""
+    if isinstance(node, dict):
+        return node if set(node) == set(MM8_FIELDS) else None
+    if all(hasattr(node, f) for f in MM8_FIELDS):
+        return {f: getattr(node, f) for f in MM8_FIELDS}
+    return None
+
+
 def quantize(w: torch.Tensor) -> Mm8Weight:
     """Quantize a dense (K, M) matrix. The min/max order follows the reference:
     rows > cols takes my, mx, rx, ry; otherwise mx, my, rx, ry."""

@@ -79,6 +79,7 @@ def _model_config_from_server_config(config: ServerConfig) -> ModelLoadConfig:
         wkv_state_dtype=config.wkv_state_dtype,
         activation_dtype=config.activation_dtype,
         prefill_chunk=config.prefill_chunk,
+        tensor_parallel=config.tensor_parallel,
         synthetic_config=synthetic,
     )
 

@@ -36,8 +36,10 @@ class ServerConfig:
     # device: 16 on CUDA, 1 on the CPU); a bigger block spends less host time
     # a token and overshoots a stop token by more
     decode_block_size: int = 0
-    # tensor parallelism and lockstep multi-host serving come with the port's
-    # parallel slice; parse_config refuses anything but 1 and 0
+    # ranks serving one model by tensor parallelism: one process a rank, rank
+    # r on CUDA device r, NCCL between them (parallel/tp.py); lockstep
+    # multi-host serving comes with the multi-host slice, and parse_config
+    # refuses it
     tensor_parallel: int = 1
     lockstep: int = 0
     # seconds the workers have to load the model, warm up and capture their
@@ -104,8 +106,12 @@ def parse_config(argv: Optional[List[str]] = None) -> ServerConfig:
             value = cli_val
         setattr(cfg, f.name, value)
     cfg.profile = profile
-    if cfg.tensor_parallel != 1 or cfg.lockstep:
-        parser.error("tensor_parallel > 1 and lockstep serving come with the port's "
-                     "parallel slice (ROADMAP Queue 1 item 7); this server runs one "
-                     "model on one device")
+    if cfg.tensor_parallel < 1:
+        parser.error(f"--tensor_parallel {cfg.tensor_parallel}: at least 1")
+    if cfg.lockstep:
+        parser.error("lockstep multi-host serving comes with the port's multi-host "
+                     "slice (ROADMAP Queue 1 item 7); this server runs on one host")
+    if cfg.tensor_parallel > 1 and cfg.worker_num != 1:
+        parser.error("--tensor_parallel > 1 serves one worker (worker_num x "
+                     "tensor_parallel comes with the multi-host slice)")
     return cfg

@@ -544,7 +544,9 @@ def test_config_layering_and_refusals(monkeypatch):
     assert cfg.state_cache_size == 3  # CLI over profile
     assert cfg.decode_block_size == PROFILES["h100-7b2"]["decode_block_size"]
     assert parse_config([]).batch_size == 12
-    for argv in (["--tensor-parallel", "2"], ["--lockstep", "1"], ["--profile", "v5e-7b2"]):
+    assert parse_config(["--tensor-parallel", "2"]).tensor_parallel == 2
+    for argv in (["--tensor-parallel", "2", "--worker-num", "2"], ["--tensor-parallel", "0"],
+                 ["--lockstep", "1"], ["--profile", "v5e-7b2"]):
         with pytest.raises(SystemExit):
             parse_config(argv)
 
