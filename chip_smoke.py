@@ -7,6 +7,8 @@
                                            # and the engine's step, in turns
     python3 chip_smoke.py --tp 2,4         # one model over 2, then 4 cards by
                                            # tensor parallelism (run_tp_cards)
+    python3 chip_smoke.py --multi 2x2      # worker_num 2 x tp 2, and two lockstep
+                                           # hosts x tp 2, over 4 cards (run_multi)
 
 Phases, in order; any failure ends the run with a non-zero exit:
 
@@ -153,7 +155,27 @@ Phases, in order; any failure ends the run with a non-zero exit:
    eager, float32, under both INT8 cores: first-step logits against the
    meshless model's, elapsed, the ranks' carries bit-equal after each
    greedy step, each rank's launches (one card cannot show a tp rate);
-12. one JSON line with every kernel's numbers, then the result line.
+12. multi-host and multi-group serving: after run_tp1, run_lockstep, two
+   lockstep host processes sharing the card (parallel/dryrun_multihost:
+   torchrun's environment, the vote group over gloo on localhost), each its
+   own 7.2B-width replica over 64 rows of a global batch of 128 (graphs):
+   each host's programs on its rows and its worker's greedy requests (one
+   of 1,024 tokens) equal to the engine model's, its launches equal to
+   steps x a step's + chunks x a chunk's, a shutdown voted on host 1
+   stopping both after the same loop (the vote's host us a loop, the
+   quorum's seconds, each host's ms a step while sharing the card), each
+   host's HTTP server resuming a prompt from its pool equal to its cold
+   run; after run_tp2_shared_card, run_router, two port servers (7.2B
+   width, 8 layers) behind `python -m chirrup_tpu_torch.server.router`: a
+   burst of 64 streams x 128 tokens through the router beside the same
+   burst straight to one server (tok/s at the client both ways, the split,
+   time to the first data frame), then a burst during which one backend is
+   killed (the later requests all served by the other; /health showing the
+   failure); then run_workers_tp_shared_card, worker_num 2 x tp 2 on the
+   one card over gloo, eager, float32, depth 8, from a native checkpoint:
+   both workers' tokens equal a meshless engine's, each worker's launches
+   (its thread's) equal to its steps x a step's + chunks x a chunk's;
+13. one JSON line with every kernel's numbers, then the result line.
 
 Without a CUDA device, or without the chirrup_tpu_torch package beside it,
 the script exits non-zero and prints no result.
@@ -3036,22 +3058,24 @@ def chat_result(r):
 
 
 class ServerProcess:
-    """`python -m chirrup_tpu_torch.server ...` as a child process on the
-    card. A thread copies its log (stderr and stdout) into
-    chiprun_out/chip_smoke_server.log and finds the port it reports."""
+    """`python -m chirrup_tpu_torch.server ...` (or another `module` taking
+    --host and --port, the router) as a child process on the card. A thread
+    copies its log (stderr and stdout) into chiprun_out/<log_name> and
+    finds the port it reports."""
 
-    def __init__(self, args):
+    def __init__(self, args, module="chirrup_tpu_torch.server",
+                 log_name="chip_smoke_server.log"):
         os.makedirs(OUT_DIR, exist_ok=True)
         root = os.path.dirname(os.path.abspath(__file__))
         self.t0 = time.perf_counter()
         self.proc = subprocess.Popen(
-            [sys.executable, "-m", "chirrup_tpu_torch.server", "--host", "127.0.0.1",
+            [sys.executable, "-m", module, "--host", "127.0.0.1",
              "--port", "0", *args], cwd=root,
             env=dict(os.environ, PYTHONPATH=root, PYTHONUNBUFFERED="1"),
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
         self.port = None
         self.lines = []
-        self._log = open(os.path.join(OUT_DIR, "chip_smoke_server.log"), "w")
+        self._log = open(os.path.join(OUT_DIR, log_name), "w")
         self._reader = threading.Thread(target=self._read, daemon=True)
         self._reader.start()
 
@@ -4394,6 +4418,414 @@ def run_tp_cards(n, B=64, L=32, C=4096, V=65536, n_tok=16, long_prompt=1024, blo
     return out
 
 
+# ------------------------------------------------- multi-host and multi-group
+
+
+def check_launch_sum(what, launches, steps, chunks, L, core="auto"):
+    """A worker's or host's launches of the path's kernels equal `steps`
+    decode steps' and `chunks` compact chunks' of the meshless path
+    (expected_launches: 32/129/129/1/1 a step, 32/128/128 a chunk at 7.2B
+    under w8a8); the collectives are not counted."""
+    step, chunk = expected_launches(L, core, "step"), expected_launches(L, core, "chunk")
+    want = {n: steps * step[n] + chunks * chunk[n] for n in step}
+    got = {n: launches.get(n, 0) for n in step}
+    require(steps > 0 and got == want,
+            f"{what}: launches {got} over {steps} steps and {chunks} chunks, "
+            f"a meshless path's {want}")
+    return {n: c for n, c in got.items() if c}
+
+
+def run_lockstep(dev, model, L=32, C=4096, V=65536, n_tok=64, long_prompt=1024):
+    """Lockstep serving as two host processes sharing the one card
+    (parallel/dryrun_multihost.launch: MASTER_ADDR, MASTER_PORT, WORLD_SIZE,
+    RANK as torchrun sets them; the vote group over gloo on localhost), w8a8,
+    bf16, graphs, each host its own replica of the seed-0 model over 64 rows
+    of a global batch of 128, the engine model `model` (batch 64, seed 0)
+    the reference: (1) each host's programs on its rows equal `model`
+    driving the same rows; (2) each host's lockstep Worker serves greedy
+    requests (5 and 12 tokens and one of `long_prompt`) with `model`'s
+    tokens under a worker without lockstep, its launches equal its steps x
+    a step's + chunks x a chunk's, and a shutdown voted on host 1 stops
+    both after the same loop; (3) each host's engine and HTTP server
+    (lockstep, a state pool) resumes a chat completion from its prefix
+    snapshot equal to its cold run. Printed: the vote's host us a loop,
+    the quorum's seconds (host 1's vote to the last host's stop), each
+    host's ms a decode step while the two share the card (not a rate)."""
+    from chirrup_tpu_torch.parallel import dryrun_multihost as dryrun
+
+    tmp = tempfile.TemporaryDirectory()
+    vocab = os.path.join(tmp.name, "vocab.txt")
+    write_vocab(vocab, V)
+    cfg = dryrun.Config(layers=L, width=C, vocab=V, batch=2 * model.batch_size,
+                        device=str(dev), dtype="bfloat16", quantization="int8",
+                        prefill_chunk=model.prefill_chunk, graphs=True, n_tok=n_tok,
+                        long_prompt=long_prompt, voter=1, vocab_path=vocab,
+                        vote_timeout=300.0, tp_timeout=300.0)
+    t0 = time.perf_counter()
+    results = dryrun.require(dryrun.launch(2, dryrun.host_main, (cfg,), timeout=900))
+    wall = time.perf_counter() - t0
+    problems = dryrun.check(cfg, 2, results, model)
+    require(not problems, "lockstep: " + "; ".join(problems))
+    out = dict(wall_s=wall, hosts=[])
+    for h, r in enumerate(results):
+        w = r["worker"]
+        launches = check_launch_sum(f"lockstep host {h}", w["launches"], w["steps"], w["chunks"],
+                                    L)
+        out["hosts"].append(dict(rows=[r["programs"]["rows"][0], r["programs"]["rows"][-1]],
+                                 stop_loop=w["stop_loop"], vote_us=w["vote_us"],
+                                 vote_loops=w["vote_loops"], ms_step_sharing_card=w["ms_step"],
+                                 steps=w["steps"], chunks=w["chunks"], launches=launches,
+                                 tokens=w["tokens"], server=r["server"]))
+    quorum_s = (max(r["worker"]["stopped_at"] for r in results)
+                - results[1]["worker"]["vote_started"])
+    out["quorum_shutdown_s"] = quorum_s
+    for h, o in enumerate(out["hosts"]):
+        log(f"lockstep host {h} of 2 (L{L} C{C} V{V}, w8a8, graphs, rows {o['rows'][0]}.."
+            f"{o['rows'][1]} of {cfg.batch}): programs and {len(o['tokens'])} greedy requests (one of "
+            f"{long_prompt} tokens) equal to the meshless engine model; stopped after loop "
+            f"{o['stop_loop']}; vote {o['vote_us']:.1f} us of host time a loop over "
+            f"{o['vote_loops']} loops; {o['ms_step_sharing_card']} ms a decode step with "
+            f"two hosts sharing one card (not a rate); launches {o['launches']} over "
+            f"{o['steps']} steps and {o['chunks']} chunks; server: cold == resumed, "
+            f"{o['server']['cache_hits']} cache hit(s)")
+    log(f"lockstep: quorum shutdown voted on host 1 stopped both hosts after loop "
+        f"{out['hosts'][0]['stop_loop']} in {quorum_s:.3f} s; the phase took {wall:.1f} s "
+        f"(two host processes, three phases each)")
+    tmp.cleanup()
+    torch.cuda.empty_cache()
+    return out
+
+
+async def _burst(port, bodies):
+    t0 = time.perf_counter()
+    rs = await asyncio.gather(*[http_call(port, "POST", "/v1/chat/completions", b)
+                                for b in bodies], return_exceptions=True)
+    return rs, time.perf_counter() - t0
+
+
+def _served(port):
+    """Requests a port server has completed (its /metrics TTFT samples)."""
+    ttft = json.loads(http_sync(port, "GET", "/metrics")["body"])["ttft_breakdown"]
+    return 0 if ttft is None else ttft["n"]
+
+
+def run_router(dev, L=8, C=4096, V=65536, B=64, burst=64, burst_tokens=128):
+    """Two port servers (`python -m chirrup_tpu_torch.server`, 7.2B width cut
+    to L layers, --profile h100-7b2) as processes on the card behind `python
+    -m chirrup_tpu_torch.server.router`: a burst of `burst` streams x
+    `burst_tokens` tokens straight to server 0, then the same through the
+    router (tok/s at the client both ways and their ratio, the split between
+    the backends, time to the first data frame); then a burst through the
+    router during which server 1 is killed: every request sent after the
+    kill is served whole by server 0, and the router's /health shows one
+    backend healthy and the other's error; SIGINT stops the router and
+    server 0 with exit code 0."""
+    tmp = tempfile.TemporaryDirectory()
+    vocab = os.path.join(tmp.name, "vocab.txt")
+    write_vocab(vocab, V)
+    args = ["--synthetic-model", f"{L},{C}", "--vocab-path", vocab, "--vocab-size", str(V),
+            "--profile", "h100-7b2", "--batch-size", str(B)]
+    backends = [ServerProcess(args, log_name=f"chip_smoke_router_b{i}.log") for i in range(2)]
+    router = None
+    out = {}
+    try:
+        out["backend_healthy_s"] = [b.wait_healthy() for b in backends]
+        router = ServerProcess(["--backends", ",".join(f"http://127.0.0.1:{b.port}"
+                                                       for b in backends)],
+                               module="chirrup_tpu_torch.server.router",
+                               log_name="chip_smoke_router.log")
+        router.wait_healthy()
+        body = [dict(model="rwkv-latest:no-thinking", temperature=1.0, ignore_eos=True,
+                     max_tokens=burst_tokens, stream=True, use_state_cache=False,
+                     cache_prefill=False,
+                     messages=[{"role": "user", "content": f"Request {i}: go on"}])
+                for i in range(burst)]
+        # a warm-up request each way, then the two bursts
+        for port in (backends[0].port, router.port):
+            require(http_sync(port, "POST", "/v1/chat/completions", body[0])["status"] == 200,
+                    "router: warm-up request failed")
+        runs = {}
+        for name, port in (("direct", backends[0].port), ("router", router.port)):
+            before = [_served(b.port) for b in backends]
+            rs, wall = asyncio.run(_burst(port, body))
+            n = 0
+            for r in rs:
+                require(not isinstance(r, BaseException) and r["status"] == 200,
+                        f"router: {name} burst request failed: {r!r:.300}")
+                _, k, reason = sse_result(r["body"])
+                require(k == burst_tokens, f"router: {name} burst request gave {k} tokens")
+                n += k
+            ttfb = sorted(r["first_data_s"] for r in rs)
+            split = [_served(b.port) - x for b, x in zip(backends, before)]
+            runs[name] = dict(tok_s=n / wall, wall_s=wall, split=split,
+                              first_data_p50_s=ttfb[len(ttfb) // 2], first_data_max_s=ttfb[-1])
+        require(runs["router"]["split"] in ([burst // 2, burst - burst // 2],
+                                            [burst - burst // 2, burst // 2]),
+                f"router: split {runs['router']['split']} of {burst}")
+        out.update(runs, ratio=runs["router"]["tok_s"] / runs["direct"]["tok_s"])
+        log(f"router (L{L} C{C} V{V}, w8a8, batch {B} a server, two servers sharing one card): "
+            f"{burst} streams x {burst_tokens} tokens straight to one server "
+            f"{runs['direct']['tok_s']:.1f} tok/s at the client, through the router "
+            f"{runs['router']['tok_s']:.1f} tok/s, ratio {out['ratio']:.3f}; split "
+            f"{runs['router']['split']}; first data frame p50 "
+            f"{runs['direct']['first_data_p50_s']:.3f} s direct, "
+            f"{runs['router']['first_data_p50_s']:.3f} s through the router (max "
+            f"{runs['direct']['first_data_max_s']:.3f}, {runs['router']['first_data_max_s']:.3f})")
+
+        # failover: half the burst with long replies, server 1 killed while it
+        # streams them, then the other half
+        long_body = [dict(b, max_tokens=8 * burst_tokens) for b in body[:burst // 2]]
+
+        async def failover():
+            first = [asyncio.create_task(http_call(router.port, "POST", "/v1/chat/completions",
+                                                   b)) for b in long_body]
+            await asyncio.sleep(1.0)
+            backends[1].proc.kill()
+            backends[1].proc.wait()
+            t_kill = time.perf_counter()
+            second = await asyncio.gather(*[http_call(router.port, "POST",
+                                                      "/v1/chat/completions", b)
+                                            for b in body[burst // 2:]], return_exceptions=True)
+            return await asyncio.gather(*first, return_exceptions=True), second, t_kill
+
+        before = _served(backends[0].port)
+        first, second, _ = asyncio.run(failover())
+        for r in second:
+            require(not isinstance(r, BaseException) and r["status"] == 200,
+                    f"router: a request after the kill failed: {r!r:.300}")
+            require(sse_result(r["body"])[1] == burst_tokens,
+                    "router: a request after the kill was cut short")
+        whole = sum(1 for r in first if not isinstance(r, BaseException)
+                    and r["status"] == 200 and b"data: [DONE]" in r["body"])
+        served0 = _served(backends[0].port) - before
+        health = http_sync(router.port, "GET", "/health")
+        hb = json.loads(health["body"])
+        dead = hb["backends"][f"http://127.0.0.1:{backends[1].port}"]
+        require(health["status"] == 200 and hb["healthy_count"] == 1
+                and str(dead["status"]).startswith("error"),
+                f"router: /health after the kill {hb}")
+        require(served0 == whole + len(second),
+                f"router: server 0 completed {served0}, expected {whole} + {len(second)}")
+        out["failover"] = dict(before_kill=burst // 2, completed_before_kill=whole,
+                               broken=burst // 2 - whole, after_kill=len(second),
+                               after_kill_served_by_0=len(second), health=hb)
+        log(f"router failover: server 1 killed 1.0 s into {burst // 2} streams of "
+            f"{8 * burst_tokens} tokens: {whole} of them "
+            f"completed (server 0's), {burst // 2 - whole} broke off; all {len(second)} requests "
+            f"sent after the kill served whole by server 0; /health: {hb['healthy_count']} "
+            f"healthy, server 1 {dead['status']}")
+    finally:
+        codes = [router.stop() if router is not None else None] + [b.stop() for b in backends]
+    require(codes[0] == 0 and codes[1] == 0,
+            f"router: exit codes router {codes[0]}, server 0 {codes[1]} after SIGINT")
+    out["exit_codes"] = codes
+    tmp.cleanup()
+    return out
+
+
+def run_workers_tp_shared_card(dev, L=8, C=4096, V=65536, B=8, n_req=16, n_tok=8):
+    """worker_num 2 x tensor_parallel 2 on the one card over gloo (NCCL
+    refuses two ranks on one device), eager (gloo on CUDA cannot be
+    captured), float32, w8a8, 7.2B width cut to L layers, batch B a worker,
+    from a native checkpoint of the seed-0 INT8 tree (every worker the same
+    weights): `n_req` greedy requests at once (more than one worker's slots)
+    give a meshless engine's tokens on the same checkpoint, both workers
+    serve, each worker's launches (its thread's, rank 0's) equal its steps x
+    a step's + chunks x a chunk's, and both groups' followers exit 0."""
+    from chirrup_tpu_torch.engine.engine import AsyncEngineCore
+    from chirrup_tpu_torch.models import checkpoint, loader
+    from chirrup_tpu_torch.models.config import RWKV7Config
+    from chirrup_tpu_torch.ops import _kernels
+    from chirrup_tpu_torch.engine.structures import ModelLoadConfig
+
+    tmp = tempfile.TemporaryDirectory()
+    vocab = os.path.join(tmp.name, "vocab.txt")
+    write_vocab(vocab, V)
+    path = os.path.join(tmp.name, "native")
+    checkpoint.save_native(path, RWKV7Config(n_layer=L, n_embd=C, vocab_size=V),
+                           loader.synthetic_params_int8(RWKV7Config(n_layer=L, n_embd=C,
+                                                                    vocab_size=V),
+                                                        seed=0, device=dev))
+    torch.cuda.empty_cache()
+    prompts = [f"Request {i}: tell me more" for i in range(n_req)]
+    greedy = dict(temperature=0.0, max_tokens=n_tok, stop_tokens=[], presence_penalty=0.0,
+                  frequency_penalty=0.0)
+
+    def mc(tp):
+        return ModelLoadConfig(model_path=path, vocab_path=vocab, vocab_size=V,
+                               quantization="int8", activation_dtype="float32",
+                               wkv_state_dtype="float32", tensor_parallel=tp)
+
+    async def serve(worker_num, tp):
+        eng = AsyncEngineCore()
+        t0 = time.perf_counter()
+        kw = dict(tp_devices=[dev] * (worker_num * tp), tp_backend="gloo") if tp > 1 else {}
+        await eng.init(worker_num=worker_num, model_config=mc(tp), batch_size=B, device=dev,
+                       graphs=False, load_timeout=600, **kw)
+        load_s = time.perf_counter() - t0
+        try:
+            _kernels.reset_launches()
+            steps0 = [(w.steps_run, w.chunks_run) for w in eng.workers]
+            t0 = time.perf_counter()
+            comps = [eng.completion(p, **greedy) for p in prompts]
+            toks = await asyncio.gather(*[_tokens_of(c) for c in comps])
+            wall = time.perf_counter() - t0
+            per = [dict(steps=w.steps_run - s, chunks=w.chunks_run - c,
+                        launches=_kernels.thread_launches(f"chirrup_tpu_torch:{w.worker_id}"))
+                   for w, (s, c) in zip(eng.workers, steps0)]
+        finally:
+            eng.shutdown()
+            eng.join(timeout=60)
+        followers = [(p.name, p.exitcode) for p in eng._tp_processes]
+        return toks, per, followers, load_s, wall
+
+    toks, per, followers, load_s, wall = asyncio.run(serve(2, 2))
+    ref, _, _, _, _ = asyncio.run(serve(1, 1))
+    require(all(len(t) == n_tok for t in toks) and toks == ref,
+            f"workers x tp: tokens {toks} against meshless {ref}")
+    require(len(followers) == 2 and all(code == 0 for _, code in followers),
+            f"workers x tp: followers {followers}")
+    out = dict(load_s=load_s, wall_s=wall, followers=followers, workers=[])
+    for k, w in enumerate(per):
+        launches = check_launch_sum(f"workers x tp: worker {k}", w["launches"], w["steps"],
+                                    w["chunks"], L)
+        out["workers"].append(dict(steps=w["steps"], chunks=w["chunks"], launches=launches))
+    log(f"worker_num 2 x tp 2 on one card over gloo (L{L} C{C} V{V}, w8a8, float32, eager, "
+        f"batch {B} a worker): both groups up and loaded in {load_s:.1f} s; {n_req} greedy "
+        f"requests x {n_tok} tokens in {wall:.2f} s, tokens equal to a meshless engine's; "
+        f"worker steps/chunks {[(w['steps'], w['chunks']) for w in out['workers']]}, each "
+        f"worker's launches equal to its steps' and chunks' on the meshless path; followers "
+        f"{followers} (a correctness check over host-staged collectives, not a rate)")
+    tmp.cleanup()
+    torch.cuda.empty_cache()
+    return out
+
+
+async def _tokens_of(comp):
+    return [e[1] async for e in comp if e[0] == "token"]
+
+
+def _decode_ms(samples, lo, hi):
+    """ms a step from (time, steps, tokens) samples: from the first sample
+    whose fewest tokens a slot has reached `lo` to the first at `hi`."""
+    a = next(((t, s) for t, s, n in samples if n >= lo), None)
+    b = next(((t, s) for t, s, n in samples if n >= hi), None)
+    if a is None or b is None or b[1] <= a[1]:
+        return None
+    return 1e3 * (b[0] - a[0]) / (b[1] - a[1])
+
+
+def run_multi(workers=2, tp=2, L=32, C=4096, V=65536, B=64, n_tok=64, devices=None,
+              backend=None):
+    """`--multi 2x2` on four cards, over NCCL with graphs at full depth,
+    w8a8, bf16, from a native checkpoint of the seed-0 INT8 tree, against the
+    meshless model on card 0: (a) worker_num `workers` x tp `tp` (worker k
+    on cards k*tp..), `workers` x B short greedy requests at once: each
+    worker's ms a step while all decode, and the tokens against meshless;
+    (b) two lockstep hosts x tp `tp` (host h sees cards h*tp.. through
+    CUDA_VISIBLE_DEVICES; dryrun_multihost's programs and worker phases):
+    each host's ms a step, its tokens against meshless, both stopping after
+    the same loop. Token mismatches are counted and printed (per-rank
+    activation scales under w8a8 tp), not failed. devices (workers * tp of
+    them, the meshless model and the hosts on the first) and backend are
+    given only to rehearse on the CPU."""
+    import dataclasses
+
+    from chirrup_tpu_torch.engine.engine import AsyncEngineCore, build_model_factory
+    from chirrup_tpu_torch.engine.structures import ModelLoadConfig
+    from chirrup_tpu_torch.models import checkpoint, loader
+    from chirrup_tpu_torch.models.config import RWKV7Config
+    from chirrup_tpu_torch.parallel import dryrun_multihost as dryrun
+
+    if devices is None:
+        require(torch.cuda.device_count() >= workers * tp,
+                f"--multi needs {workers * tp} CUDA devices, {torch.cuda.device_count()} seen")
+        devices = [torch.device("cuda", i) for i in range(workers * tp)]
+    dev = torch.device(devices[0])
+    cuda = dev.type == "cuda"
+    tmp = tempfile.TemporaryDirectory()
+    vocab = os.path.join(tmp.name, "vocab.txt")
+    write_vocab(vocab, V)
+    path = os.path.join(tmp.name, "native")
+    rc = RWKV7Config(n_layer=L, n_embd=C, vocab_size=V)
+    checkpoint.save_native(path, rc, loader.synthetic_params_int8(rc, seed=0, device=dev))
+    torch.cuda.empty_cache()
+    mc = ModelLoadConfig(model_path=path, vocab_path=vocab, vocab_size=V, tensor_parallel=tp)
+    prompts = [f"Request {i}: tell me more" for i in range(workers * B)]
+    greedy = dict(temperature=0.0, max_tokens=n_tok, stop_tokens=[], presence_penalty=0.0,
+                  frequency_penalty=0.0)
+
+    async def serve(engine_kw, n_workers):
+        eng = AsyncEngineCore()
+        t0 = time.perf_counter()
+        await eng.init(worker_num=n_workers, batch_size=B, load_timeout=900,
+                       warmup_programs=True, **engine_kw)
+        load_s = time.perf_counter() - t0
+        samples = [[] for _ in eng.workers]
+        try:
+            comps = [eng.completion(p, **greedy) for p in prompts]
+            task = asyncio.gather(*[_tokens_of(c) for c in comps])
+            while not task.done():
+                now = time.perf_counter()
+                for k, w in enumerate(eng.workers):
+                    slots = [s.task for s in w.slots if s.task is not None]
+                    n = min((len(t.generated_tokens) for t in slots), default=0)
+                    samples[k].append((now, w.steps_run, n))
+                await asyncio.sleep(0.002)
+            toks = task.result()
+        finally:
+            eng.shutdown()
+            eng.join(timeout=60)
+        ms = [_decode_ms(s, 2, n_tok - 16) for s in samples]
+        return toks, ms, load_s
+
+    out = {}
+    toks, ms, load_s = asyncio.run(serve(dict(model_config=mc, tp_devices=devices,
+                                              tp_backend=backend, graphs=cuda), workers))
+    meshless = dataclasses.replace(mc, tensor_parallel=1)
+    ref, _, _ = asyncio.run(serve(dict(model_config=meshless, model_factory=build_model_factory(
+        meshless, B, device=dev, graphs=cuda), device=dev), 1))
+    equal = sum(a == b for a, b in zip(toks, ref))
+    out["workers_tp"] = dict(workers=workers, tp=tp, ms_step=ms, load_s=load_s,
+                             requests=len(prompts), equal_to_meshless=equal)
+    log(f"--multi: worker_num {workers} x tp {tp} over NCCL (cards 0..{workers * tp - 1}, L{L} "
+        f"C{C} V{V}, w8a8, bf16, graphs, batch {B} a worker): ms a step by worker "
+        f"{[round(m, 3) if m else m for m in ms]} while both decode; {equal} of {len(prompts)} "
+        f"greedy requests equal to meshless; loaded and captured in {load_s:.1f} s")
+
+    cfg = dryrun.Config(layers=L, width=C, vocab=V, batch=2 * B, tp=tp, device=str(dev),
+                        tp_devices=None if cuda else [str(d) for d in devices[:tp]],
+                        dtype="bfloat16", quantization="int8", prefill_chunk=64, graphs=cuda,
+                        n_tok=n_tok, long_prompt=1024, voter=1, vocab_path=vocab,
+                        vote_timeout=300.0, tp_timeout=300.0)
+    t0 = time.perf_counter()
+    results = dryrun.require(dryrun.launch(
+        2, dryrun.host_main, (cfg, ("programs", "worker")), timeout=900,
+        host_env=(lambda h: {"CUDA_VISIBLE_DEVICES": ",".join(str(h * tp + r)
+                                                              for r in range(tp))})
+        if cuda else None))
+    wall = time.perf_counter() - t0
+    reference = build_model_factory(dataclasses.replace(dryrun.model_config(cfg),
+                                                        tensor_parallel=1, lockstep=False),
+                                    B, device=dev, graphs=cuda)()[0]
+    problems = dryrun.check(cfg, 2, results, reference)
+    loops = {r["worker"]["stop_loop"] for r in results}
+    require(len(loops) == 1, f"--multi lockstep: hosts stopped after loops {loops}")
+    out["lockstep_tp"] = dict(tp=tp, wall_s=wall, problems=problems,
+                              hosts=[dict(ms_step=r["worker"]["ms_step"],
+                                          vote_us=r["worker"]["vote_us"],
+                                          stop_loop=r["worker"]["stop_loop"])
+                                     for r in results])
+    log(f"--multi: two lockstep hosts x tp {tp} over NCCL (cards {{0,1}} and {{2,3}}), ms a "
+        f"step by host {[h['ms_step'] for h in out['lockstep_tp']['hosts']]}, vote "
+        f"us a loop {[round(h['vote_us'], 1) for h in out['lockstep_tp']['hosts']]}, both "
+        f"stopped after loop {loops.pop()}; against meshless: "
+        f"{'; '.join(problems) if problems else 'programs and tokens equal'}")
+    tmp.cleanup()
+    return out
+
+
+
 def compare_step_tail(dev, L=32, V=65536):
     """The step kernel at batch 64 (cold and warm, step_ms) in each dtype
     pair of STEP_PAIRS and the penalty tail at each batch of TAIL_BATCHES,
@@ -4611,6 +5043,9 @@ def main(argv=None) -> int:
                         help="instead of the smoke run, time the WKV step, chunk and "
                              "bare kernels, the quantizer and the penalty tail of the "
                              "checkout in DIR against this tree's (compare_trees)")
+    parser.add_argument("--multi", metavar="WxT",
+                        help="instead of the smoke run, worker_num W x tensor_parallel T and "
+                             "two lockstep hosts x T over W*T cards (run_multi)")
     parser.add_argument("--tp", metavar="N[,N...]",
                         help="instead of the smoke run, serve one model over CUDA devices "
                              "0..N-1 by tensor parallelism against the meshless model on "
@@ -4627,6 +5062,19 @@ def main(argv=None) -> int:
     log(smi[0])
     if args.compare:
         return compare_trees(args.compare)
+    if args.multi:
+        workers, tp = (int(n) for n in args.multi.split("x"))
+        _kernels.build()
+        torch.backends.cuda.matmul.allow_tf32 = False
+        multi = run_multi(workers, tp)
+        os.makedirs(OUT_DIR, exist_ok=True)
+        with open(os.path.join(OUT_DIR, "chip_smoke_multi.json"), "w") as f:
+            json.dump(dict(card=smi, multi=multi), f, indent=1)
+        print(json.dumps({"ok": True, "device": {"platform": "gpu",
+                                                 "kind": torch.cuda.get_device_name(0),
+                                                 "count": torch.cuda.device_count()}}),
+              flush=True)
+        return 0
     if args.tp:
         worlds = [int(n) for n in args.tp.split(",")]
         require(torch.cuda.device_count() >= max(worlds),
@@ -4711,6 +5159,8 @@ def main(argv=None) -> int:
     # the tensor-parallel path at tp = 1 over a one-rank NCCL group, against
     # this meshless model
     path["tp1"] = run_tp1(dev, model)
+    # lockstep: two host processes sharing the card, against this model
+    path["lockstep"] = run_lockstep(dev, model)
     del model
     gc.collect()
     torch.cuda.empty_cache()
@@ -4731,6 +5181,9 @@ def main(argv=None) -> int:
     # tp 2 as two processes sharing the card over gloo
     tp_rows, path["tp_shards"] = check_tp_shards(dev, torch.Generator(device=dev).manual_seed(13))
     path["tp2_shared_card"] = run_tp2_shared_card(dev)
+    # the router over two port servers, then two tp groups in one engine
+    path["router"] = run_router(dev)
+    path["workers_tp_shared_card"] = run_workers_tp_shared_card(dev)
     for k in kernels:
         name = k["name"]
         if name in ("wkv7_batch", "wkv7_batch_bf16"):
@@ -4751,6 +5204,10 @@ def main(argv=None) -> int:
         k["launches_per_step"] = step[name]
         k["launches_per_chunk"] = chunk[0]["launches_per_chunk"][name]
         k["launches_tp1"] = path["tp1"]["launches"][name]
+        k["launches_lockstep"] = [h["launches"].get(name, 0)
+                                  for h in path["lockstep"]["hosts"]]
+        k["launches_workers_tp"] = [w["launches"].get(name, 0)
+                                    for w in path["workers_tp_shared_card"]["workers"]]
     for k in kernels:
         # the same kernel at the tp shard shapes (check_tp_shards)
         shard = {str(tp): rows[k["name"]] for tp, rows in tp_rows.items() if k["name"] in rows}

@@ -515,16 +515,23 @@ __global__ void __launch_bounds__(T::THREADS, T::MIN_CTAS) gemm_kernel(
 
 // ------------------------------------------------------------- host side
 
+constexpr int kMaxDevices = 64;
+
 template <class T>
 int launch(const CUtensorMap& xmap, const CUtensorMap& qmap, const float* stats,
            const float* mx, const float* rx, void* out, int B, int K, int M, int width,
            int layer, int split, int out_mode, int relu2, cudaStream_t stream) {
-  static bool configured = false;
-  if (!configured) {
-    const cudaError_t e = cudaFuncSetAttribute(
+  // the attribute is the current device's: set it once on each device (one
+  // process may drive several)
+  static bool configured[kMaxDevices] = {};
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return (int)err;
+  if (dev >= kMaxDevices || !configured[dev]) {
+    err = cudaFuncSetAttribute(
         gemm_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, T::SMEM);
-    if (e != cudaSuccess) return (int)e;
-    configured = true;
+    if (err != cudaSuccess) return (int)err;
+    if (dev < kMaxDevices) configured[dev] = true;
   }
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3(split * ((B + T::BM - 1) / T::BM), M / T::BN, 1);

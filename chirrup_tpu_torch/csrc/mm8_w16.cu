@@ -350,15 +350,22 @@ __global__ void __launch_bounds__(T::THREADS, T::MIN_CTAS) w16_bf16_kernel(
   }
 }
 
+constexpr int kMaxDevices = 64;
+
 template <class T>
 int launch(const CUtensorMap& xmap, const CUtensorMap& qmap, float* out, int B, int K, int M,
            int layer, int split, cudaStream_t stream) {
-  static bool configured = false;
-  if (!configured) {
-    const cudaError_t e = cudaFuncSetAttribute(
+  // the attribute is the current device's: set it once on each device (one
+  // process may drive several)
+  static bool configured[kMaxDevices] = {};
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return (int)err;
+  if (dev >= kMaxDevices || !configured[dev]) {
+    err = cudaFuncSetAttribute(
         w16_bf16_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, T::SMEM);
-    if (e != cudaSuccess) return (int)e;
-    configured = true;
+    if (err != cudaSuccess) return (int)err;
+    if (dev < kMaxDevices) configured[dev] = true;
   }
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3(split * ((B + T::BM - 1) / T::BM), M / T::BN, 1);

@@ -575,17 +575,25 @@ __global__ void __launch_bounds__(PT) sample_exact_kernel(
   }
 }
 
+constexpr int kMaxDevices = 64;
+
 template <typename TL>
 int launch(const void* logits, const void* pres, const void* occ, const void* freq,
            const void* lse, const void* temperature, const void* top_p, const void* top_k,
            const void* need, const void* gumbel, const void* seeds, void* scratch, void* tokens,
            int B, int V, cudaStream_t stream) {
-  static bool configured = false;  // the Shared block is above the 48 KB default
-  if (!configured) {
-    const cudaError_t e = cudaFuncSetAttribute(
+  // the Shared block is above the 48 KB default; the attribute is the
+  // current device's: set it once on each device (one process may drive
+  // several)
+  static bool configured[kMaxDevices] = {};
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return (int)err;
+  if (dev >= kMaxDevices || !configured[dev]) {
+    err = cudaFuncSetAttribute(
         sample_exact_kernel<TL>, cudaFuncAttributeMaxDynamicSharedMemorySize, sizeof(Shared));
-    if (e != cudaSuccess) return (int)e;
-    configured = true;
+    if (err != cudaSuccess) return (int)err;
+    if (dev < kMaxDevices) configured[dev] = true;
   }
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3(SPLIT * B, 1, 1);

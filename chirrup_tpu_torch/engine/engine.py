@@ -6,11 +6,19 @@ loop; init waits for every worker's worker_loaded handshake. A worker drives
 one device. With `state_pool_size`, a single worker keeps prefix snapshots in
 a device state pool (PoolHandle events); otherwise they go to the host.
 
-Tensor parallelism (`tensor_parallel` > 1, parallel/tp.py): one worker on
-rank 0, in this process, on the first device; ranks 1..tp-1 are spawned
-processes that build their shards of the same model and follow rank 0's
-ServingModel calls; shutdown stops them and join() joins them within its
-time limit.
+Tensor parallelism (`tensor_parallel` > 1, parallel/tp.py): each worker is
+rank 0 of a tp group of its own, a thread of this process on its group's
+first device; the group's other ranks are spawned processes that build
+their shards of the same model and follow rank 0's ServingModel calls.
+Worker k's group runs on CUDA devices k*tp .. (k+1)*tp - 1. Shutdown
+stops every group's followers, and join() joins them within its time
+limit; a worker that fails to load stops them all.
+
+Lockstep (`model_config.lockstep`, parallel/hosts.py): one engine per host,
+each with one worker over its rows of the global batch, the hosts' world
+from torch.distributed's environment (dp hosts; one host without it). The
+worker votes with the other hosts once a loop; a shutdown on any host
+stops every host's worker after the same loop.
 """
 
 from __future__ import annotations
@@ -30,6 +38,7 @@ from chirrup_tpu_torch.engine.structures import (
     DEFAULT_SAMPLING_CONFIG, DEFAULT_STOP_TOKENS, ModelLoadConfig, PoolHandle, RequestState,
     Task)
 from chirrup_tpu_torch.engine.worker import Worker, start_worker_thread
+from chirrup_tpu_torch.parallel import hosts
 from chirrup_tpu_torch.parallel import tp as tp_mod
 from chirrup_tpu_torch.utils.tokenizer import WorldTokenizer
 
@@ -59,7 +68,8 @@ class ThreadSafeAsyncQueue:
 
 
 def build_serving_model(model_config: ModelLoadConfig, batch_size: int, tp=None, *,
-                        device=None, seed: int = 0, graphs: bool = True):
+                        device=None, seed: int = 0, graphs: bool = True,
+                        sampler_seed: Optional[int] = None):
     """The ServingModel of model_config on `device` (resolve_device: the CUDA
     device unless one is given): model_config.synthetic_config's random model
     (from `seed`), or the checkpoint at model_config.model_path, a native
@@ -72,7 +82,9 @@ def build_serving_model(model_config: ModelLoadConfig, batch_size: int, tp=None,
     (synthetic, `.pth`, a dense native checkpoint) is quantized whole first,
     as meshless serving does, by ServingModel, where the tree lies: on the
     device for a synthetic one, on the host for a checkpoint. With every
-    argument but tp bound, this is the build function of tp.start."""
+    argument but tp bound, this is the build function of tp.start.
+    `seed` makes the synthetic weights and, unless `sampler_seed` is given,
+    seeds the sampler."""
     from chirrup_tpu_torch.engine.serving import ServingModel
     from chirrup_tpu_torch.models import checkpoint, loader
     from chirrup_tpu_torch.models.config import RWKV7Config, RuntimeConfig
@@ -106,22 +118,28 @@ def build_serving_model(model_config: ModelLoadConfig, batch_size: int, tp=None,
         make = lambda: loader.params_from_state_dict(sd, cfg, device=whole)
     # the model makes the tree itself and holds the only reference
     return ServingModel(cfg, make, runtime, batch_size, prefill_chunk=model_config.prefill_chunk,
-                        device=device, seed=seed, graphs=graphs, tp=tp)
+                        device=device, seed=seed if sampler_seed is None else sampler_seed,
+                        graphs=graphs, tp=tp)
 
 
 def build_model_factory(model_config: ModelLoadConfig, batch_size: int, device=None,
-                        seed: int = 0, tp=None) -> Callable:
+                        seed: int = 0, tp=None, sampler_seed: Optional[int] = None,
+                        graphs: bool = True) -> Callable:
     """A callable the worker thread invokes to construct its ServingModel
     (build_serving_model) and tokenizer. The device is resolved here, so
-    building a factory without a device where CUDA is absent raises at once.
+    building a factory without a device where CUDA is absent raises at once;
+    a CUDA device becomes the worker thread's current device.
     tp: rank 0's TPContext, or the function that joins the group and gives
     it (tp.start's connect), called by the factory in the worker's thread."""
     device = resolve_device(device)
 
     def factory():
+        if device.type == "cuda":
+            torch.cuda.set_device(device)  # per thread: this worker's kernels
         ctx = tp() if callable(tp) else tp
         try:
-            model = build_serving_model(model_config, batch_size, ctx, device=device, seed=seed)
+            model = build_serving_model(model_config, batch_size, ctx, device=device, seed=seed,
+                                        sampler_seed=sampler_seed, graphs=graphs)
         except BaseException:
             if ctx is not None:
                 ctx.close()
@@ -129,6 +147,27 @@ def build_model_factory(model_config: ModelLoadConfig, batch_size: int, device=N
         return model, WorldTokenizer(model_config.vocab_path)
 
     return factory
+
+
+def _tp_device_groups(worker_num: int, tp: int, device, tp_devices) -> List[List[torch.device]]:
+    """Each worker's tp devices: tp_devices (worker_num*tp of them, worker k's
+    at k*tp..), else `device` for every rank, else CUDA devices 0..worker_num*tp-1,
+    which must be visible (NCCL refuses two ranks on one card)."""
+    n = worker_num * tp
+    if tp_devices is None:
+        if device is None:
+            resolve_device(None)  # raises without CUDA
+            visible = torch.cuda.device_count()
+            if visible < n:
+                raise ValueError(f"worker_num {worker_num} x tensor_parallel {tp} needs {n} "
+                                 f"CUDA devices, {visible} visible")
+            tp_devices = [torch.device("cuda", i) for i in range(n)]
+        else:
+            tp_devices = [device] * n
+    if len(tp_devices) != n:
+        raise ValueError(f"tp_devices: {len(tp_devices)} devices for worker_num {worker_num} x "
+                         f"tensor_parallel {tp}")
+    return [list(tp_devices[k * tp:(k + 1) * tp]) for k in range(worker_num)]
 
 
 class AsyncEngineCore:
@@ -154,7 +193,8 @@ class AsyncEngineCore:
                    model_factory: Optional[Callable] = None, device=None,
                    warmup_programs: bool = False, state_pool_size: int = 0,
                    tensor_parallel: Optional[int] = None, tp_backend: Optional[str] = None,
-                   tp_devices: Optional[Sequence] = None, tp_timeout: float = 300.0) -> None:
+                   tp_devices: Optional[Sequence] = None, tp_timeout: float = 300.0,
+                   vote_timeout: float = hosts.VOTE_TIMEOUT, graphs: bool = True) -> None:
         """Spawn workers and wait for their worker_loaded handshake. Worker k
         runs on `device`, or on CUDA device k mod the device count when none is
         given; model_factory replaces the synthetic-model factory.
@@ -166,46 +206,76 @@ class AsyncEngineCore:
         pool), and otherwise snapshots go to the host.
 
         tensor_parallel (model_config.tensor_parallel unless given): ranks
-        serving one model (parallel/tp.py), rank r on tp_devices[r]: by
-        default CUDA devices 0..tp-1, or `device` for every rank where one
-        is given. tp_backend: the data group's, NCCL on CUDA and gloo on
-        the CPU unless given; given at tensor_parallel 1, it runs the tp
-        path over a one-rank group. tp_timeout: seconds a collective may
-        wait. One worker only (worker_num x tp comes with multi-host
-        serving); the model is built from model_config on every rank, so
-        model_factory is not taken. The ranks capture CUDA graphs, which
-        gloo on CUDA cannot (ServingModel raises)."""
+        serving each worker's model (parallel/tp.py). Worker k's rank r runs
+        on tp_devices[k*tp + r]: by default CUDA device k*tp + r (a
+        ValueError before any process starts where fewer than worker_num*tp
+        are visible), or `device` for every rank where one is given.
+        tp_backend: the data groups', NCCL on CUDA and gloo on the CPU
+        unless given; given at tensor_parallel 1, it runs the tp path over
+        one-rank groups. tp_timeout: seconds a collective may wait. The
+        model is built from model_config on every rank (seed k for worker
+        k), so model_factory is not taken. graphs: the models built here run
+        the serving programs as CUDA graphs (gloo on CUDA cannot be
+        captured: graphs=False there, else ServingModel raises).
+
+        Lockstep (model_config.lockstep): one worker over this host's rows
+        of the global `batch_size`, which must divide by the number of
+        hosts; with several hosts, on CUDA, tensor_parallel must equal the
+        host's visible devices. Host i's sampler is seeded from 0 and i.
+        vote_timeout: seconds a host waits at the vote."""
         if self.is_initialized:
             raise RuntimeError("Workers already initialized")
         if self.is_shutdown:
             raise RuntimeError("Engine has been shutdown")
         tp = model_config.tensor_parallel if tensor_parallel is None else tensor_parallel
-        if tp > 1 or tp_backend is not None:
+        slot_range = vote = sampler_seed = None
+        if model_config.lockstep:
             if worker_num != 1:
-                raise ValueError(f"worker_num {worker_num} with tensor_parallel {tp}: a tp "
-                                 "group serves one worker here (worker_num x tensor_parallel "
-                                 "comes with multi-host serving, ROADMAP Queue 1 item 7)")
+                raise ValueError("lockstep serving uses exactly one worker per host (the "
+                                 "host's rows of the global batch)")
+            host, dp = hosts.host_world() or (0, 1)
+            if batch_size % dp:
+                raise ValueError(f"batch_size {batch_size} must divide by the {dp} "
+                                 "lockstep hosts")
+            on_cuda = (tp_devices is None and model_factory is None
+                       and (device is None or torch.device(device).type == "cuda"))
+            if dp > 1 and on_cuda and tp != torch.cuda.device_count():
+                raise ValueError(f"lockstep across {dp} hosts requires tensor_parallel == "
+                                 f"the host's visible CUDA devices "
+                                 f"({torch.cuda.device_count()}), got {tp}")
+            batch_size //= dp
+            slot_range = (host * batch_size, (host + 1) * batch_size)
+            sampler_seed = hosts.sampler_seed(0, host)
+        factories: List[Optional[Callable]] = [model_factory] * worker_num
+        if tp > 1 or tp_backend is not None:
             if model_factory is not None:
                 raise ValueError("tensor parallelism builds every rank's model from "
                                  "model_config; model_factory is not taken")
-            if tp_devices is None:
-                if device is None:
-                    resolve_device(None)  # raises without CUDA
-                    if torch.cuda.device_count() < tp:
-                        raise ValueError(f"tensor_parallel {tp} needs {tp} CUDA devices, "
-                                         f"{torch.cuda.device_count()} visible")
-                    tp_devices = [torch.device("cuda", r) for r in range(tp)]
-                else:
-                    tp_devices = [device] * tp
-            connect, self._tp_processes = tp_mod.start(
-                tp, functools.partial(build_serving_model, model_config, batch_size, seed=0),
-                tp_devices, backend=tp_backend, timeout=tp_timeout)
-            model_factory = build_model_factory(model_config, batch_size, device=tp_devices[0],
-                                                tp=connect)
+            groups = _tp_device_groups(worker_num, tp, device, tp_devices)
+            try:
+                for k, group in enumerate(groups):
+                    build = functools.partial(build_serving_model, model_config, batch_size,
+                                              seed=k, sampler_seed=sampler_seed, graphs=graphs)
+                    connect, procs = tp_mod.start(tp, build, group, backend=tp_backend,
+                                                  timeout=tp_timeout, name=f"w{k}")
+                    self._tp_processes += procs
+                    factories[k] = build_model_factory(
+                        model_config, batch_size, device=group[0], seed=k, tp=connect,
+                        sampler_seed=sampler_seed, graphs=graphs)
+            except BaseException:
+                self._stop_followers(0.0)
+                raise
         devices = [device]
-        if model_factory is None and device is None:
+        if None in factories and device is None:
             resolve_device(None)  # raises without CUDA
             devices = [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
+        if model_config.lockstep and hosts.host_world() is not None:
+            try:  # every host joins here: off the event loop
+                vote = await asyncio.get_running_loop().run_in_executor(
+                    None, hosts.vote_group, vote_timeout)
+            except BaseException:
+                self._stop_followers(0.0)
+                raise
         self.event_loop = asyncio.get_running_loop()
         self.worker_event_queue = ThreadSafeAsyncQueue(
             self.event_loop, asyncio.Queue(maxsize=worker_num * 100))
@@ -220,13 +290,15 @@ class AsyncEngineCore:
         for k in range(worker_num):
             master_q: queue.Queue = queue.Queue()
             self.event_queues.append(master_q)
-            factory = model_factory or build_model_factory(
-                model_config, batch_size, device=devices[k % len(devices)], seed=k)
+            factory = factories[k] or build_model_factory(
+                model_config, batch_size, device=devices[k % len(devices)], seed=k,
+                sampler_seed=sampler_seed, graphs=graphs)
             worker = Worker(worker_id=f"worker_{k}", model_factory=factory,
                             task_queue=self.task_queue, master_event_queue=master_q,
                             worker_event_queue=self.worker_event_queue,
                             batch_size=batch_size, decode_block_size=decode_block_size,
-                            warmup_programs=warmup_programs, state_pool_size=pool_rows)
+                            warmup_programs=warmup_programs, state_pool_size=pool_rows,
+                            lockstep=model_config.lockstep, vote=vote, slot_range=slot_range)
             self.workers.append(worker)
             self.worker_threads.append(start_worker_thread(worker))
 

@@ -307,5 +307,8 @@ class ModelLoadConfig:
     # ranks (one process and one device each) that serve one model by tensor
     # parallelism (parallel/tp.py); 1 serves it whole on one device
     tensor_parallel: int = 1
+    # lockstep multi-host serving (parallel/hosts.py): one engine per host,
+    # each over its rows of the global batch, voting once a loop
+    lockstep: bool = False
     # test and benchmark hook: synthetic model instead of a checkpoint file
     synthetic_config: Optional[Dict[str, int]] = None

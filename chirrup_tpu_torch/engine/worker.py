@@ -20,6 +20,22 @@ of the next loop). The block planner pauses only that slot at its boundary.
 A task whose `state` is a PoolHandle of this worker is admitted with the
 zero state and then loads its row; a host RequestState goes through
 insert_slot.
+
+Lockstep (`lockstep=True`, one worker per host, the counterpart of the JAX
+worker's lockstep paths): the worker serves its host's rows `slot_range`
+of the global batch; its carry holds those rows alone. Every loop it
+dispatches one decode block, even with no active slot (K = 1 while a slot
+wants per-step logits, which the block gathers as marked rows), runs at
+most one prefill chunk when the countdown is due, and at its one host read
+of the block all-reduces the block's vote sums over the hosts' vote group
+(parallel/hosts.py): column 0 counts shutdown votes, column 1 the rows
+with a task. Every host sees the same counts at the same loop: a shutdown
+voted on any host stops every host after that loop (each aborts its
+remaining tasks), and when no host has a task every host idles for the
+same loop. No program spans hosts, so an admission, a resume or a snapshot
+needs no round between them: each runs on the host's own rows as it does
+without lockstep. A failure in lockstep (a peer that died, the vote's
+timeout) stops the worker: the hosts can no longer keep in step.
 """
 
 from __future__ import annotations
@@ -85,8 +101,11 @@ class _PendingStep:
     """A dispatched decode step/block whose sampled tokens have not been read yet."""
 
     sampled: Any         # (B,) for single steps, (K, B) for blocks — device tensors
-    raw_logits: Any      # (B, V) for single steps, None for blocks
+    # the raw logits by slot: (B, V) for single steps, {slot: (V,)} for a
+    # lockstep block's marked rows, None otherwise
+    raw_logits: Any
     decode_slots: List[Tuple[int, str]]  # (slot index, task_id at dispatch)
+    votes: Any = None    # a lockstep block's (2,) vote sums on the device
 
 
 class Worker:
@@ -102,7 +121,9 @@ class Worker:
                  task_queue: "queue.Queue[Task]", master_event_queue: queue.Queue,
                  worker_event_queue: Any, batch_size: int = 32,
                  decode_block_size: Optional[int] = None, idle_sleep: float = 0.05,
-                 warmup_programs: bool = False, state_pool_size: int = 0):
+                 warmup_programs: bool = False, state_pool_size: int = 0,
+                 lockstep: bool = False, vote=None,
+                 slot_range: Optional[Tuple[int, int]] = None):
         self.worker_id = worker_id
         self._model_factory = model_factory
         self.task_queue = task_queue
@@ -138,11 +159,28 @@ class Worker:
         self._snapshot_batch: List[Tuple[int, int]] = []
         # host snapshots (task, key, resolver) copying during the next block
         self._pending_snapshots: List[Tuple[Task, Tuple[int, ...], Callable]] = []
+        # lockstep: the hosts' vote group (None: one host), this host's rows
+        # of the global batch, this host's shutdown vote, the last counts
+        # every host saw, and the vote's host seconds and loops
+        self.lockstep = lockstep
+        self.vote = vote
+        self.slot_range = slot_range or (0, batch_size)
+        self._stop_vote = False
+        self.vote_counts: Optional[np.ndarray] = None
+        self.vote_seconds = 0.0
+        self.vote_loops = 0
+        # decode steps dispatched and prefill chunks run (telemetry: with the
+        # kernels' launch counts, launches a step and a chunk)
+        self.steps_run = 0
+        self.chunks_run = 0
 
     # ------------------------------------------------------------------ setup
 
     def _init_worker(self):
         self.model, self.tokenizer = self._model_factory()
+        if self.model.batch_size != self.batch_size:
+            raise ValueError(f"the model serves {self.model.batch_size} rows, the worker "
+                             f"{self.batch_size}")
         self.carry = self.model.init_carry()
         self.max_prefill_count = min(self.max_prefill_count, self.model.prefill_slots)
         if self.decode_block_size is None:
@@ -165,7 +203,7 @@ class Worker:
         m, B = self.model, self.batch_size
         K = max(self.decode_block_size, 1)
         t0 = time.time()
-        if K > 1:
+        if K > 1 or self.lockstep:
             fK = np.zeros((K, B), bool)
             self.carry, _, _ = m.decode_block(self.carry, np.zeros((K, B), np.int32), fK, fK,
                                               fK)
@@ -197,6 +235,11 @@ class Worker:
             except queue.Empty:
                 return False
             if isinstance(event, dict) and event.get("type") == "shutdown":
+                if self.lockstep:
+                    # a host that stopped alone would leave the others
+                    # waiting at the next vote: vote, and stop with them
+                    self._stop_vote = True
+                    return False
                 self.shutdown_flag = True
                 return True
 
@@ -465,13 +508,26 @@ class Worker:
             if phase == SlotPhase.DECODE and slot.phase == SlotPhase.ONE_PREFILL:
                 slot.phase = SlotPhase.DECODE
                 decode_slots.append((idx, task.task_id))
-        self.carry, sampled, _ = self.model.decode_block(self.carry, tokens, feedback,
-                                                         active, decode)
+        votes = logit_rows = raw_logits = None
+        if self.lockstep:
+            votes = np.zeros((B, 2), np.int32)
+            votes[:, 0] = self._stop_vote
+            votes[:, 1] = [s.task is not None for s in self.slots]
+            marks = [idx for idx, slot in enumerate(self.slots)
+                     if active[:, idx].any() and slot.task.return_logits]
+            if marks:
+                logit_rows = np.array(marks, np.int32)
+        out = self.model.decode_block(self.carry, tokens, feedback, active, decode, votes,
+                                      logit_rows)
+        self.carry, sampled = out[0], out[1]
+        if logit_rows is not None:
+            raw_logits = {idx: out[3][K - 1, m] for m, idx in enumerate(marks)}
         for idx, slot in enumerate(self.slots):
             if slot.phase in _STEPPED:
                 self._maybe_snapshot(idx)
-        self._pending = _PendingStep(sampled=sampled, raw_logits=None,
-                                     decode_slots=decode_slots)
+        self._pending = _PendingStep(sampled=sampled, raw_logits=raw_logits,
+                                     decode_slots=decode_slots,
+                                     votes=out[2] if self.lockstep else None)
         return n_active, n_decode
 
     def _dispatch_decode_step(self):
@@ -540,6 +596,7 @@ class Worker:
             tokens[row, :len(chunk)] = chunk
             lengths[row] = len(chunk)
         self.carry = self.model.prefill_step_compact(self.carry, tokens, lengths, slot_idx)
+        self.chunks_run += 1
         return len(fed)
 
     def _process_pending(self):
@@ -548,6 +605,8 @@ class Worker:
         pending, self._pending = self._pending, None
         if pending is None:
             return
+        if pending.votes is not None:
+            self._count_votes(pending.votes)
         sampled_np = pending.sampled.cpu().numpy()
         if sampled_np.ndim == 1:
             sampled_np = sampled_np[None, :]
@@ -583,7 +642,45 @@ class Worker:
                 # one bridge event per slot per block (the interface fans it out)
                 task.output_queue.put_nowait(("tokens_generated", emitted))
 
+    def _count_votes(self, votes) -> None:
+        """Lockstep: every host's vote sums, summed over the hosts (one gloo
+        all-reduce a loop; it raises when a peer has died or within the
+        group's timeout). A shutdown vote on any host stops this one after
+        this loop, as every other."""
+        counts = votes.cpu().numpy().astype(np.int64)
+        if self.vote is not None:
+            t0 = time.perf_counter()
+            counts = self.vote.all_reduce(counts)
+            self.vote_seconds += time.perf_counter() - t0
+            self.vote_loops += 1
+        self.vote_counts = counts
+        if counts[0] > 0:
+            self.shutdown_flag = True
+
     # ------------------------------------------------------------------- loop
+
+    def _run_prefill_chunks(self, n_seq: int, decode_count: int) -> int:
+        """One prefill chunk per `ratio` decode steps: a block of K steps owes
+        K / ratio chunks. While prompts waiting for prefill (in flight,
+        deferred or queued) outnumber the decoding slots and half the batch
+        is empty, the ratio halves, so a cold burst of prompts is ingested
+        faster. Returns the slots fed."""
+        ratio = self.decode_prefill_ratio
+        backlog = n_seq + len(self._deferred_tasks) + self.task_queue.qsize()
+        idle = sum(1 for s in self.slots if s.phase == SlotPhase.EMPTY)
+        if decode_count < backlog and idle >= self.batch_size // 2:
+            ratio = max(1, ratio // 2)
+        if n_seq == 0:
+            # no debt while nothing prefills: it would fire a burst of chunks later
+            self._seq_countdown = max(self._seq_countdown, 0)
+        seq_count = 0
+        while self._seq_countdown < 1 and n_seq > 0:
+            fed = self._run_prefill_step()
+            seq_count += fed
+            self._seq_countdown += max(1, ratio)
+            if fed == 0:
+                break
+        return seq_count
 
     def run_once(self) -> bool:
         """One scheduler iteration; returns True if any forward work was done."""
@@ -606,40 +703,32 @@ class Worker:
         self._flush_snapshot_batch()  # SEQ_PREFILL boundaries, before any dispatch
         n_active = sum(1 for s in self.slots if s.phase in _STEPPED)
         n_seq = sum(1 for s in self.slots if s.phase == SlotPhase.SEQ_PREFILL)
-        if n_active == 0 and n_seq == 0:
+        if n_active == 0 and n_seq == 0 and not self.lockstep:
             self._process_pending()  # drain the last in-flight step before idling
             return False
         decode_count = one_prefill_count = seq_count = 0
-        if n_active > 0:
+        if n_active > 0 or self.lockstep:
+            # lockstep dispatches the block (all-inactive when idle): its
+            # read carries the vote
             K = self._choose_block_size()
-            if K > 1:
+            if K > 1 or self.lockstep:
                 total, decode_count = self._dispatch_decode_block(K)
             else:
                 total, decode_count = self._dispatch_decode_step()
             one_prefill_count = total - decode_count
+            self.steps_run += K
             self._seq_countdown -= K
             self._flush_snapshot_batch()  # the block's boundaries, before a chunk
         else:
             self._seq_countdown = 0
-        # one prefill chunk per `ratio` decode steps: a block of K steps owes
-        # K / ratio chunks. While prompts waiting for prefill (in flight,
-        # deferred or queued) outnumber the decoding slots and half the batch
-        # is empty, the ratio halves, so a cold burst of prompts is ingested
-        # faster.
-        ratio = self.decode_prefill_ratio
-        backlog = n_seq + len(self._deferred_tasks) + self.task_queue.qsize()
-        idle = sum(1 for s in self.slots if s.phase == SlotPhase.EMPTY)
-        if decode_count < backlog and idle >= self.batch_size // 2:
-            ratio = max(1, ratio // 2)
-        if n_seq == 0:
-            # no debt while nothing prefills: it would fire a burst of chunks later
-            self._seq_countdown = max(self._seq_countdown, 0)
-        while self._seq_countdown < 1 and n_seq > 0:
-            fed = self._run_prefill_step()
-            seq_count += fed
-            self._seq_countdown += max(1, ratio)
-            if fed == 0:
-                break
+        if self.lockstep:
+            # at most one chunk a loop, when the countdown is due
+            if self._seq_countdown < 1:
+                if n_seq > 0:
+                    seq_count = self._run_prefill_step()
+                self._seq_countdown = max(1, self.decode_prefill_ratio)
+        else:
+            seq_count = self._run_prefill_chunks(n_seq, decode_count)
         # read the PREVIOUS dispatch's tokens while this one runs on the device
         self._process_pending()
         self._loop_times.append(time.perf_counter() - loop_start)
@@ -655,8 +744,11 @@ class Worker:
             "state_pool_free_rows": (self.pool_allocator.available()
                                      if self.state_pool is not None else None),
             "max_allocated_memory_GB": self._device_memory_gb(),
+            "vote_us": (round(1e6 * self.vote_seconds / self.vote_loops, 1)
+                        if self.vote_loops else None),
         })
-        return True
+        # lockstep: every host idles at the same loop, when no host has a task
+        return not (self.lockstep and self.vote_counts[1] == 0)
 
     def _device_memory_gb(self) -> Optional[float]:
         if self.model.device.type != "cuda":
@@ -689,8 +781,16 @@ class Worker:
                 traceback.print_exc()
                 self._emit_worker_event("worker_error", {"error": str(exc)})
                 self._abort_all_tasks()
+                if self.lockstep:
+                    break  # out of step with the other hosts for good
                 time.sleep(0.5)
                 continue
+            if self.shutdown_flag:
+                # lockstep quorum: every host stops after this loop
+                print(f"[{self.worker_id}] lockstep shutdown after loop {self.loop_count}",
+                      flush=True)
+                self._abort_all_tasks()
+                break
             if not did_work:
                 time.sleep(self.idle_sleep)
         self._cleanup()
@@ -713,7 +813,9 @@ class Worker:
     def _cleanup(self):
         """Drop the carry and the model; under tp the model's close() stops
         the other ranks and leaves the group (from this thread, which made
-        every call)."""
+        every call). Under lockstep, leave the vote group."""
+        if self.vote is not None:
+            self.vote.close()
         self.carry = None
         close = getattr(self.model, "close", None)
         if close is not None:

@@ -20,7 +20,8 @@ went through (the WKV kernels' precision="bf16" instances count under
 launches nothing: its counts go to that capture's own tally
 (``record_launches``), never to ``LAUNCHES``, so other threads' launches
 meanwhile are counted as they happen; each replay of the graph adds the
-tally (``add_launches``).
+tally (``add_launches``). Every count also goes to the launching thread's
+own tally (``thread_launches``: one worker's launches among several).
 """
 
 from __future__ import annotations
@@ -50,6 +51,9 @@ LAUNCHES: Dict[str, int] = {"wkv7_step_fused": 0, "wkv7_chunk_fused": 0, "wkv7_b
                             "wkv7_batch_bf16": 0, "mm8_a8_quant_rows": 0, "mm8_a8_gemm": 0,
                             "mm8_w16_gemm": 0, "penalty_tail": 0, "sample_exact_rows": 0}
 
+# launch counts by thread name, then kernel name (under _count_lock)
+_BY_THREAD: Dict[str, Dict[str, int]] = {}
+
 _lock = threading.Lock()
 _count_lock = threading.Lock()
 _capturing = threading.local()  # .tally: the counts of this thread's capture
@@ -63,6 +67,19 @@ def reset_launches() -> None:
     with _count_lock:
         for name in LAUNCHES:
             LAUNCHES[name] = 0
+        _BY_THREAD.clear()
+
+
+def thread_launches(thread_name: str) -> Dict[str, int]:
+    """The launches counted on the thread of that name since the last reset."""
+    with _count_lock:
+        return dict(_BY_THREAD.get(thread_name, {}))
+
+
+def _add(name: str, n: int) -> None:
+    LAUNCHES[name] += n
+    own = _BY_THREAD.setdefault(threading.current_thread().name, {})
+    own[name] = own.get(name, 0) + n
 
 
 def count_launch(name: str) -> None:
@@ -73,7 +90,7 @@ def count_launch(name: str) -> None:
         tally[name] = tally.get(name, 0) + 1
         return
     with _count_lock:
-        LAUNCHES[name] += 1
+        _add(name, 1)
 
 
 def record_launches(fn: Callable[[], Any]) -> Tuple[Any, Dict[str, int]]:
@@ -93,7 +110,7 @@ def add_launches(counts: Dict[str, int]) -> None:
     """Count the launches of one replay of a captured graph."""
     with _count_lock:
         for name, n in counts.items():
-            LAUNCHES[name] += n
+            _add(name, n)
 
 
 def _nvcc() -> str:

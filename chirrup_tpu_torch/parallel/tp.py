@@ -13,6 +13,13 @@ device r:
   shard, in the same order, so their collectives meet rank 0's;
 - the calls travel on a gloo group of their own (`ctrl`) beside the data
   group (`group`: NCCL on CUDA, gloo on the CPU or where asked for);
+- both groups are process-group objects of the group's own, built on a
+  TCPStore that rank 0 serves (`start`), never the default process group:
+  one process can be rank 0 of several groups (one a worker, on disjoint
+  devices) and hold a lockstep hosts' vote group (parallel/hosts.py)
+  besides; their collectives go through the group object
+  (`pg.allreduce([t]).wait()`), as c10d's functions take only groups it
+  registered;
 - every rank samples from the same gathered logits with the same generator,
   so every rank's tokens agree and no token is sent (an NCCL all-reduce
   gives every rank the same bits).
@@ -45,11 +52,14 @@ given, and a failing collective raises.
 from __future__ import annotations
 
 import collections
+import contextlib
 import dataclasses
 import datetime
 import itertools
 import multiprocessing
-import socket
+import os
+import pickle
+import sys
 import time
 import traceback
 import weakref
@@ -65,9 +75,8 @@ _ATT_COL = frozenset({"Wr", "Wk", "Wv", "w2", "a2", "v2", "g2", "w0", "a0", "v0"
                       "k_k", "k_a", "ln_x_w", "ln_x_b"})
 # the control group waits for rank 0's next call as long as the server idles
 CTRL_TIMEOUT = datetime.timedelta(days=365)
-# where the control group's pickled calls are staged (gloo would otherwise
-# stage them through the current CUDA device)
-_HOST = torch.device("cpu")
+# the address rank 0's group store binds (the ranks of a group share a host)
+STORE_HOST = "127.0.0.1"
 
 
 # ------------------------------------------------------------------ layout
@@ -189,6 +198,8 @@ class TPContext:
     group: Any
     ctrl: Any
     processes: Sequence[Any] = ()
+    # the group's store (rank 0 serves it; kept for the group's life)
+    store: Any = dataclasses.field(default=None, repr=False)
     _oids: Dict[int, int] = dataclasses.field(default_factory=dict, repr=False)
     _keep: List[Any] = dataclasses.field(default_factory=list, repr=False)
     # ids of collected carries, sent with the next call (finalizers append
@@ -201,7 +212,7 @@ class TPContext:
 
     def all_reduce(self, t: torch.Tensor) -> torch.Tensor:
         """The sum over the ranks, in place (the reduce_fn of the forward)."""
-        dist.all_reduce(t, group=self.group)
+        self.group.allreduce([t]).wait()
         return t
 
     def all_gather(self, t: torch.Tensor) -> torch.Tensor:
@@ -211,11 +222,11 @@ class TPContext:
         t = t.contiguous()
         if self.backend == "nccl":
             out = torch.empty((self.world,) + tuple(t.shape), dtype=t.dtype, device=t.device)
-            dist.all_gather_into_tensor(out, t, group=self.group)
+            self.group._allgather_base(out, t).wait()
             return out
         out = torch.zeros((self.world,) + tuple(t.shape), dtype=t.dtype, device=t.device)
         out[self.rank].copy_(t)
-        dist.all_reduce(_words(out), group=self.group)
+        self.group.allreduce([_words(out)]).wait()
         return out
 
     def gather_vocab(self, logits: torch.Tensor) -> torch.Tensor:
@@ -235,9 +246,8 @@ class TPContext:
 
     def gather_object(self, obj) -> Optional[List[Any]]:
         """Every rank's obj, by rank, on rank 0 (None elsewhere)."""
-        out = [None] * self.world if self.rank == 0 else None
-        dist.gather_object(obj, out, dst=0, group=self.ctrl)
-        return out
+        out = gather_objects(self.ctrl, self.rank, self.world, obj)
+        return out if self.rank == 0 else None
 
     # ----------------------------------------------------------- calls
 
@@ -279,14 +289,11 @@ class TPContext:
         self.check_followers()
         oid = next(self._counter) if returns else None
         released = [self._released.popleft() for _ in range(len(self._released))]
-        dist.broadcast_object_list([(name, args, kwargs, oid, released)], src=0,
-                                   group=self.ctrl, device=_HOST)
+        broadcast_object(self.ctrl, 0, (name, args, kwargs, oid, released))
         return oid
 
     def recv_call(self):
-        box = [None]
-        dist.broadcast_object_list(box, src=0, group=self.ctrl, device=_HOST)
-        return box[0]
+        return broadcast_object(self.ctrl, self.rank)
 
     def close(self) -> None:
         """Rank 0: tell the followers to stop; every rank: leave the group."""
@@ -294,26 +301,92 @@ class TPContext:
             return
         self.closed = True
         try:
-            if self.rank == 0 and self.world > 1 and all(p.is_alive() for p in self.processes):
-                dist.broadcast_object_list([None], src=0, group=self.ctrl, device=_HOST)
+            if all(p.is_alive() for p in self.processes):
+                if self.device.type == "cuda":
+                    # every collective this rank queued completes before the abort
+                    torch.cuda.synchronize(self.device)
+                if self.rank == 0 and self.world > 1:
+                    broadcast_object(self.ctrl, 0, None)
         finally:
-            if dist.is_initialized():
-                dist.destroy_process_group()
+            shutdown_group(self.group, self.backend)
+            shutdown_group(self.ctrl, "gloo")
 
 
-def free_init_method() -> str:
-    """A tcp:// rendezvous on a free local port."""
-    with socket.socket() as s:
-        s.bind(("localhost", 0))
-        return f"tcp://localhost:{s.getsockname()[1]}"
+# ------------------------------------------------------------------ groups
+
+def new_group(store, rank: int, world: int, backend: str, timeout: float):
+    """A process-group object of `world` ranks on `store` (a PrefixStore of
+    its own), NCCL or gloo, that c10d does not register: collectives go
+    through its methods. NCCL creates its communicator at the first
+    collective, on the device of that collective's tensor."""
+    delta = datetime.timedelta(seconds=timeout)
+    if backend == "gloo":
+        return dist.ProcessGroupGloo(store, rank, world, delta)
+    if backend == "nccl":
+        opts = dist.ProcessGroupNCCL.Options()
+        opts._timeout = delta
+        return dist.ProcessGroupNCCL(store, rank, world, opts)
+    raise ValueError(f"process group backend {backend!r}: one of nccl, gloo")
 
 
-def init_context(rank: int, world: int, device, backend: str, init_method: str,
+def shutdown_group(pg, backend: str) -> None:
+    """Release a group's connections (a group whose peer died may refuse).
+    NCCL's communicators are aborted: its graceful shutdown at world 2 (two
+    groups of one process, or a lockstep host's group, on H100s) did not
+    return."""
+    stop = getattr(pg, "abort" if backend == "nccl" else "shutdown", None)
+    if stop is not None:
+        with contextlib.suppress(RuntimeError):
+            stop()
+
+
+def broadcast_object(pg, rank: int, obj=None):
+    """Rank 0's picklable `obj` on every rank of a gloo group (length, then
+    bytes, both on the host)."""
+    if rank == 0:
+        data = pickle.dumps(obj)
+        n = torch.tensor([len(data)], dtype=torch.int64)
+    else:
+        n = torch.zeros(1, dtype=torch.int64)
+    pg.broadcast([n]).wait()
+    buf = (torch.frombuffer(bytearray(data), dtype=torch.uint8) if rank == 0
+           else torch.empty(int(n), dtype=torch.uint8))
+    pg.broadcast([buf]).wait()
+    return obj if rank == 0 else pickle.loads(buf.numpy().tobytes())
+
+
+def gather_objects(pg, rank: int, world: int, obj) -> List[Any]:
+    """Every rank's picklable `obj`, by rank, on every rank of a gloo group
+    (each rank's bytes in its own row of a zeroed buffer, summed)."""
+    data = pickle.dumps(obj)
+    sizes = torch.zeros(world, dtype=torch.int64)
+    sizes[rank] = len(data)
+    pg.allreduce([sizes]).wait()
+    buf = torch.zeros((world, int(sizes.max())), dtype=torch.uint8)
+    buf[rank, :len(data)] = torch.frombuffer(bytearray(data), dtype=torch.uint8)
+    pg.allreduce([buf]).wait()
+    return [pickle.loads(buf[r, :int(sizes[r])].numpy().tobytes()) for r in range(world)]
+
+
+def serve_store(timeout: float) -> dist.TCPStore:
+    """Rank 0's store for one group, on a free local port (`.port`)."""
+    return dist.TCPStore(STORE_HOST, 0, is_master=True, wait_for_workers=False,
+                         timeout=datetime.timedelta(seconds=timeout))
+
+
+def connect_store(port: int, timeout: float) -> dist.TCPStore:
+    return dist.TCPStore(STORE_HOST, port, is_master=False,
+                         timeout=datetime.timedelta(seconds=timeout))
+
+
+def init_context(rank: int, world: int, device, backend: str, store,
                  timeout: float = 300.0, processes: Sequence[Any] = ()) -> TPContext:
-    """Join the group as `rank` (blocks until every rank has joined): the
-    default process group on `backend` (the data group) and a gloo control
-    group; one eager all-reduce warms the communicator (NCCL must have it
-    before a CUDA graph captures a collective)."""
+    """Join the group on `store` as `rank` (blocks until every rank has
+    joined): the data group on `backend` and a gloo control group, each on
+    a prefix of the store. A CUDA rank selects its device first, in the
+    calling thread (the thread that makes every call of this rank); one
+    eager all-reduce warms the communicator (NCCL must have it before a
+    CUDA graph captures a collective)."""
     device = torch.device(device)
     if backend not in ("nccl", "gloo"):
         raise ValueError(f"tp backend {backend!r}: one of nccl, gloo")
@@ -321,17 +394,20 @@ def init_context(rank: int, world: int, device, backend: str, init_method: str,
         raise ValueError(f"tp: nccl needs CUDA devices, not {device}")
     if device.type == "cuda":
         torch.cuda.set_device(device)
-    dist.init_process_group(backend, init_method=init_method, world_size=world, rank=rank,
-                            timeout=datetime.timedelta(seconds=timeout))
+    group = new_group(dist.PrefixStore("data", store), rank, world, backend, timeout)
+    ctrl = None
     try:
-        ctrl = dist.new_group(backend="gloo", timeout=CTRL_TIMEOUT)
+        ctrl = new_group(dist.PrefixStore("ctrl", store), rank, world, "gloo",
+                         CTRL_TIMEOUT.total_seconds())
         ctx = TPContext(rank=rank, world=world, device=device, backend=backend,
-                        group=dist.group.WORLD, ctrl=ctrl, processes=list(processes))
+                        group=group, ctrl=ctrl, processes=list(processes), store=store)
         ctx.all_reduce(torch.zeros(1, device=device))
         if device.type == "cuda":
             torch.cuda.synchronize(device)
     except BaseException:
-        dist.destroy_process_group()
+        shutdown_group(group, backend)
+        if ctrl is not None:
+            shutdown_group(ctrl, "gloo")
         raise
     return ctx
 
@@ -363,47 +439,58 @@ def follow(model, ctx: TPContext) -> None:
             objects[oid] = result
 
 
-def _follower_main(rank: int, world: int, device: str, backend: str, init_method: str,
+def _follower_main(rank: int, world: int, device: str, backend: str, port: int,
                    timeout: float, build: Callable[[TPContext], Any]) -> None:
     ctx = None
     if torch.device(device).type == "cpu":
         # CPU ranks share the host's cores
         torch.set_num_threads(max(1, torch.get_num_threads() // world))
     try:
-        ctx = init_context(rank, world, device, backend, init_method, timeout)
+        ctx = init_context(rank, world, device, backend, connect_store(port, timeout), timeout)
         follow(build(ctx), ctx)
     except BaseException:
         traceback.print_exc()
+        if ctx is not None:
+            ctx.close()
         raise
-    finally:
-        if ctx is not None and dist.is_initialized():
-            dist.destroy_process_group()
+    # rank 0 closed the group: leave at once, and let the exit release the
+    # groups. A follower that closed its NCCL group itself did not return
+    # from the close at world 2 on H100s, and the interpreter's teardown
+    # destroys the groups' objects (and their C++ threads) in an order of
+    # its own
+    sys.stdout.flush()
+    sys.stderr.flush()
+    os._exit(0)
 
 
 def start(world: int, build: Callable[[TPContext], Any], devices: Sequence[Any],
-          backend: Optional[str] = None, timeout: float = 300.0
+          backend: Optional[str] = None, timeout: float = 300.0, name: str = ""
           ) -> Tuple[Callable[[], TPContext], List[Any]]:
     """Start ranks 1..world-1 as spawned processes, each joining the group,
     building its model with `build(ctx)` (a picklable callable; it must make
     the same ServingModel as rank 0's) and following rank 0's calls. Returns
     rank 0's `connect()` (join the group, in the thread that will make the
     calls) and the follower processes. devices[r] is rank r's device; the
-    backend is NCCL on CUDA devices and gloo otherwise unless one is given."""
+    backend is NCCL on CUDA devices and gloo otherwise unless one is given.
+    The group's store is served here, on a port of its own, so one process
+    can start several groups. `name` tells the processes of several groups
+    apart."""
     devices = [torch.device(d) for d in devices]
     if len(devices) != world:
         raise ValueError(f"tp: {world} ranks need {world} devices, got {len(devices)}")
     if backend is None:
         backend = "nccl" if devices[0].type == "cuda" else "gloo"
-    init_method = free_init_method()
+    store = serve_store(timeout)
     spawn = multiprocessing.get_context("spawn")
-    procs = [spawn.Process(target=_follower_main, name=f"chirrup_tpu_torch:tp{r}", daemon=True,
-                           args=(r, world, str(devices[r]), backend, init_method, timeout, build))
+    procs = [spawn.Process(target=_follower_main, name=f"chirrup_tpu_torch:{name}tp{r}",
+                           daemon=True,
+                           args=(r, world, str(devices[r]), backend, store.port, timeout, build))
              for r in range(1, world)]
     for p in procs:
         p.start()
 
     def connect() -> TPContext:
-        return init_context(0, world, devices[0], backend, init_method, timeout, processes=procs)
+        return init_context(0, world, devices[0], backend, store, timeout, processes=procs)
 
     return connect, procs
 

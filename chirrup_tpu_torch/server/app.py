@@ -80,6 +80,7 @@ def _model_config_from_server_config(config: ServerConfig) -> ModelLoadConfig:
         activation_dtype=config.activation_dtype,
         prefill_chunk=config.prefill_chunk,
         tensor_parallel=config.tensor_parallel,
+        lockstep=bool(config.lockstep),
         synthetic_config=synthetic,
     )
 

@@ -36,11 +36,13 @@ class ServerConfig:
     # device: 16 on CUDA, 1 on the CPU); a bigger block spends less host time
     # a token and overshoots a stop token by more
     decode_block_size: int = 0
-    # ranks serving one model by tensor parallelism: one process a rank, rank
-    # r on CUDA device r, NCCL between them (parallel/tp.py); lockstep
-    # multi-host serving comes with the multi-host slice, and parse_config
-    # refuses it
+    # ranks serving each worker's model by tensor parallelism: one process a
+    # rank, worker k's rank r on CUDA device k*tp + r, NCCL between them
+    # (parallel/tp.py)
     tensor_parallel: int = 1
+    # 1: lockstep multi-host serving, one server per host under torchrun
+    # (MASTER_ADDR, MASTER_PORT, WORLD_SIZE, RANK; parallel/hosts.py), each
+    # over batch_size / hosts rows of the global batch
     lockstep: int = 0
     # seconds the workers have to load the model, warm up and capture their
     # CUDA graphs before the server gives up
@@ -108,10 +110,4 @@ def parse_config(argv: Optional[List[str]] = None) -> ServerConfig:
     cfg.profile = profile
     if cfg.tensor_parallel < 1:
         parser.error(f"--tensor_parallel {cfg.tensor_parallel}: at least 1")
-    if cfg.lockstep:
-        parser.error("lockstep multi-host serving comes with the port's multi-host "
-                     "slice (ROADMAP Queue 1 item 7); this server runs on one host")
-    if cfg.tensor_parallel > 1 and cfg.worker_num != 1:
-        parser.error("--tensor_parallel > 1 serves one worker (worker_num x "
-                     "tensor_parallel comes with the multi-host slice)")
     return cfg

@@ -4,7 +4,10 @@ aiohttp (the standard library only).
 What it does, and nothing more:
 - requests: GET (and HEAD), POST and OPTIONS; the body read by
   Content-Length (at most MAX_BODY bytes, as aiohttp's default
-  client_max_size; `Expect: 100-continue` answered); keep-alive;
+  client_max_size; `Expect: 100-continue` answered); keep-alive; a body
+  over MAX_BODY is answered 413, and the connection is closed only after
+  the rest of the body is read (up to DRAIN_BYTES, for DRAIN_SECONDS), so a
+  client still sending reads the 413 instead of a reset;
 - responses: `Response` (a whole body with its length) and `StreamResponse`
   (a head, then chunks: server-sent events and long JSON bodies);
 - the JAX server's middleware behaviour (chirrup_tpu/server/app.py
@@ -33,6 +36,9 @@ KEEPALIVE_SECONDS = 10.0
 SSE_KEEPALIVE = b": keep-alive\n\n"
 MAX_BODY = 1 << 20
 MAX_HEAD = 64 << 10
+# what a connection that was answered 413 still reads of its body, and how long
+DRAIN_BYTES = 64 << 20
+DRAIN_SECONDS = 10.0
 
 CORS_HEADERS = {
     "Access-Control-Allow-Origin": "*",
@@ -67,6 +73,7 @@ class Request:
                  headers: Dict[str, str], body: bytes):
         self.app = app
         self.method = method
+        self.target = target  # the path with its query
         self.path = urlsplit(target).path
         self.version = version
         self.headers = headers  # names lower-cased
@@ -144,8 +151,10 @@ Handler = Callable[[Request], Awaitable[Any]]
 
 
 class _BadRequest(Exception):
-    def __init__(self, status: int, message: str):
-        self.status, self.message = status, message
+    """`unread`: body bytes the client has yet to send."""
+
+    def __init__(self, status: int, message: str, unread: int = 0):
+        self.status, self.message, self.unread = status, message, unread
 
 
 class _Connection:
@@ -183,6 +192,29 @@ class _Connection:
         del self.buf[:n]
         return body
 
+    async def discard(self, n: int) -> None:
+        """After a response that ends the connection: half-close it, then read
+        and drop the rest of a body of n bytes (at most DRAIN_BYTES, for at
+        most DRAIN_SECONDS). Closing a socket with unread input resets it,
+        and a client still sending would get the reset instead of the
+        response."""
+        if self.writer.can_write_eof():
+            self.writer.write_eof()
+        n = min(n - len(self.buf), DRAIN_BYTES)
+        self.buf.clear()
+
+        async def drain(n: int) -> None:
+            while n > 0:
+                data = await self.reader.read(min(n, 65536))
+                if not data:
+                    return
+                n -= len(data)
+
+        try:
+            await asyncio.wait_for(drain(n), DRAIN_SECONDS)
+        except (asyncio.TimeoutError, ConnectionError):
+            pass
+
     async def watch_hangup(self) -> None:
         """Returns when the client closes; keeps what else it sends."""
         try:
@@ -193,11 +225,14 @@ class _Connection:
 
 
 class Server:
-    """Routes {(method, path): handler}; `app` is what request.app gives."""
+    """Routes {(method, path): handler}; `app` is what request.app gives;
+    `fallback` answers every request no route takes (404 and 405 without)."""
 
-    def __init__(self, app, routes: Dict[Tuple[str, str], Handler]):
+    def __init__(self, app, routes: Dict[Tuple[str, str], Handler],
+                 fallback: Optional[Handler] = None):
         self.app = app
         self.routes = routes
+        self.fallback = fallback
         self.paths = {path for _, path in routes}
         self._server: Optional[asyncio.base_events.Server] = None
         self._writers: set = set()
@@ -226,6 +261,8 @@ class Server:
                     await json_response(error_json(exc.message, "invalid_request_error",
                                                    exc.status),
                                         status=exc.status).send(writer, keep_alive=False)
+                    if exc.unread:
+                        await conn.discard(exc.unread)
                     break
                 if request is None or not await self._serve(conn, request):
                     break
@@ -252,7 +289,8 @@ class Server:
         if "chunked" in headers.get("transfer-encoding", "").lower():
             raise _BadRequest(411, "a request body needs a Content-Length")
         if length > MAX_BODY:
-            raise _BadRequest(413, f"request body of {length} bytes exceeds {MAX_BODY}")
+            raise _BadRequest(413, f"request body of {length} bytes exceeds {MAX_BODY}",
+                              unread=length)
         if length and headers.get("expect", "").lower() == "100-continue":
             conn.writer.write(b"HTTP/1.1 100 Continue\r\n\r\n")
         body = await conn.read_body(length)
@@ -290,7 +328,7 @@ class Server:
         if request.method == "OPTIONS":
             return Response()
         method = "GET" if request.method == "HEAD" else request.method
-        handler = self.routes.get((method, request.path))
+        handler = self.routes.get((method, request.path)) or self.fallback
         try:
             if handler is None:
                 raise HTTPError(405 if request.path in self.paths else 404)

@@ -324,9 +324,26 @@ def test_routing_errors_and_keep_alive(server):
 
 
 def test_oversized_and_expect_continue(server):
+    """A body over 1 MiB is answered 413, also to a client that goes on
+    sending a 2 MiB body in slow pieces after the answer: it sends every
+    piece and then reads the 413 (a server that closed with the body unread
+    would reset the connection under it)."""
     status, _, body = request(server.port, "POST", "/v1/chat/completions",
                               b"x" * ((1 << 20) + 1), raw=True)
     assert status == 413 and json.loads(body)["error"]["code"] == 413
+    size, piece = 2 << 20, 64 << 10
+    with socket.create_connection(("127.0.0.1", server.port), timeout=60) as sock:
+        sock.sendall(b"POST /v1/chat/completions HTTP/1.1\r\nHost: x\r\n"
+                     b"Content-Type: application/json\r\nContent-Length: %d\r\n\r\n" % size)
+        time.sleep(0.2)  # the 413 is written while the body is still coming
+        for _ in range(size // piece):
+            sock.sendall(b"x" * piece)
+            time.sleep(0.01)
+        reply = b""
+        while chunk := sock.recv(65536):
+            reply += chunk
+    head, _, body = reply.partition(b"\r\n\r\n")
+    assert head.startswith(b"HTTP/1.1 413 ") and json.loads(body)["error"]["code"] == 413
     status, _, body = request(server.port, "POST", "/v1/chat/completions", {
         "messages": [{"role": "user", "content": "hi " * 20}], "max_tokens": 1,
         "use_state_cache": False, "cache_prefill": False},
@@ -545,8 +562,11 @@ def test_config_layering_and_refusals(monkeypatch):
     assert cfg.decode_block_size == PROFILES["h100-7b2"]["decode_block_size"]
     assert parse_config([]).batch_size == 12
     assert parse_config(["--tensor-parallel", "2"]).tensor_parallel == 2
-    for argv in (["--tensor-parallel", "2", "--worker-num", "2"], ["--tensor-parallel", "0"],
-                 ["--lockstep", "1"], ["--profile", "v5e-7b2"]):
+    # worker_num x tensor_parallel and lockstep are served (no longer refused)
+    cfg = parse_config(["--tensor-parallel", "2", "--worker-num", "2"])
+    assert (cfg.tensor_parallel, cfg.worker_num) == (2, 2)
+    assert parse_config(["--lockstep", "1"]).lockstep == 1
+    for argv in (["--tensor-parallel", "0"], ["--profile", "v5e-7b2"]):
         with pytest.raises(SystemExit):
             parse_config(argv)
 

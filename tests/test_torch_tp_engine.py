@@ -199,15 +199,21 @@ def test_tp2_serves_a_pth_and_its_int8_native_dir(vocab_path, tmp_path):
     assert greedy(native_dir, 2) == want
 
 
-def test_engine_refuses_worker_num_with_tp(vocab_path, model_path):
-    """worker_num > 1 with tensor_parallel > 1 (disjoint device groups in
-    the JAX engine) raises before any process starts; so does a model
-    factory, which the other ranks could not call."""
+def test_engine_refuses_worker_num_with_tp(vocab_path, model_path, monkeypatch):
+    """worker_num x tensor_parallel ranks beyond the visible CUDA devices
+    (disjoint device groups in the JAX engine) raise before any process
+    starts; so does a model factory, which the other ranks could not
+    call."""
     cfg = _config(vocab_path, model_path, tp=2)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "current_device", lambda: 0)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 3)
     eng = AsyncEngineCore()
-    with pytest.raises(ValueError, match="worker_num 2 with tensor_parallel 2"):
-        asyncio.run(eng.init(worker_num=2, model_config=cfg, device="cpu"))
+    with pytest.raises(ValueError, match="worker_num 2 x tensor_parallel 2 needs 4 CUDA "
+                                         "devices, 3 visible"):
+        asyncio.run(eng.init(worker_num=2, model_config=cfg))
     assert eng._tp_processes == []
+    monkeypatch.undo()
     with pytest.raises(ValueError, match="model_factory"):
         asyncio.run(AsyncEngineCore().init(worker_num=1, model_config=cfg, device="cpu",
                                            model_factory=lambda: None))
@@ -226,21 +232,23 @@ def test_tp_needs_its_cuda_devices(vocab_path, model_path):
 
 def test_server_tensor_parallel_flag_reaches_model_load_config(capsys):
     """--tensor_parallel reaches ModelLoadConfig (tests/test_engine_tp.py:
-    122-132); lockstep and worker_num x tp are refused with the multi-host
-    slice named."""
+    122-132), as do --lockstep 1 and --worker_num 2 --tensor_parallel 2; a
+    tensor_parallel below 1 is refused."""
     from chirrup_tpu_torch.server.app import _model_config_from_server_config
     from chirrup_tpu_torch.server.config import parse_config
 
     sc = parse_config(["--tensor_parallel", "4", "--synthetic_model", "2,128",
                        "--vocab_path", "/dev/null"])
     mc = _model_config_from_server_config(sc)
-    assert isinstance(mc, ModelLoadConfig) and mc.tensor_parallel == 4
-    for argv, msg in ((["--lockstep", "1"], "multi-host"),
-                      (["--tensor_parallel", "2", "--worker_num", "2"], "multi-host"),
-                      (["--tensor_parallel", "0"], "at least 1")):
-        with pytest.raises(SystemExit):
-            parse_config(argv)
-        assert msg in capsys.readouterr().err
+    assert isinstance(mc, ModelLoadConfig) and mc.tensor_parallel == 4 and not mc.lockstep
+    sc = parse_config(["--lockstep", "1", "--vocab_path", "/dev/null"])
+    assert _model_config_from_server_config(sc).lockstep is True
+    sc = parse_config(["--worker_num", "2", "--tensor_parallel", "2", "--vocab_path", "/dev/null"])
+    mc = _model_config_from_server_config(sc)
+    assert (sc.worker_num, mc.tensor_parallel) == (2, 2)
+    with pytest.raises(SystemExit):
+        parse_config(["--tensor_parallel", "0"])
+    assert "at least 1" in capsys.readouterr().err
 
 
 def test_server_entry_point_serves_at_tp2(vocab_path, model_path):
